@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Drive xdem_tpu_torch's main path once on one NVIDIA GPU and check every step.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases:
+  1. device: the card's name and power limit; exits non-zero without CUDA;
+  2. build: compiles the CUDA kernels K1, K2, K3 from ``xdem_tpu_torch/csrc`` with nvcc;
+  3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
+     2047 x 2061 DEM with NaN holes and a NaN border strip (scaled max deviation <= 1e-3,
+     identical NaN masks);
+  4. main path at 10 000 x 10 000 (20 m pixels): the 14-attribute terrain suite and a
+     Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
+     Every kernel must have launched; the fit must recover the shift within 5 % and cut
+     var(dh) below 1 %; suite, kernel (beside plain) and fit times are printed.
+The line before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. Any failure exits non-zero before that line.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+TOL = 1e-3  # terrain parity: max deviation <= 1e-3 of the mean magnitude
+TBA_SHIFT = (-9.2, 4.6, -2.35)  # (east, north, up) metres applied to the tba DEM
+RES = 20.0
+MAIN_SIZE = 10000  # side of the main-path DEM in pixels (SURVEY §6 north-star cell)
+SUITE = ("slope", "aspect", "hillshade", "profile_curvature", "tangential_curvature",
+         "planform_curvature", "flowline_curvature", "max_curvature", "min_curvature",
+         "topographic_position_index", "terrain_ruggedness_index", "roughness", "rugosity",
+         "fractal_roughness")
+KERNELS = {
+    "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
+    "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
+    "fractal": ("xdem_tpu_torch/csrc/fractal.cu", "xdem_tpu/terrain/pallas_kernels.py:370"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def device_ms(fn, reps: int = 3) -> float:
+    """Median device time of fn() in ms, by CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def spectral_dem(n: int, seed: int, shift_px: tuple[float, float] = (0.0, 0.0), device="cpu"):
+    """Seeded 1/f^2.7 spectral DEM on an n x n grid (the recipe of the repository's example
+    DEM), optionally translated by (rows, cols) pixels through a Fourier phase ramp.
+    Returns float64 heights normalised to [0, 1000] m by the unshifted field's range."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fy = np.fft.fftfreq(n)[:, None]
+    fx = np.fft.rfftfreq(n)[None, :]
+    f = np.hypot(fx, fy)
+    f[0, 0] = 1.0
+    amp = f**-2.7
+    amp[0, 0] = 0
+    phase = rng.uniform(0, 2 * np.pi, amp.shape)
+    spec = torch.polar(torch.from_numpy(amp).to(device), torch.from_numpy(phase).to(device))
+    z = torch.fft.irfft2(spec, s=(n, n))
+    zmin, zmax = z.min(), z.max()
+    out = []
+    for dr, dc in ((0.0, 0.0), shift_px):
+        # f(r - dr, c - dc) <-> F * exp(-2i*pi*(fy*dr + fx*dc))
+        ramp = torch.from_numpy(-2 * np.pi * (fy * dr + fx * dc)).to(device)
+        zs = torch.fft.irfft2(spec * torch.polar(torch.ones_like(ramp), ramp), s=(n, n))
+        out.append((zs - zmin) / (zmax - zmin) * 1000.0)
+    return out
+
+
+def scaled_dev(got, want, circular: bool = False) -> tuple[float, float, bool]:
+    """(max |got - want| / mean |want|, max |got - want|, NaN masks equal) over the jointly
+    finite pixels; `circular` measures angle differences around 2*pi."""
+    import torch
+
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    both = torch.isfinite(got) & torch.isfinite(want)
+    if not bool(both.any()):
+        return 0.0, 0.0, same_nan
+    d = torch.abs(got[both].double() - want[both].double())
+    if circular:
+        d = torch.minimum(d, 2 * math.pi - d)
+    scale = float(torch.abs(want[both].double()).mean()) or 1.0
+    err = float(d.max())
+    return err / scale, err, same_nan
+
+
+def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
+    """Each kernel against its plain version on the card; returns max abs error per kernel."""
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit, window
+
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    z = spectral_dem(max(shape), seed, device=dev)[0][:h, :w].float().contiguous()
+    for _ in range(12):
+        r, c = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+        z[r:r + int(rng.integers(1, 40)), c:c + int(rng.integers(1, 40))] = float("nan")
+    z[:, -3:] = float("nan")  # NaN border strip
+    max_err = {k: 0.0 for k in KERNELS}
+
+    def compare(kernel: str, label: str, attrs, got, want) -> None:
+        for i, a in enumerate(attrs):
+            rel, err, same = scaled_dev(got[i], want[i], circular=a == "aspect")
+            print(f"  {kernel:11s} {label:38s} {a:28s} scaled_dev={rel:.3e} max_abs={err:.3e} nan_mask_equal={same}")
+            check(same, f"{kernel} {label} {a}: NaN masks differ")
+            check(rel <= TOL, f"{kernel} {label} {a}: scaled deviation {rel:.3e} > {TOL}")
+            max_err[kernel] = max(max_err[kernel], err)
+
+    all10 = surfit.SURFACE_FIT_ATTRS
+    for fit, curv, attrs, zf in (("Horn", "geometric", ("slope", "aspect", "hillshade"), 1.0),
+                                 ("ZevenbergThorne", "directional", all10, 1.0),
+                                 ("Florinsky", "geometric", all10, 1.0),
+                                 ("Florinsky", "geometric", all10, 2.0)):
+        kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zf)
+        got = ck.surface_attributes(z, RES, attrs, **kw)
+        want = surfit.surface_attributes(z, RES, attrs, **kw)
+        compare("surface_fit", f"{fit} {curv} z_factor={zf}", attrs, got, want)
+    for ws, tri, attrs in ((3, "Riley", window.WINDOWED_ATTRS), (3, "Wilson", window.WINDOWED_ATTRS),
+                           (5, "Riley", window.WINDOWED_ATTRS[:3]), (21, "Wilson", window.WINDOWED_ATTRS[:3])):
+        got = ck.windowed_indexes(z, RES, attrs, ws, tri)
+        want = window.windowed_indexes(z, RES, attrs, ws, tri)
+        compare("windowed", f"w={ws} {tri}", attrs, got, want)
+    for ws in (5, 13, 21):
+        got = ck.fractal_roughness(z, ws)[None]
+        want = window.fractal_roughness(z, ws)[None]
+        compare("fractal", f"w={ws}", ("fractal_roughness",), got, want)
+    torch.cuda.synchronize()
+    return max_err
+
+
+def phase_main(dev, n: int, seed: int = 0) -> dict:
+    """The main path at n x n: terrain suite, Nuth & Kääb fit and apply. Returns timings."""
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch import Affine, coreg, terrain
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit, window
+
+    dx, dy, dz = TBA_SHIFT
+    t0 = time.perf_counter()
+    # Terrain moved by (+dx east, +dy north): rows shift by -dy/RES, columns by +dx/RES.
+    ref64, tba64 = spectral_dem(n, seed, shift_px=(-dy / RES, dx / RES), device=dev)
+    ref = ref64.float().contiguous()
+    tba = (tba64 + dz).float().contiguous()
+    del ref64, tba64
+    rng = np.random.default_rng(seed + 1)
+    for _ in range(20):
+        r, c = int(rng.integers(0, n - 200)), int(rng.integers(0, n - 200))
+        tba[r:r + int(rng.integers(5, 200)), c:c + int(rng.integers(5, 200))] = float("nan")
+    torch.cuda.synchronize()
+    print(f"  pair {n}x{n} made on the card in {time.perf_counter() - t0:.2f} s")
+
+    transform = Affine.from_origin(5e5, 8e6, RES, RES)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    suite = terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
+    torch.cuda.synchronize()
+    t_suite_first = time.perf_counter() - t0
+    nk = coreg.NuthKaab(subsample=5e5)
+    t0 = time.perf_counter()
+    nk.fit(ref, tba, transform=transform, crs=32633, random_state=42)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    aligned, _ = nk.apply(tba, transform=transform)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    print(f"  launches on the main path: {launches}")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the main path")
+
+    # Suite outputs: shape, finiteness, ranges, and agreement with the plain versions on a
+    # crop (pixels at least 8 from the crop edge, so no window reaches past it).
+    for a, v in zip(SUITE, suite):
+        check(tuple(v.shape) == (n, n), f"{a}: shape {tuple(v.shape)}")
+        frac = float(torch.isfinite(v[8:-8, 8:-8]).float().mean())  # ref has no nodata
+        check(frac > 0.999, f"{a}: only {frac:.4f} of the interior pixels are finite")
+    check(float(suite[2].nan_to_num(0).max()) <= 255 and float(suite[2].nan_to_num(0).min()) >= 0,
+          "hillshade outside [0, 255]")
+    cs, m = min(512, n // 2), 8
+    c0 = (n - cs) // 2
+    crop = ref[c0:c0 + cs, c0:c0 + cs].contiguous()
+    plain = [torch.rad2deg(p) if a in ("slope", "aspect") else p for a, p in zip(
+        SUITE[:9], surfit.surface_attributes(crop, RES, SUITE[:9], center=surfit.dem_center(ref)))]
+    plain[2] = torch.clamp(plain[2], 0, 255)
+    plain += list(window.windowed_indexes(crop, RES, SUITE[9:13])) + [window.fractal_roughness(crop, 13)]
+    # The crop is centred on the whole DEM's mean: with its own mean the stencil sums would
+    # round differently, and the curvatures of this smooth DEM are mostly f32 rounding.
+    worst = 0.0
+    for a, v, p in zip(SUITE, suite, plain):
+        v = v[c0 + m:c0 + cs - m, c0 + m:c0 + cs - m]
+        p = p[m:-m, m:-m]
+        if a == "aspect":
+            v, p = torch.deg2rad(v), torch.deg2rad(p)
+        rel, _, _ = scaled_dev(v, p, circular=a == "aspect")
+        check(rel <= TOL, f"{a}: main-path output departs from the plain version by {rel:.3e}")
+        worst = max(worst, rel)
+    print(f"  suite outputs: 14 planes of {n}x{n}, >99.9% of the interior finite; on a {cs}x{cs} crop "
+          f"they agree with the plain versions to {worst:.3e} of the mean magnitude")
+
+    # Coregistration: the fitted translation is minus the applied shift.
+    tx, ty, tz = nk.to_translations()
+    mag = math.hypot(dx, dy)
+    it = nk.meta["outputs"]["iterative"]["last_iteration"]
+    print(f"  Nuth & Kaab: {it} iterations in {t_fit:.3f} s; translation ({tx:.4f}, {ty:.4f}, {tz:.4f}) m, "
+          f"truth ({-dx}, {-dy}, {-dz}) m")
+    check(abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
+          f"horizontal shift ({tx:.3f}, {ty:.3f}) not within 5% of ({-dx}, {-dy})")
+    dh_before = ref - tba
+    dh_after = ref - aligned
+    var_b = float(dh_before[torch.isfinite(dh_before)].double().var())
+    var_a = float(dh_after[torch.isfinite(dh_after)].double().var())
+    print(f"  var(dh) before {var_b:.6g}, after {var_a:.6g} (ratio {var_a / var_b:.3e})")
+    check(var_a < 0.01 * var_b, f"var(dh) after apply is {var_a / var_b:.3e} of before, not below 1%")
+    del dh_before, dh_after, aligned
+
+    # Steady suite time: median of 5 runs after one warm-up, host clock around synchronize.
+    terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    t_suite = statistics.median(runs)
+    print(f"  suite steady {t_suite * 1e3:.2f} ms (median of 5: {[round(r * 1e3, 2) for r in runs]}), "
+          f"first call {t_suite_first * 1e3:.2f} ms")
+    del suite
+
+    # Steady fit time: median of 3 fits after the first, which pays one-off CUDA set-up.
+    fits = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        coreg.NuthKaab(subsample=5e5).fit(ref, tba, transform=transform, crs=32633, random_state=42)
+        torch.cuda.synchronize()
+        fits.append(time.perf_counter() - t0)
+    t_fit_steady = statistics.median(fits)
+    print(f"  Nuth & Kaab fit steady {t_fit_steady * 1e3:.2f} ms (median of 3: {[round(f * 1e3, 2) for f in fits]}), "
+          f"first call {t_fit * 1e3:.2f} ms")
+
+    # Each kernel beside its plain version on the same card and input, in turns.
+    sf_attrs = SUITE[:9]
+    cases = {
+        "surface_fit": (lambda: ck.surface_attributes(ref, RES, sf_attrs),
+                        lambda: surfit.surface_attributes(ref, RES, sf_attrs)),
+        "windowed": (lambda: ck.windowed_indexes(ref, RES, SUITE[9:13], 3),
+                     lambda: window.windowed_indexes(ref, RES, SUITE[9:13], 3)),
+        "fractal": (lambda: ck.fractal_roughness(ref, 13),
+                    lambda: window.fractal_roughness(ref, 13)),
+    }
+    times = {}
+    for k, (kern, plain_fn) in cases.items():
+        p1 = device_ms(plain_fn)
+        k1 = device_ms(kern)
+        k2 = device_ms(kern)
+        p2 = device_ms(plain_fn)
+        times[k] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
+        print(f"  {k:11s} kernel {times[k][0]:.3f} ms   plain {times[k][1]:.3f} ms   (plain, kernel, kernel, plain: "
+              f"{p1:.3f}, {k1:.3f}, {k2:.3f}, {p2:.3f})")
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times, "suite_ms": t_suite * 1e3, "fit_ms": t_fit_steady * 1e3,
+            "first_fit_ms": t_fit * 1e3}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU.", file=sys.stderr)
+        return 2
+    from xdem_tpu_torch import _build
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"[1/4] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} visible)")
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
+    check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
+
+    lib, seconds, log = _build.build()
+    _build.load()
+    print(f"[2/4] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line:
+            print("  " + line.strip())
+
+    print("[3/4] kernels against their plain versions on the card (2047 x 2061):")
+    max_err = phase_kernels(dev)
+
+    print(f"[4/4] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    res = phase_main(dev, MAIN_SIZE)
+
+    summary = {"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
+         "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1]}
+        for k, (src, rep) in KERNELS.items()
+    ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
+        "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE}
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card.
+
+These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
+import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
+``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
+
+Tolerance: identical NaN masks and max deviation <= 1e-3 of the mean magnitude, the
+repository's terrain tolerance (the kernels are built with -fmad=false and add in the plain
+versions' order, so they are expected to agree to the bit).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+from torch_port_helpers import assert_same_nan, cuda_device, scaled_dev  # noqa: F401
+
+from xdem_tpu_torch import coreg, terrain
+from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.terrain import cuda_kernels as ck
+from xdem_tpu_torch.terrain import surfit, window
+
+pytestmark = pytest.mark.cuda
+
+
+def _dem(device, shape=(301, 389), seed=0, holes=True):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=shape).cumsum(0).cumsum(1)
+    z = (z - z.min()) / (z.max() - z.min()) * 1000.0
+    if holes:
+        z[40:47, 60:75] = np.nan
+        z[100, 100] = np.inf
+        z[:, -2:] = np.nan
+    return torch.from_numpy(z.astype(np.float32)).to(device)
+
+
+def _close(got, want, name):
+    assert_same_nan(got.cpu(), want.cpu(), name)
+    period = 2 * math.pi if name == "aspect" else None
+    assert scaled_dev(got.cpu(), want.cpu(), circular=period) <= 1e-3, name
+
+
+@pytest.mark.parametrize("fit,curv,zf", [("Horn", "geometric", 1.0), ("ZevenbergThorne", "directional", 1.0),
+                                         ("Florinsky", "geometric", 2.0)])
+def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, zf):
+    dem = _dem(cuda_device)
+    attrs = ("slope", "aspect", "hillshade") if fit == "Horn" else surfit.SURFACE_FIT_ATTRS
+    ck.reset_launch_counts()
+    got = ck.surface_attributes(dem, 20.0, attrs, fit, curv, hillshade_z_factor=zf)
+    assert ck.LAUNCHES["surface_fit"] == 1 and got.is_cuda
+    want = surfit.surface_attributes(dem, 20.0, attrs, fit, curv, hillshade_z_factor=zf)
+    for i, a in enumerate(attrs):
+        _close(got[i], want[i], a)
+
+
+@pytest.mark.parametrize("w,tri", [(3, "Riley"), (3, "Wilson"), (6, "Riley"), (21, "Wilson")])
+def test_windowed_kernel_matches_plain(cuda_device, w, tri):
+    dem = _dem(cuda_device)
+    attrs = window.WINDOWED_ATTRS if w == 3 else window.WINDOWED_ATTRS[:3]
+    ck.reset_launch_counts()
+    got = ck.windowed_indexes(dem, 20.0, attrs, w, tri)
+    assert ck.LAUNCHES["windowed"] == 1
+    want = window.windowed_indexes(dem, 20.0, attrs, w, tri)
+    for i, a in enumerate(attrs):
+        _close(got[i], want[i], a)
+
+
+@pytest.mark.parametrize("w", [5, 8, 13, 21])
+def test_fractal_kernel_matches_plain(cuda_device, w):
+    dem = _dem(cuda_device)
+    ck.reset_launch_counts()
+    got = ck.fractal_roughness(dem, w)
+    assert ck.LAUNCHES["fractal"] == 1
+    _close(got, window.fractal_roughness(dem, w), "fractal_roughness")
+
+
+def test_large_windows_take_the_global_memory_path(cuda_device):
+    """A window whose tile exceeds shared memory reads the raster directly; same results."""
+    dem = _dem(cuda_device, shape=(260, 270), holes=False)
+    _close(ck.windowed_indexes(dem, 1.0, ("roughness",), 241)[0],
+           window.windowed_indexes(dem, 1.0, ("roughness",), 241)[0], "roughness")
+
+
+def test_large_fractal_windows_take_the_global_memory_path(cuda_device):
+    """w = 229: the (32 + 228) x (8 + 228) tile exceeds 227 KB of shared memory, so K3 reads
+    the raster directly; same results as the plain version on the pixels the window fits."""
+    dem = _dem(cuda_device, shape=(260, 270), holes=False)
+    ck.reset_launch_counts()
+    got = ck.fractal_roughness(dem, 229)
+    assert ck.LAUNCHES["fractal"] == 1
+    # The window of pixel r reads rows r - 114 .. r + 113: 33 x 43 pixels see no edge.
+    assert int(torch.isfinite(got).sum()) == (260 - 227) * (270 - 227)
+    _close(got, window.fractal_roughness(dem, 229), "fractal_roughness")
+
+
+@pytest.mark.parametrize("w", [3, 4])
+def test_small_fractal_windows_raise_on_the_card(cuda_device, w):
+    """Windows below 5 warn and then raise on a CUDA tensor (the CPU path runs them)."""
+    dem = _dem(cuda_device)
+    with pytest.warns(UserWarning, match="larger or equal to 5"), pytest.raises(ValueError, match=">= 5"):
+        terrain.get_terrain_attribute(dem, "fractal_roughness", window_size_fractal=w)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    dem = _dem(cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ck.surface_attributes(dem.double(), 20.0, ("slope",))
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.windowed_indexes(dem.t(), 20.0, ("roughness",))
+    with pytest.raises(ValueError, match=">= 5"):
+        ck.fractal_roughness(dem, 4)
+    with pytest.raises(ValueError, match="3x3"):
+        ck.windowed_indexes(dem, 20.0, ("rugosity",), 5)
+
+
+def test_dispatcher_on_the_card_matches_the_cpu(cuda_device):
+    dem = _dem(cuda_device)
+    attrs = ["slope", "aspect", "hillshade", "max_curvature", "topographic_position_index",
+             "terrain_ruggedness_index", "roughness", "rugosity", "fractal_roughness"]
+    ck.reset_launch_counts()
+    got = terrain.get_terrain_attribute(dem, attrs, resolution=20.0)
+    assert all(v > 0 for v in ck.LAUNCHES.values())
+    want = terrain.get_terrain_attribute(dem.cpu(), attrs, resolution=20.0)
+    for a, g, w in zip(attrs, got, want):
+        assert g.is_cuda
+        assert_same_nan(g.cpu(), w, a)
+        rel = scaled_dev(g.cpu(), w, circular=360.0 if a == "aspect" else None, pct=99.0)
+        assert rel <= 1e-3, a
+
+
+def test_nuth_kaab_on_the_card(cuda_device):
+    # A periodic 1/f^2.7 spectral DEM, so that rolling it is an exact translation.
+    n = 512
+    rng = np.random.default_rng(2)
+    f = np.hypot(np.fft.fftfreq(n)[:, None], np.fft.rfftfreq(n)[None, :])
+    f[0, 0] = 1.0
+    spec = f**-2.7 * np.exp(2j * np.pi * rng.random(f.shape))
+    spec[0, 0] = 0.0
+    z = np.fft.irfft2(spec, s=(n, n))
+    ref = ((z - z.min()) / (z.max() - z.min()) * 1000.0).astype(np.float32)
+    tba = np.roll(ref, (1, -2), axis=(0, 1)) + 1.0  # terrain moved 1 px south, 2 px west
+    t = Affine.from_origin(5e5, 8e6, 20.0, 20.0)
+    c = coreg.NuthKaab(subsample=20000).fit(torch.from_numpy(ref).to(cuda_device),
+                                            torch.from_numpy(tba).to(cuda_device),
+                                            transform=t, crs=32633, random_state=1)
+    tx, ty, tz = c.to_translations()
+    assert tx == pytest.approx(40.0, abs=2.5) and ty == pytest.approx(20.0, abs=2.5)
+    assert tz == pytest.approx(-1.0, abs=0.2)

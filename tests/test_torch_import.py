@@ -1,0 +1,149 @@
+"""xdem_tpu_torch stands alone: it imports neither JAX nor xdem_tpu, its copied constant
+tables equal xdem_tpu's originals, and its kernel builder imports without nvcc."""
+
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch_port_helpers  # noqa: F401  (thread cap)
+
+import xdem_tpu_torch
+from xdem_tpu.georef import CRS
+from xdem_tpu.georef import Affine as JaxAffine
+from xdem_tpu.terrain import surfit as jsurf
+from xdem_tpu.terrain import window as jwin
+from xdem_tpu_torch import _build, georef
+from xdem_tpu_torch.terrain import cuda_kernels, surfit, window
+
+PKG = Path(xdem_tpu_torch.__file__).resolve().parent
+
+
+def test_import_loads_neither_jax_nor_xdem_tpu():
+    code = (
+        "import sys; import xdem_tpu_torch, xdem_tpu_torch.terrain, xdem_tpu_torch.coreg, "
+        "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) "
+        "or m == 'xdem_tpu']; print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_never_import_jax_or_xdem_tpu():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xdem_tpu)\b", re.M)
+    # _build/ holds build outputs (git-ignored), not sources.
+    files = [f for f in PKG.rglob("*.py") if "_build" not in f.relative_to(PKG).parts]
+    files.append(PKG.parent / "chip_smoke.py")
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("name", ["ALL_STENCILS", "DIV_CONST", "DIV_POW", "_FIT_DERIVS",
+                                  "SURFACE_FIT_ATTRS", "_CURVATURE_ATTRS"])
+def test_surfit_tables_equal_originals(name):
+    ours, theirs = getattr(surfit, name), getattr(jsurf, name)
+    if name == "ALL_STENCILS":
+        assert ours.keys() == theirs.keys()
+        for k in theirs:
+            assert ours[k].dtype == theirs[k].dtype
+            np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
+    else:
+        assert ours == theirs
+
+
+@pytest.mark.parametrize("name", ["RUGOSITY_CENTER_SEGS", "RUGOSITY_EDGE_SEGS", "RUGOSITY_TRIS",
+                                  "WINDOWED_ATTRS", "FRACTAL_ATTRS", "_ENGINE_ALIASES"])
+def test_window_tables_equal_originals(name):
+    assert getattr(window, name) == getattr(jwin, name)
+
+
+def test_geographic_epsg_rule_matches_crs():
+    """The port's 'projected' rule agrees with xdem_tpu's CRS on every EPSG code it knows."""
+    for code in list(range(2000, 10000)) + list(range(32600, 32800)):
+        try:
+            want = CRS(code).is_projected
+        except (ValueError, KeyError, NotImplementedError):
+            continue
+        assert georef.is_projected(code) == want, code
+        assert georef.is_projected(f"EPSG:{code}") == want, code
+
+
+@pytest.mark.parametrize("crs", ["+proj=utm +zone=33 +datum=WGS84", 'PROJCS["x"]', 3.5, None])
+def test_non_epsg_crs_not_ported(crs):
+    with pytest.raises(NotImplementedError, match="EPSG"):
+        georef.is_projected(crs)
+
+
+def test_affine_copy_matches_original():
+    args = (20.0, 0.5, 5e5, -0.25, -20.0, 8e6)
+    ours, theirs = georef.Affine(*args), JaxAffine(*args)
+    assert tuple(ours) == tuple(theirs)
+    assert tuple(ours.invert()) == tuple(theirs.invert())
+    assert tuple(ours * ours.invert()) == tuple(theirs * theirs.invert())
+    assert tuple(ours.translation(3.0, -4.0)) == tuple(theirs.translation(3.0, -4.0))
+    rows, cols = np.arange(5.0), np.arange(5.0)[::-1]
+    np.testing.assert_array_equal(ours.xy(rows, cols), theirs.xy(rows, cols))
+    np.testing.assert_array_equal(ours.rowcol(*ours.xy(rows, cols)), theirs.rowcol(*theirs.xy(rows, cols)))
+    assert (ours.xres, ours.yres, ours.determinant) == (theirs.xres, theirs.yres, theirs.determinant)
+    assert tuple(georef.Affine.from_origin(5e5, 8e6, 20, 20)) == tuple(JaxAffine.from_origin(5e5, 8e6, 20, 20))
+
+
+def test_build_module_imports_without_nvcc(monkeypatch, tmp_path):
+    """_build imports anywhere (this module imported it); building refuses clearly where
+    there is no nvcc, and never at import."""
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert {s.name for s in _build.sources()} >= {"surface_fit.cu", "windowed.cu", "fractal.cu"}
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / _build.LIB_NAME)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.build()
+
+
+def test_build_key_follows_sources_and_flags(monkeypatch):
+    path = _build.library_path()
+    assert path.parent.parent == _build.BUILD_DIR
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path() != path
+
+
+def test_kernel_exports_match_launch_signatures():
+    """Every ctypes signature names an `extern "C"` function of csrc with as many parameters."""
+    text = "".join(p.read_text() for p in PKG.glob("csrc/*.cu"))
+    for name, argtypes in _build.SIGNATURES.items():
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper runs its plain version only for a CPU tensor: any other device raises."""
+    dem = torch.zeros((8, 8), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_kernels.surface_attributes(dem, 1.0, ("slope",))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_kernels.windowed_indexes(dem, 1.0, ("roughness",))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_kernels.fractal_roughness(dem, 13)
+
+
+def test_cpu_wrappers_count_no_launch():
+    cuda_kernels.reset_launch_counts()
+    dem = torch.zeros((12, 12))
+    cuda_kernels.surface_attributes(dem, 1.0, ("slope",))
+    cuda_kernels.windowed_indexes(dem, 1.0, ("roughness",))
+    cuda_kernels.fractal_roughness(dem, 5)
+    assert cuda_kernels.LAUNCHES == {"surface_fit": 0, "windowed": 0, "fractal": 0}
+
+
+def test_default_device_and_dtype():
+    dev = xdem_tpu_torch.default_device()
+    assert dev.type == ("cuda" if torch.cuda.is_available() else "cpu")
+    t = xdem_tpu_torch.as_tensor(np.ma.masked_array(np.arange(4.0), mask=[0, 1, 0, 0]))
+    assert t.dtype == torch.float32 and t.device.type == dev.type
+    assert math.isnan(float(t[1])) and float(t[2]) == 2.0

@@ -1,0 +1,525 @@
+"""Coregistration framework: matrix toolbox, matrix application and the Coreg base class.
+
+Port of xdem_tpu/coreg/base.py for gridded elevation given as arrays or tensors with
+``transform=`` (and ``crs=``). Of the four matrix-application tiers the translation tiers
+are ported (a pure vertical shift, and a translation applied by updating the
+georeferencing, resampled back onto the input grid by bilinear gathers); the rotation tiers
+raise NotImplementedError. Raster, point-cloud and pipeline inputs are not ported yet.
+
+The fitted state is the ``meta`` dict. :meth:`Coreg.load` reads the pickle that
+``xdem_tpu``'s ``Coreg.save`` writes, and :meth:`Coreg.from_meta` takes such a tree in memory.
+"""
+
+from __future__ import annotations
+
+import copy as _copy
+import importlib
+import io
+import pickle
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from xdem_tpu_torch._device import as_tensor
+from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.ops.interp import interp_rowcol
+
+
+class NotImplementedCoregFit(NotImplementedError):
+    """Raised when a Coreg does not implement a given fit input combination."""
+
+
+class NotImplementedCoregApply(NotImplementedError):
+    """Raised when a Coreg does not implement a given apply input."""
+
+
+# ------------------------------------------------------------------ matrix toolbox
+
+
+def _check_matrix(matrix: np.ndarray) -> np.ndarray:
+    """Validate a 4x4 rigid transform matrix."""
+    matrix = np.asarray(matrix, dtype=np.float64)
+    if matrix.shape != (4, 4):
+        raise ValueError(f"Invalid transform matrix shape {matrix.shape}, must be (4, 4).")
+    if not np.allclose(matrix[3, :], [0, 0, 0, 1]):
+        raise ValueError("Last row of transform matrix must be [0, 0, 0, 1].")
+    R = matrix[:3, :3]
+    if not np.allclose(R @ R.T, np.eye(3), atol=1e-6):
+        raise ValueError("The rotation part of the matrix is not orthogonal (not a rigid transform).")
+    return matrix
+
+
+def _make_matrix_valid(matrix: np.ndarray) -> np.ndarray:
+    """Orthogonalize the rotation part via SVD."""
+    matrix = np.asarray(matrix, dtype=np.float64).copy()
+    U, _, Vt = np.linalg.svd(matrix[:3, :3])
+    matrix[:3, :3] = U @ Vt
+    matrix[3, :] = [0, 0, 0, 1]
+    return matrix
+
+
+def matrix_from_translations_rotations(
+    t_x: float = 0.0,
+    t_y: float = 0.0,
+    t_z: float = 0.0,
+    alpha: float = 0.0,
+    beta: float = 0.0,
+    gamma: float = 0.0,
+    use_degrees: bool = True,
+) -> np.ndarray:
+    """Build a 4x4 rigid matrix from translations and extrinsic-Euler xyz rotations.
+
+    >>> matrix_from_translations_rotations(1.0, 2.0, 3.0)[:3, 3]
+    array([1., 2., 3.])
+    """
+    if use_degrees:
+        alpha, beta, gamma = np.deg2rad([alpha, beta, gamma])
+    Rx = np.array([[1, 0, 0], [0, np.cos(alpha), -np.sin(alpha)], [0, np.sin(alpha), np.cos(alpha)]])
+    Ry = np.array([[np.cos(beta), 0, np.sin(beta)], [0, 1, 0], [-np.sin(beta), 0, np.cos(beta)]])
+    Rz = np.array([[np.cos(gamma), -np.sin(gamma), 0], [np.sin(gamma), np.cos(gamma), 0], [0, 0, 1]])
+    M = np.eye(4)
+    M[:3, :3] = Rz @ Ry @ Rx  # extrinsic x-y-z
+    M[:3, 3] = [t_x, t_y, t_z]
+    return M
+
+
+def translations_rotations_from_matrix(matrix: np.ndarray, return_degrees: bool = True):
+    """Extract (t_x, t_y, t_z, alpha, beta, gamma) from a rigid matrix."""
+    matrix = _check_matrix(matrix)
+    t_x, t_y, t_z = matrix[:3, 3]
+    R = matrix[:3, :3]
+    beta = np.arcsin(np.clip(-R[2, 0], -1, 1))
+    if np.isclose(np.cos(beta), 0):
+        alpha = np.arctan2(R[0, 1], R[1, 1])
+        gamma = 0.0
+    else:
+        alpha = np.arctan2(R[2, 1], R[2, 2])
+        gamma = np.arctan2(R[1, 0], R[0, 0])
+    if return_degrees:
+        alpha, beta, gamma = np.rad2deg([alpha, beta, gamma])
+    return float(t_x), float(t_y), float(t_z), float(alpha), float(beta), float(gamma)
+
+
+def invert_matrix(matrix: np.ndarray, atol: float = 10e-8) -> np.ndarray:
+    """Invert a rigid 4x4 matrix; ``atol`` bounds how far the bottom row may sit from
+    [0, 0, 0, 1] before the matrix is rejected as non-affine."""
+    matrix = np.asarray(matrix, dtype=np.float64)
+    if matrix.shape == (4, 4) and not np.allclose(matrix[3], [0, 0, 0, 1], atol=atol):
+        raise ValueError("Matrix is not affine: bottom row must be [0, 0, 0, 1].")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        checked = _check_matrix(_make_matrix_valid(matrix))
+    return np.linalg.inv(checked)
+
+
+def _matrix_is_translation_only(matrix: np.ndarray) -> bool:
+    return np.allclose(matrix[:3, :3], np.eye(3), atol=1e-12)
+
+
+# ------------------------------------------------------------------ matrix application
+
+
+def _apply_matrix_rst(dem: torch.Tensor, transform: Affine, matrix: np.ndarray,
+                      force_regrid_method: str | None = None) -> tuple[torch.Tensor, Affine]:
+    """Apply a rigid matrix to a DEM: (1) pure z shift, (2) pure translation via the
+    georeferencing. The rotation tiers are not ported yet."""
+    matrix = np.asarray(matrix, dtype=np.float64)
+    # Tier 1: vertical shift only
+    if np.allclose(matrix, np.diag(np.diag(matrix))) and np.allclose(np.diag(matrix), 1) and np.allclose(
+        matrix[:2, 3], 0
+    ):
+        return dem + matrix[2, 3], transform
+    # Tier 2: translation only — update the geotransform, shift z
+    if _matrix_is_translation_only(matrix) and force_regrid_method is None:
+        return dem + matrix[2, 3], transform.translation(matrix[0, 3], matrix[1, 3])
+    raise NotImplementedError(
+        "Applying a matrix with rotations (the iterative and Delaunay regrid tiers) is not "
+        "ported to xdem_tpu_torch yet; only translations are."
+    )
+
+
+def _reproject_horizontal_shift_samecrs(raster: torch.Tensor, src_transform: Affine,
+                                        dst_transform: Affine | None = None,
+                                        resampling: str = "linear") -> torch.Tensor:
+    """Subpixel same-CRS horizontal-shift reprojection as a gather interpolation."""
+    h, w = raster.shape
+    dst_transform = dst_transform or src_transform
+    # Compose dst-pixel -> src-pixel on the host in f64: world coordinates in f32 would lose
+    # up to ~1 m at UTM northings. The composed affine has small offsets, so f32 grids suffice.
+    comp = src_transform.invert() * dst_transform
+    a, b, c, d, e, f = (float(v) for v in tuple(comp))
+    cols = torch.arange(w, dtype=torch.float32, device=raster.device) + 0.5
+    rows = torch.arange(h, dtype=torch.float32, device=raster.device) + 0.5
+    rgrid, cgrid = torch.meshgrid(rows, cols, indexing="ij")
+    src_col = a * cgrid + b * rgrid + (c - 0.5)
+    src_row = d * cgrid + e * rgrid + (f - 0.5)
+    return interp_rowcol(raster, src_row, src_col, method=resampling)
+
+
+def apply_matrix(
+    elev: Any,
+    matrix: np.ndarray,
+    invert: bool = False,
+    resample: bool = True,
+    resampling: str = "linear",
+    transform: Affine | None = None,
+    force_regrid_method: str | None = None,
+) -> tuple[torch.Tensor, Affine]:
+    """Apply a 4x4 rigid transform to a gridded DEM (array or tensor with `transform`).
+
+    `resample=True` resamples the result back onto the input georeferencing; with
+    `resample=False` a translation only moves the returned transform (lossless).
+    """
+    resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
+    if transform is None:
+        raise ValueError("'transform' must be given for array input.")
+    if invert:
+        matrix = invert_matrix(matrix)
+    data, new_transform = _apply_matrix_rst(as_tensor(elev), transform, matrix,
+                                            force_regrid_method=force_regrid_method)
+    if resample and not new_transform.almost_equals(transform):
+        data = _reproject_horizontal_shift_samecrs(data, new_transform, transform, resampling)
+        new_transform = transform
+    return data, new_transform
+
+
+# ------------------------------------------------------------------ input preprocessing
+
+
+def _as_affine(transform: Any) -> Affine | None:
+    """Accept any 6-value affine form (Affine, rasterio-style tuple/list/iterable)."""
+    if transform is None or isinstance(transform, Affine):
+        return transform
+    vals = [float(v) for v in tuple(transform)]
+    if len(vals) < 6:
+        raise ValueError(f"'transform' must have 6 affine coefficients, got {len(vals)}.")
+    return Affine(*vals[:6])
+
+
+def _is_grid(elev: Any) -> bool:
+    return np.ndim(elev) == 2
+
+
+def _preprocess_coreg_fit(reference_elev: Any, to_be_aligned_elev: Any, inlier_mask: Any,
+                          transform: Any) -> tuple[torch.Tensor, torch.Tensor, Any, Affine]:
+    """Normalize a raster-raster pair given as arrays or tensors on one grid."""
+    if not (_is_grid(reference_elev) and _is_grid(to_be_aligned_elev)):
+        raise NotImplementedError(
+            "xdem_tpu_torch coregistration takes two 2-D arrays or tensors on one grid; "
+            "Raster, DEM and point-cloud inputs are not ported yet."
+        )
+    transform = _as_affine(transform)
+    if transform is None:
+        raise ValueError("'transform' must be given if both inputs are plain arrays.")
+    ref = as_tensor(reference_elev)
+    tba = as_tensor(to_be_aligned_elev, device=ref.device)
+    if ref.shape != tba.shape:
+        raise ValueError(f"Both elevations must share one grid, got shapes {tuple(ref.shape)} and {tuple(tba.shape)}.")
+    if isinstance(inlier_mask, np.ma.MaskedArray):
+        inlier_mask = np.asarray(inlier_mask.filled(False), dtype=bool)
+    return ref, tba, inlier_mask, transform
+
+
+# ------------------------------------------------------------------ pickles of fitted state
+
+
+class _MetaUnpickler(pickle.Unpickler):
+    """Unpickles a saved meta tree: builtins and numpy's array/scalar reconstruction only, so
+    loading runs no other code and imports no other package."""
+
+    _ALLOWED = {
+        ("builtins", "complex"), ("builtins", "set"), ("builtins", "frozenset"),
+        ("builtins", "slice"), ("builtins", "range"),
+        ("numpy", "dtype"), ("numpy", "ndarray"),
+        ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+        ("numpy.random", "default_rng"), ("numpy.random._pickle", "__randomstate_ctor"),
+        ("numpy.random._pickle", "__generator_ctor"), ("numpy.random._pickle", "__bit_generator_ctor"),
+    }
+
+    def find_class(self, module: str, name: str) -> Any:
+        if (module, name) in self._ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"Refusing to load {module}.{name} from a coreg state file.")
+
+
+def _restore_tree(o: Any) -> Any:
+    """Restore a sanitized meta tree. Callables stored by qualified name come back only
+    when they are numpy's; any other name becomes None."""
+    if isinstance(o, dict):
+        if set(o.keys()) == {"__callable__"}:
+            mod_name, _, qual = o["__callable__"].rpartition(".")
+            if mod_name == "numpy" or mod_name.startswith("numpy."):
+                obj: Any = importlib.import_module(mod_name)
+                for part in qual.split("."):
+                    obj = getattr(obj, part, None)
+                return obj if callable(obj) else None
+            return None
+        return {k: _restore_tree(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return type(o)(_restore_tree(v) for v in o)
+    return o
+
+
+def _sanitize(obj: Any) -> Any:
+    """Meta tree with callables replaced by their qualified names (the xdem_tpu format)."""
+    if isinstance(obj, dict):
+        return {k: _sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_sanitize(v) for v in obj)
+    if callable(obj) and not isinstance(obj, type):
+        return {"__callable__": f"{getattr(obj, '__module__', '')}.{getattr(obj, '__qualname__', '')}"}
+    return obj
+
+
+# ------------------------------------------------------------------ Coreg class
+
+
+class Coreg:
+    """Generic coregistration class with fit/apply and serializable metadata."""
+
+    _fit_called = False
+    _is_affine: bool | None = None
+
+    # Known meta keys route to their section; anything else lands in "specific".
+    _META_KEY_SECTIONS: dict[str, str] = {
+        "subsample": "random", "random_state": "random",
+        "fit_or_bin": "fitorbin", "fit_func": "fitorbin", "fit_optimizer": "fitorbin",
+        "bin_sizes": "fitorbin", "bin_statistic": "fitorbin",
+        "bin_apply_method": "fitorbin", "bias_var_names": "fitorbin", "nd": "fitorbin",
+        "max_iterations": "iterative", "tolerance": "iterative",
+        "offset_threshold": "iterative",
+        "matrix": "affine", "shift_x": "affine", "shift_y": "affine", "shift_z": "affine",
+        "centroid": "affine", "only_translation": "affine", "standardize": "affine",
+    }
+
+    def __init__(self, meta: dict[str, Any] | None = None):
+        inputs: dict[str, dict[str, Any]] = {
+            "random": {"subsample": 1.0, "random_state": None},
+            "fitorbin": {},
+            "iterative": {},
+            "specific": {},
+            "affine": {},
+        }
+        if meta:
+            for k, v in meta.items():
+                section = self._META_KEY_SECTIONS.get(k)
+                if section is None:
+                    for name, sec in inputs.items():
+                        if k in sec:
+                            section = name
+                            break
+                inputs[section or "specific"][k] = v
+        self._meta: dict[str, Any] = {"inputs": inputs, "outputs": {}}
+
+    @property
+    def meta(self) -> dict[str, Any]:
+        return self._meta
+
+    def info(self, as_str: bool = False) -> None | str:
+        """Summarize the coreg metadata; print it, or return the text with ``as_str=True``."""
+        import json
+
+        text = json.dumps(self._meta, indent=2,
+                          default=lambda o: o.tolist() if isinstance(o, np.ndarray) else str(o))
+        if as_str:
+            return text
+        print(text)
+        return None
+
+    @property
+    def is_affine(self) -> bool:
+        if self._is_affine is not None:
+            return self._is_affine
+        return "affine" in self._meta["outputs"]
+
+    @property
+    def is_translation(self) -> bool | None:
+        """Whether the fitted transform is a pure translation; None before there is one."""
+        try:
+            matrix = self.to_matrix()
+        except (AttributeError, KeyError, ValueError, NotImplementedError):
+            return None
+        return bool(np.allclose(np.asarray(matrix)[:3, :3], np.eye(3), rtol=1e-2))
+
+    # ------------------------------- fit / apply
+
+    def fit(
+        self,
+        reference_elev: Any,
+        to_be_aligned_elev: Any,
+        inlier_mask: Any = None,
+        bias_vars: dict[str, Any] | None = None,
+        weights: np.ndarray | None = None,
+        subsample: float | int | None = None,
+        transform: Affine | None = None,
+        crs: Any = None,
+        area_or_point: str | None = None,
+        z_name: str = "z",
+        random_state: int | None = None,
+        **kwargs: Any,
+    ) -> "Coreg":
+        """Estimate the coregistration from a reference and a to-be-aligned DEM, both 2-D
+        arrays or tensors on the grid `transform` (and `crs`, an EPSG code)."""
+        if weights is not None:
+            raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
+        if bias_vars is not None:
+            raise NotImplementedError("bias_vars= (bias corrections) are not ported to xdem_tpu_torch yet.")
+        if kwargs.get("mesh") is not None:
+            raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
+        ref, tba, mask, transform = _preprocess_coreg_fit(reference_elev, to_be_aligned_elev,
+                                                          inlier_mask, transform)
+        if subsample is not None:
+            self._meta["inputs"]["random"]["subsample"] = subsample
+        if random_state is not None:
+            self._meta["inputs"]["random"]["random_state"] = random_state
+
+        # Initial shift: pre-translate the to-be-aligned DEM, re-add the shift afterwards.
+        initial_shift = self._meta["inputs"].get("affine", {}).get("initial_shift")
+        if initial_shift is not None:
+            sx0, sy0 = initial_shift[0], initial_shift[1]
+            sz0 = initial_shift[2] if len(initial_shift) > 2 else 0.0
+            tba, _ = apply_matrix(tba, matrix_from_translations_rotations(t_x=sx0, t_y=sy0, t_z=sz0),
+                                  transform=transform)
+
+        self._fit_rst_rst(ref_elev=ref, tba_elev=tba, inlier_mask=mask, transform=transform,
+                          crs=crs, z_name=z_name)
+        if initial_shift is not None:
+            aff = self._meta["outputs"].get("affine", {})
+            for key, add in (("shift_x", sx0), ("shift_y", sy0), ("shift_z", sz0)):
+                if key in aff:
+                    aff[key] = aff[key] + add
+
+        # A fit that produced non-finite parameters must not be applied.
+        aff_out = self._meta["outputs"].get("affine", {})
+        for key in ("matrix", "shift_x", "shift_y", "shift_z"):
+            if key in aff_out and not np.all(np.isfinite(np.asarray(aff_out[key]))):
+                raise ValueError(
+                    f"Coregistration failed: fitted '{key}' contains non-finite values "
+                    f"(degenerate input data — check valid-pixel overlap and terrain variety)."
+                )
+        self._fit_called = True
+        return self
+
+    def _fit_rst_rst(self, **kwargs: Any) -> None:
+        raise NotImplementedCoregFit(f"{type(self).__name__} does not implement raster-raster fit.")
+
+    def apply(
+        self,
+        elev: Any,
+        bias_vars: dict[str, Any] | None = None,
+        resample: bool = True,
+        resampling: str | None = None,
+        transform: Affine | None = None,
+        crs: Any = None,
+        z_name: str = "z",
+        **kwargs: Any,
+    ) -> tuple[torch.Tensor, Affine]:
+        """Apply the estimated transform to a gridded DEM; returns (tensor, transform)."""
+        if not self._fit_called and not (self.is_affine and "matrix" in self._meta["outputs"].get("affine", {})):
+            raise AssertionError(".fit() does not seem to have been called yet")
+        if bias_vars is not None:
+            raise NotImplementedError("bias_vars= (bias corrections) are not ported to xdem_tpu_torch yet.")
+        resampling = {"bilinear": "linear", "cubic_spline": "cubic", None: "linear"}.get(resampling, resampling)
+        transform = _as_affine(transform)
+        if not _is_grid(elev):
+            raise NotImplementedError("xdem_tpu_torch applies a coregistration to 2-D arrays or tensors only.")
+        try:
+            return self._apply_func(elev=elev, transform=transform, resample=resample, resampling=resampling)
+        except NotImplementedCoregApply:
+            if not self.is_affine:
+                raise
+        return apply_matrix(elev, self.to_matrix(), resample=resample, resampling=resampling,
+                            transform=transform)
+
+    def _apply_func(self, **kwargs: Any) -> Any:
+        raise NotImplementedCoregApply(f"{type(self).__name__} has no custom apply.")
+
+    def fit_and_apply(
+        self,
+        reference_elev: Any,
+        to_be_aligned_elev: Any,
+        inlier_mask: Any = None,
+        bias_vars: dict[str, Any] | None = None,
+        fit_kwargs: dict[str, Any] | None = None,
+        apply_kwargs: dict[str, Any] | None = None,
+        **kwargs: Any,
+    ) -> tuple[torch.Tensor, Affine]:
+        """Fit, then apply to the to-be-aligned DEM. Shared keywords (subsample, transform,
+        crs, random_state, ...) passed flat go to fit(), the rest to apply(); transform and
+        crs reach both. The explicit fit_kwargs/apply_kwargs dicts take precedence."""
+        fkw = {
+            k: kwargs.pop(k)
+            for k in ("weights", "subsample", "transform", "crs", "area_or_point", "z_name",
+                      "random_state", "mesh")
+            if k in kwargs
+        }
+        akw = dict(kwargs)
+        for k in ("transform", "crs", "z_name"):
+            if k in fkw and k not in akw:
+                akw[k] = fkw[k]
+        fkw.update(fit_kwargs or {})
+        akw.update(apply_kwargs or {})
+        self.fit(reference_elev, to_be_aligned_elev, inlier_mask=inlier_mask, bias_vars=bias_vars, **fkw)
+        return self.apply(to_be_aligned_elev, bias_vars=bias_vars, **akw)
+
+    # ------------------------------- serialization of the fitted state
+
+    def save(self, path: str) -> None:
+        """Write the fitted state in the pickle format of xdem_tpu's Coreg.save."""
+        payload = {"class": type(self).__name__, "meta": _sanitize(self._meta),
+                   "fit_called": self._fit_called}
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+
+    @classmethod
+    def from_meta(cls, meta: dict[str, Any], fit_called: bool = True) -> "Coreg":
+        """An instance of this class carrying a (sanitized or live) meta tree."""
+        obj = cls()
+        obj._meta = _restore_tree(_copy.deepcopy(meta))
+        obj._fit_called = bool(fit_called)
+        return obj
+
+    @staticmethod
+    def load(path: str) -> "Coreg":
+        """Load a state written by xdem_tpu's or this package's ``Coreg.save``: the stored
+        class name maps onto this package's class of that name."""
+        with open(path, "rb") as f:
+            payload = _MetaUnpickler(io.BytesIO(f.read())).load()
+        if "steps" in payload:
+            raise NotImplementedError("CoregPipeline states are not ported to xdem_tpu_torch yet.")
+        from xdem_tpu_torch import coreg as _coreg_pkg
+
+        cls = getattr(_coreg_pkg, payload["class"], None)
+        if not (isinstance(cls, type) and issubclass(cls, Coreg)):
+            raise NotImplementedError(f"Coreg method {payload['class']!r} is not ported to xdem_tpu_torch yet.")
+        return cls.from_meta(payload["meta"], fit_called=payload["fit_called"])
+
+    # ------------------------------- matrix access
+
+    def to_matrix(self) -> np.ndarray:
+        """The affine transform matrix of the fitted method."""
+        return self._to_matrix_func()
+
+    def to_translations(self) -> tuple[float, float, float]:
+        t = translations_rotations_from_matrix(self.to_matrix())
+        return t[0], t[1], t[2]
+
+    def to_rotations(self, return_degrees: bool = True) -> tuple[float, float, float]:
+        t = translations_rotations_from_matrix(self.to_matrix(), return_degrees=return_degrees)
+        return t[3], t[4], t[5]
+
+    def _to_matrix_func(self) -> np.ndarray:
+        affine_out = self._meta["outputs"].get("affine", {})
+        if "matrix" in affine_out:
+            return np.asarray(affine_out["matrix"])
+        if {"shift_x", "shift_y", "shift_z"} <= set(affine_out):
+            return matrix_from_translations_rotations(
+                t_x=affine_out["shift_x"], t_y=affine_out["shift_y"], t_z=affine_out["shift_z"]
+            )
+        raise NotImplementedError("This coreg method does not produce a transform matrix.")
+
+    def copy(self) -> "Coreg":
+        return _copy.deepcopy(self)

@@ -1,0 +1,64 @@
+"""NaN-aware robust reductions on tensors.
+
+Every median here is 0.5 * (lo + hi) of the two middle order statistics, the formula of
+xdem_tpu/coreg/affine.py::_binned_median. ``torch.median`` returns the lower middle
+element instead (2.0 for [1, 2, 3, 4], where this gives 2.5), so it is never used.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NMAD_FACTOR = 1.4826
+
+
+def binned_median(y: torch.Tensor, bin_idx: torch.Tensor, valid: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Median of `y` in each of `n_bins` bins over the `valid` entries; NaN for empty bins.
+
+    One sort by (bin, value), then the two middle order statistics of each bin are gathered.
+    """
+    y = y.reshape(-1)
+    parked = torch.where(valid.reshape(-1), bin_idx.reshape(-1).long(), n_bins)
+    # Lexicographic order by (bin, value): a stable sort by bin of the value-sorted entries.
+    by_value = torch.argsort(y, stable=True)
+    order = by_value[torch.argsort(parked[by_value], stable=True)]
+    ys = y[order]
+    counts = torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
+    starts = torch.cumsum(counts, 0) - counts
+    last = max(y.numel() - 1, 0)
+    lo = ys[torch.clamp(starts + torch.div(counts - 1, 2, rounding_mode="floor"), 0, last)]
+    hi = ys[torch.clamp(starts + torch.div(counts, 2, rounding_mode="floor"), 0, last)]
+    return torch.where(counts > 0, 0.5 * (lo + hi), torch.nan)
+
+
+def _median_where(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    flat = x.reshape(-1)
+    return binned_median(flat, torch.zeros_like(flat, dtype=torch.long), keep.reshape(-1), 1)[0]
+
+
+def masked_median(x: torch.Tensor) -> torch.Tensor:
+    """Median over the finite entries of `x` (0-dim tensor; NaN when none is finite)."""
+    return _median_where(x, torch.isfinite(x))
+
+
+def nanmean(x: torch.Tensor) -> torch.Tensor:
+    return torch.nanmean(x)
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """Median over the non-NaN entries, as 0.5 * (lo + hi) of the middle pair.
+
+    >>> float(nanmedian(torch.tensor([1.0, 2.0, 3.0, 4.0, float("nan")])))
+    2.5
+    """
+    return _median_where(x, ~torch.isnan(x))
+
+
+def nmad(x: torch.Tensor) -> torch.Tensor:
+    """Normalized median absolute deviation: 1.4826 * median(|x - median(x)|), NaN-aware.
+
+    >>> round(float(nmad(torch.tensor([1.0, 2.0, 3.0, 4.0, 100.0]))), 4)
+    1.4826
+    """
+    med = nanmedian(x)
+    return _NMAD_FACTOR * nanmedian(torch.abs(x - med))

@@ -1,0 +1,30 @@
+"""Host-to-device helpers: masked arrays to NaN, masks to bool tensors."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def unmask(a: Any) -> Any:
+    """Normalize a numpy masked array to a NaN-filled float array (NaN is nodata everywhere
+    in the port); any other input passes through."""
+    if isinstance(a, np.ma.MaskedArray):
+        return a.filled(np.nan) if np.issubdtype(a.dtype, np.floating) \
+            else a.astype(np.float32).filled(np.nan)
+    return a
+
+
+def device_mask(mask: Any, shape: tuple[int, ...], device: torch.device | str) -> torch.Tensor:
+    """`mask` as a bool tensor of `shape` on `device`; `mask=None` means all True."""
+    if mask is None:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    if isinstance(mask, torch.Tensor):
+        out = mask.to(device=device, dtype=torch.bool)
+    else:
+        out = torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)).to(device)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"Mask shape {tuple(out.shape)} does not match the raster shape {tuple(shape)}.")
+    return out

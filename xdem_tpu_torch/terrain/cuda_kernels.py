@@ -1,0 +1,149 @@
+"""Wrappers of the hand-written CUDA terrain kernels K1, K2 and K3.
+
+Each wrapper takes an (H, W) float32 tensor. On a CUDA tensor it launches its kernel
+(``csrc/surface_fit.cu``, ``csrc/windowed.cu``, ``csrc/fractal.cu``) or raises; on a CPU
+tensor, and only then, it runs the plain PyTorch version of the same function. There is no
+fallback from the card to the plain version.
+
+``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xdem_tpu_torch import _build
+from xdem_tpu_torch.terrain import surfit, window
+
+LAUNCHES = {"surface_fit": 0, "windowed": 0, "fractal": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_card(dem: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version); True for a CUDA tensor the kernels accept.
+    Raises for any other device and for inputs the kernels do not take."""
+    if dem.device.type == "cpu":
+        return False
+    if dem.device.type != "cuda":
+        raise ValueError(f"The terrain kernels run on CUDA or CPU tensors, not on {dem.device}.")
+    if dem.dtype != torch.float32 or dem.dim() != 2 or not dem.is_contiguous():
+        raise ValueError(
+            f"The terrain kernels take a contiguous 2-D float32 tensor, got dtype={dem.dtype}, "
+            f"shape={tuple(dem.shape)}, contiguous={dem.is_contiguous()}."
+        )
+    if dem.shape[0] >= 2**31 or dem.shape[1] >= 2**31:
+        raise ValueError(f"Raster shape {tuple(dem.shape)} exceeds the kernels' int32 extents.")
+    return True
+
+
+def _launch(name: str, fn, dem: torch.Tensor, out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch a kernel on the current stream of the input's device; raise if refused."""
+    with torch.cuda.device(dem.device):
+        stream = torch.cuda.current_stream(dem.device).cuda_stream
+        rc = fn(dem.data_ptr(), out.data_ptr(), dem.shape[0], dem.shape[1], *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}.")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _codes(attrs: tuple[str, ...], table: tuple[str, ...]) -> np.ndarray:
+    for a in attrs:
+        if a not in table:
+            raise ValueError(f"Unknown attribute {a!r}: choose from {table}.")
+    return np.array([table.index(a) for a in attrs], dtype=np.int32)
+
+
+def surface_attributes(
+    dem: torch.Tensor,
+    resolution: float,
+    attrs: tuple[str, ...],
+    surface_fit: str = "Florinsky",
+    curv_method: str = "geometric",
+    hillshade_altitude: float = 45.0,
+    hillshade_azimuth: float = 315.0,
+    hillshade_z_factor: float = 1.0,
+) -> torch.Tensor:
+    """K1: surface-fit attributes as a (len(attrs), H, W) stack; see surfit.surface_attributes."""
+    if not _on_card(dem):
+        return surfit.surface_attributes(dem, resolution, attrs, surface_fit, curv_method,
+                                         hillshade_altitude, hillshade_azimuth, hillshade_z_factor)
+    codes = _codes(tuple(attrs), surfit.SURFACE_FIT_ATTRS)
+    roles, names, ksize = surfit.fit_plan(attrs, surface_fit)
+    out = torch.empty((len(attrs), *dem.shape), dtype=torch.float32, device=dem.device)
+    if dem.numel() == 0:
+        return out
+    # Flipped taps: offset (u, v) takes K[k-1-u, k-1-v].
+    weights = np.concatenate([surfit.ALL_STENCILS[n][::-1, ::-1].ravel() for n in names]).astype(np.float32)
+    divisors = np.array([float(d) for d in surfit.divisors(roles, names, resolution)], dtype=np.float32)
+    sin_alt, cos_alt, azimuth = surfit.hillshade_constants(hillshade_altitude, hillshade_azimuth)
+    center = float(surfit.dem_center(dem))
+    return _launch(
+        "surface_fit", _build.load().launch_surface_fit, dem, out,
+        ksize, len(roles), weights.ctypes.data, divisors.ctypes.data, len(codes), codes.ctypes.data,
+        int(curv_method.lower() == "geometric"), center, sin_alt, cos_alt, azimuth,
+        float(hillshade_z_factor),
+    )
+
+
+_RUG_SEG_C = np.array([pos for pos, _ in window.RUGOSITY_CENTER_SEGS], dtype=np.int32).ravel()
+_RUG_SEG_F = np.array([f for _, f in window.RUGOSITY_CENTER_SEGS], dtype=np.float32)
+_RUG_SEG_E = np.array([(*p0, *p1) for p0, p1 in window.RUGOSITY_EDGE_SEGS], dtype=np.int32).ravel()
+_RUG_TRI = np.array(window.RUGOSITY_TRIS, dtype=np.int32).ravel()
+
+
+def windowed_indexes(
+    dem: torch.Tensor,
+    resolution: float,
+    attrs: tuple[str, ...],
+    window_size: int = 3,
+    tri_method: str = "Riley",
+) -> torch.Tensor:
+    """K2: windowed indexes as a (len(attrs), H, W) stack; see window.windowed_indexes."""
+    if not _on_card(dem):
+        return window.windowed_indexes(dem, resolution, attrs, window_size, tri_method)
+    w = int(window_size)
+    if w < 1:
+        raise ValueError(f"window_size must be positive, got {window_size}.")
+    if "rugosity" in attrs and w != 3:
+        raise ValueError("Rugosity is only defined on a 3x3 window.")
+    codes = _codes(tuple(attrs), window.WINDOWED_ATTRS)
+    out = torch.empty((len(attrs), *dem.shape), dtype=torch.float32, device=dem.device)
+    if dem.numel() == 0:
+        return out
+    return _launch(
+        "windowed", _build.load().launch_windowed, dem, out,
+        w, int(tri_method.lower() == "riley"), len(codes), codes.ctypes.data, float(resolution),
+        _RUG_SEG_C.ctypes.data, _RUG_SEG_F.ctypes.data, _RUG_SEG_E.ctypes.data, _RUG_TRI.ctypes.data,
+    )
+
+
+def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
+    """K3: fractal roughness as an (H, W) tensor; see window.fractal_roughness.
+
+    The kernel takes any window_size >= 5. Smaller windows raise ValueError on the card, as
+    the reference's Pallas kernel does, while a CPU tensor goes to the plain version, which
+    takes window_size >= 3 as the reference's XLA path does: so windows 3 and 4 succeed or
+    raise by device.
+    """
+    if not _on_card(dem):
+        return window.fractal_roughness(dem, window_size)
+    w = int(window_size)
+    if w < 5:
+        raise ValueError("Fractal roughness requires window size >= 5.")
+    qs, log_q, mx, ss_xx = window.fractal_scales(w)
+    q_arr = np.array(qs, dtype=np.int32)
+    lq_arr = np.array(log_q, dtype=np.float32)
+    out = torch.empty(dem.shape, dtype=torch.float32, device=dem.device)
+    if dem.numel() == 0:
+        return out
+    return _launch(
+        "fractal", _build.load().launch_fractal, dem, out,
+        w, len(qs), q_arr.ctypes.data, lq_arr.ctypes.data, mx, ss_xx,
+    )
