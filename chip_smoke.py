@@ -13,6 +13,15 @@ Phases:
      Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
      Every kernel must have launched; the fit must recover the shift within 5 % and cut
      var(dh) below 1 %; suite, kernel (beside plain) and fit times are printed.
+  5. uncertainty at 10 000 x 10 000 (20 m): estimate_uncertainty (H2022, subsample 10 000) of
+     a seeded spectral DEM against itself plus 0.004 x an independent field, as bench.py's
+     10k^2 leg builds the pair. K1 must launch in each call; sigma must stay on the card,
+     be finite over >= 99 % with a positive median; the binned sample must hold 5e6 picks
+     and the variogram form 55 193 600 pairs; rho(0) = 1, rho non-increasing to 3e5 m and
+     |rho(1e7 m)| <= 0.05. On a 1024^2 crop the same code runs on the card and on the CPU
+     with identical injected inputs (terrain variables, subsample indices, ring draw):
+     identical counts, sigma within 5e-3 (p99.9) and 1e-2 (max) of its mean, gamma within
+     1e-5. First, steady and per-stage times and a 1 km^2 Hugonnet n_eff are printed.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -35,6 +44,9 @@ SUITE = ("slope", "aspect", "hillshade", "profile_curvature", "tangential_curvat
          "planform_curvature", "flowline_curvature", "max_curvature", "min_curvature",
          "topographic_position_index", "terrain_ruggedness_index", "roughness", "rugosity",
          "fractal_roughness")
+UNC_CROP = 1024  # side of the card-against-CPU crop of phase 5
+UNC_HETERO_PICKS = 5_000_000  # estimate_uncertainty's heteroscedasticity sample
+UNC_PAIRS = 100 * 224 * (11 * 224)  # runs x samples x (nb_rings + 1) * samples at subsample 10 000
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -293,6 +305,195 @@ def phase_main(dev, n: int, seed: int = 0) -> dict:
             "first_fit_ms": t_fit * 1e3}
 
 
+class Stages:
+    """Wraps functions of the uncertainty path's modules to keep their last result and, with
+    `sync`, their time on the host clock between two ``torch.cuda.synchronize()``. Names
+    are looked up on the module at call time, so the path calls the wrappers."""
+
+    def __init__(self, spec: dict[str, tuple], sync: bool):
+        self.spec, self.sync = spec, sync
+        self.ms: dict[str, float] = {}
+        self.last: dict[str, object] = {}
+        self._undo: list[tuple] = []
+
+    def __enter__(self):
+        import torch
+
+        for label, (module, name) in self.spec.items():
+            orig = getattr(module, name)
+
+            def wrapped(*args, _orig=orig, _label=label, **kwargs):
+                if self.sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*args, **kwargs)
+                if self.sync:
+                    torch.cuda.synchronize()
+                self.ms[_label] = self.ms.get(_label, 0.0) + (time.perf_counter() - t0) * 1e3
+                self.last[_label] = out
+                return out
+
+            setattr(module, name, wrapped)
+            self._undo.append((module, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in reversed(self._undo):
+            setattr(module, name, orig)
+        self._undo.clear()
+
+
+def _replay(module, name: str):
+    """Patch module.name so that its first result is returned again to every later call,
+    moved to that call's device (the device of its first tensor argument)."""
+    import torch
+
+    orig = getattr(module, name)
+    memo = []
+
+    def to(x, dev):
+        return x.to(dev) if isinstance(x, torch.Tensor) else type(x)(to(v, dev) for v in x)
+
+    def replayed(*args, **kwargs):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        if not memo:
+            memo.append(orig(*args, **kwargs))
+        return to(memo[0], dev)
+
+    setattr(module, name, replayed)
+    return lambda: setattr(module, name, orig)
+
+
+def uncertainty_stage_spec():
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import terrain
+
+    return {
+        "terrain (K1)": (terrain, "get_terrain_attribute"),
+        "prepare / top-k": (ss, "_hetero_prepare_device"),
+        "bin tables": (ss, "_hetero_bin_tables_device"),
+        "tables to host + grid": (ss, "_table_from_device_bins"),
+        "sigma evaluation": (ss, "_scale_and_sigma_device"),
+        "standardize": (ss, "_standardize_masked_device"),
+        "ring draw": (ss, "_draw_rings_from_arr"),
+        "pair estimator": (ss, "_grid_variogram_device"),
+        "pair estimator (chunked)": (ss, "_grid_variogram_device_chunked"),
+        "curve_fit": (ss, "fit_sum_model_variogram"),
+    }
+
+
+def phase_uncertainty(dev, n: int) -> dict:
+    """The uncertainty path at n x n, its checks, the card-against-CPU crop and n_eff."""
+    import numpy as np
+    import torch
+
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import Affine, terrain, uncertainty
+    from xdem_tpu_torch.ops.reductions import masked_median
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    dem = spectral_dem(n, 11, device=dev)[0].float().contiguous()
+    other = (dem + 0.004 * spectral_dem(n, 12, device=dev)[0]).float().contiguous()
+    torch.cuda.synchronize()
+    print(f"  pair {n}x{n} made on the card in {time.perf_counter() - t0:.2f} s")
+    transform = Affine(20.0, 0.0, 4e5, 0.0, -20.0, 9e6)
+    kw = dict(transform=transform, crs=32633, subsample=10000)
+
+    def call(seed: int):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        sig, rho = uncertainty.estimate_uncertainty(dem, other, random_state=seed, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(ck.LAUNCHES["surface_fit"] > 0, "K1 was not launched by estimate_uncertainty")
+        return sig, rho, seconds, dict(ck.LAUNCHES)
+
+    with Stages(uncertainty_stage_spec(), sync=False) as first_run:
+        sig, rho, t_first, launches = call(42)
+    sig, rho, t_steady, launches_steady = call(43)
+    with Stages(uncertainty_stage_spec(), sync=True) as split:
+        _, _, t_split, _ = call(43)
+    print(f"  estimate_uncertainty first {t_first:.3f} s, steady {t_steady:.3f} s; launches {launches} / {launches_steady}")
+
+    check(dem.is_cuda and other.is_cuda and sig.is_cuda, "the pair or sigma is not on the card")
+    finite = float(torch.isfinite(sig).float().mean())
+    med = float(masked_median(sig))
+    check(tuple(sig.shape) == (n, n) and finite >= 0.99, f"sigma finite over {finite:.4f} of the raster")
+    check(med > 0, f"median sigma {med} is not positive")
+    gathered = first_run.last["prepare / top-k"]
+    tables = first_run.last["bin tables"][0]
+    picks = int(tables[0][0].sum())
+    check(tuple(gathered.shape) == (3, UNC_HETERO_PICKS) and picks == UNC_HETERO_PICKS,
+          f"the binned sample holds {picks} valid picks of {tuple(gathered.shape)}, not {UNC_HETERO_PICKS}")
+    ija, ijb = first_run.last["ring draw"]
+    pairs = ija.shape[0] * ija.shape[1] * ijb.shape[1]
+    check(pairs == UNC_PAIRS, f"the variogram formed {pairs} pairs, not {UNC_PAIRS}")
+    gamma, counts = first_run.last["pair estimator"]
+    _, params = first_run.last["curve_fit"]
+    lags = np.linspace(0.0, 3e5, 3001)
+    r = rho(lags)
+    r0, r_far = float(rho(np.array([0.0]))[0]), float(rho(np.array([1e7]))[0])
+    check(abs(r0 - 1.0) < 1e-12 and bool(np.all(np.diff(r) <= 1e-12)) and abs(r_far) <= 0.05,
+          f"rho(0) = {r0}, rho(1e7) = {r_far}, non-increasing: {bool(np.all(np.diff(r) <= 1e-12))}")
+    print(f"  sigma: {finite:.5f} finite, median {med:.6f} m; sample {picks} picks; {pairs} pairs formed, "
+          f"{int(counts.sum())} in lag bins; fit {dict((k, [str(v) for v in params[k]] if k == 'model' else [float(x) for x in params[k]]) for k in params)}; "
+          f"rho(20, 200, 2000 m) = {[round(float(x), 6) for x in rho(np.array([20.0, 200.0, 2000.0]))]}")
+    stages = {k: round(v, 3) for k, v in split.ms.items()}
+    print(f"  steady call split by stage (host clock, synchronized; total {t_split * 1e3:.1f} ms, "
+          f"stages {sum(split.ms.values()):.1f} ms): {stages}")
+    del gathered, tables, ija, ijb, first_run, split, sig
+
+    # Card against CPU on a crop, with identical injected inputs.
+    c0 = (n - UNC_CROP) // 2
+    dem_c = dem[c0:c0 + UNC_CROP, c0:c0 + UNC_CROP].contiguous()
+    other_c = other[c0:c0 + UNC_CROP, c0:c0 + UNC_CROP].contiguous()
+    undo = [_replay(terrain, "get_terrain_attribute"), _replay(ss, "_hetero_sample_indices"),
+            _replay(ss, "_draw_rings_from_arr")]
+    runs = []
+    try:
+        for d in (dev, torch.device("cpu")):
+            with Stages(uncertainty_stage_spec(), sync=False) as st:
+                sig_c, _ = uncertainty.estimate_uncertainty(dem_c.to(d), other_c.to(d), random_state=42,
+                                                            transform=transform, crs=32633, subsample=2000)
+            runs.append((sig_c.cpu().double(), st.last["bin tables"][0], st.last["pair estimator"]))
+    finally:
+        for u in undo:
+            u()
+    (s_gpu, t_gpu, v_gpu), (s_cpu, t_cpu, v_cpu) = runs
+    same_counts = all(torch.equal(a[0].cpu(), b[0]) for a, b in zip(t_gpu, t_cpu)) and torch.equal(v_gpu[1].cpu(), v_cpu[1])
+    check(same_counts, "hetero or variogram counts differ between the card and the CPU")
+    check(torch.equal(torch.isnan(s_gpu), torch.isnan(s_cpu)), "sigma NaN masks differ between the card and the CPU")
+    both = torch.isfinite(s_cpu)
+    dsig = torch.abs(s_gpu[both] - s_cpu[both]) / s_cpu[both].abs().mean()
+    p999, dmax = float(torch.quantile(dsig, 0.999)), float(dsig.max())
+    g_gpu, g_cpu = v_gpu[0].cpu().numpy(), v_cpu[0].numpy()
+    ok = np.isfinite(g_cpu)
+    dgam = float(np.max(np.abs(g_gpu[ok] - g_cpu[ok]) / np.abs(g_cpu[ok]))) if ok.any() else 0.0
+    print(f"  card vs CPU on {UNC_CROP}^2: counts identical; sigma p99.9 {p999:.3e}, max {dmax:.3e} of its mean; "
+          f"gamma max rel {dgam:.3e} over {int(ok.sum())} bins")
+    check(p999 <= 5e-3 and dmax <= 1e-2, f"sigma card vs CPU: p99.9 {p999:.3e}, max {dmax:.3e}")
+    check(dgam <= 1e-5 and np.array_equal(np.isnan(g_gpu), np.isnan(g_cpu)), f"gamma card vs CPU: {dgam:.3e}")
+
+    # n_eff of a 1 km^2 square of 20 m pixels, with the fitted model, on the card.
+    xs, ys = np.meshgrid(4e5 + 10.0 + 20.0 * np.arange(50), 9e6 - 10.0 - 20.0 * np.arange(50))
+    coords = np.column_stack([xs.ravel(), ys.ravel()])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        neff = ss.neff_hugonnet_approx(coords, np.ones(len(coords)), params, subsample=1000, random_state=42)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    neff_disk = ss.neff_circular_approx_numerical(1e6, params)
+    check(math.isfinite(neff) and neff > 0, f"n_eff {neff}")
+    print(f"  neff_hugonnet_approx (1 km^2, 2500 px, subsample 1000): {neff:.4f} in {times[-1]:.3f} ms "
+          f"(calls: {[round(t, 3) for t in times]}); disk integral {neff_disk:.4f}")
+    return {"first_s": t_first, "steady_s": t_steady, "split_s": t_split, "stages_ms": stages,
+            "launches": launches_steady, "sigma_p999": p999, "sigma_max": dmax, "gamma_rel": dgam,
+            "neff": neff, "neff_ms": times[-1]}
+
+
 def main() -> int:
     import torch
 
@@ -305,7 +506,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/4] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/5] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
@@ -313,23 +514,28 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/4] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/5] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     for line in log.splitlines():
         if "Used" in line or "spill" in line:
             print("  " + line.strip())
 
-    print("[3/4] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/5] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/4] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/5] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE)
+    torch.cuda.empty_cache()
+
+    print(f"[5/5] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    unc = phase_uncertainty(dev, MAIN_SIZE)
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
          "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1]}
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
-        "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE}
+        "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE,
+        "uncertainty": unc}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card.
+"""The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card,
+and the uncertainty path's device functions on the card against the CPU.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -147,3 +148,108 @@ def test_nuth_kaab_on_the_card(cuda_device):
     tx, ty, tz = c.to_translations()
     assert tx == pytest.approx(40.0, abs=2.5) and ty == pytest.approx(20.0, abs=2.5)
     assert tz == pytest.approx(-1.0, abs=0.2)
+
+
+# ---------------------------------------------------------------------- uncertainty path
+# The same functions on the card and on the CPU with identical inputs (the draws are made
+# once and moved): counts identical, medians/NMADs and sigma to 1e-6, gamma and the n_eff
+# sum to 1e-5 relative.
+
+
+def _hetero_sample(device, n=200_000, seed=3):
+    rng = np.random.default_rng(seed)
+    slope = np.abs(rng.normal(20, 10, n))
+    curv = rng.normal(0, 1, n)
+    dh = rng.normal(0, 1, n) * (0.5 + slope / 30)
+    dh[rng.random(n) < 0.05] = np.nan
+    g = np.stack([dh, slope, curv]).astype(np.float32)
+    return torch.from_numpy(g).to(device)
+
+
+def test_hetero_tables_and_sigma_on_the_card(cuda_device):
+    from xdem_tpu_torch import spatialstats as ss
+
+    g = _hetero_sample(cuda_device)
+    got, gmin, gmax = ss._hetero_bin_tables_device(g, 10)
+    want, wmin, wmax = ss._hetero_bin_tables_device(g.cpu(), 10)
+    assert torch.equal(gmin.cpu(), wmin) and torch.equal(gmax.cpu(), wmax)
+    for (c, m, s), (wc, wm, ws) in zip(got, want):
+        assert c.is_cuda and torch.equal(c.cpu(), wc)
+        np.testing.assert_allclose(m.cpu().numpy(), wm.numpy(), rtol=1e-6, equal_nan=True)
+        np.testing.assert_allclose(s.cpu().numpy(), ws.numpy(), rtol=1e-6, equal_nan=True)
+    df = ss._table_from_device_bins(want, wmin, wmax, 10, ["slope", "curv"], "nmad")
+    fun = ss.interp_nd_binning(df, ["slope", "curv"], "nmad")
+    full = [g[1].reshape(400, 500), g[2].reshape(400, 500)]
+    scale, sig = ss._scale_and_sigma_device(g, fun.mids_ext, fun.grid_ext, 7.0, full)
+    wscale, wsig = ss._scale_and_sigma_device(g.cpu(), fun.mids_ext, fun.grid_ext, 7.0, [f.cpu() for f in full])
+    assert sig.is_cuda
+    np.testing.assert_allclose(float(scale), float(wscale), rtol=1e-6)
+    assert_same_nan(sig.cpu(), wsig)
+    np.testing.assert_allclose(sig.cpu().numpy(), wsig.numpy(), rtol=1e-6, equal_nan=True)
+
+
+def test_interp_grid_on_the_card(cuda_device):
+    from xdem_tpu_torch import spatialstats as ss
+
+    rng = np.random.default_rng(1)
+    mids = [np.linspace(-5, 65, 12), np.linspace(-3, 3, 12)]
+    grid = rng.uniform(0.5, 3.0, (12, 12))
+    x = torch.from_numpy(rng.uniform(-20, 80, (300, 310)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-5, 5, (300, 310)).astype(np.float32))
+    x[0, :9] = torch.nan
+    got = ss._interp_grid_device(mids, grid, [x.to(cuda_device), y.to(cuda_device)])
+    want = ss._interp_grid_device(mids, grid, [x, y])
+    assert_same_nan(got.cpu(), want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("estimator", ["matheron", "cressie", "dowd"])
+def test_variogram_estimators_on_the_card(cuda_device, estimator):
+    """Flat and chunked grid variograms on one ring draw, card against CPU."""
+    from xdem_tpu_torch import spatialstats as ss
+
+    arr = _dem("cpu", shape=(300, 320)) / 100.0
+    ija, ijb = ss._draw_rings_from_arr(5, arr, 30, 60, 10, 300, 320, 1.5, 480)
+    edges = [0.0]
+    while edges[-1] < 8000:
+        edges.append(max(np.sqrt(2) * edges[-1], np.sqrt(2) * 20.0))
+    edges = torch.tensor(np.array(edges, np.float32))
+    n = len(edges) - 1
+    want_g, want_c = ss._grid_variogram_device(arr, ija, ijb, 20.0, edges, estimator, n)
+    assert int(want_c.sum()) > 100_000
+    on = [t.to(cuda_device) for t in (arr, ija, ijb, edges)]
+    flat = ss._grid_variogram_device(on[0], on[1], on[2], 20.0, on[3], estimator, n)
+    # Chunks of 7 runs: the 30 runs are padded to 35 with empty (-1) runs.
+    ija_p = torch.cat([on[1], torch.full((5, *ija.shape[1:]), -1, device=cuda_device)])
+    ijb_p = torch.cat([on[2], torch.full((5, *ijb.shape[1:]), -1, device=cuda_device)])
+    chunked = ss._grid_variogram_device_chunked(on[0], ija_p, ijb_p, 20.0, on[3], estimator, n, 7)
+    for g, c in (flat, chunked):
+        assert g.is_cuda and torch.equal(c.cpu(), want_c)
+        np.testing.assert_allclose(g.cpu().numpy(), want_g.numpy(), rtol=1e-5, equal_nan=True)
+
+
+def test_neff_sum_on_the_card(cuda_device):
+    from xdem_tpu_torch import spatialstats as ss
+
+    rng = np.random.default_rng(2)
+    c = torch.from_numpy(rng.uniform(-1500, 1500, (5000, 2)).astype(np.float32))
+    e = torch.from_numpy(rng.uniform(0.5, 2.0, 5000).astype(np.float32))
+    params = {"model": ["gaussian", "spherical"], "range": [120.0, 900.0], "psill": [0.6, 0.4]}
+    want = ss._chunked_weighted_rho_sum(c, e, c[:1000], e[:1000], params, target_elems=1 << 20)
+    got = ss._chunked_weighted_rho_sum(c.to(cuda_device), e.to(cuda_device), c[:1000].to(cuda_device),
+                                       e[:1000].to(cuda_device), params, target_elems=1 << 20)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_estimate_uncertainty_on_the_card(cuda_device):
+    """The whole path on a CUDA tensor: K1 launches, sigma stays on the card."""
+    from xdem_tpu_torch import uncertainty
+
+    dem = _dem(cuda_device, shape=(400, 420), holes=False)
+    other = dem + 0.004 * _dem(cuda_device, shape=(400, 420), seed=1, holes=False)
+    ck.reset_launch_counts()
+    sig, rho = uncertainty.estimate_uncertainty(dem, other, transform=Affine.from_origin(0, 0, 20, 20),
+                                                subsample=1000, random_state=42)
+    assert ck.LAUNCHES["surface_fit"] == 1
+    assert sig.is_cuda and float(torch.isfinite(sig).float().mean()) > 0.98
+    assert rho(np.array([0.0]))[0] == pytest.approx(1.0)

@@ -1,10 +1,12 @@
-"""xdem_tpu_torch stands alone: it imports neither JAX nor xdem_tpu, its copied constant
-tables equal xdem_tpu's originals, and its kernel builder imports without nvcc."""
+"""xdem_tpu_torch stands alone: it imports neither JAX, xdem_tpu nor pandas (the card's
+machine has none of them), its copied constant tables equal xdem_tpu's originals, and its
+kernel builder imports without nvcc."""
 
 import math
 import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -26,9 +28,10 @@ PKG = Path(xdem_tpu_torch.__file__).resolve().parent
 def test_import_loads_neither_jax_nor_xdem_tpu():
     code = (
         "import sys; import xdem_tpu_torch, xdem_tpu_torch.terrain, xdem_tpu_torch.coreg, "
-        "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels; "
+        "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels, xdem_tpu_torch.spatialstats, "
+        "xdem_tpu_torch.uncertainty; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) "
-        "or m == 'xdem_tpu']; print(bad); sys.exit(1 if bad else 0)"
+        "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(PKG.parent), timeout=120)
@@ -36,12 +39,32 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
 
 
 def test_sources_never_import_jax_or_xdem_tpu():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xdem_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xdem_tpu|pandas)\b", re.M)
     # _build/ holds build outputs (git-ignored), not sources.
     files = [f for f in PKG.rglob("*.py") if "_build" not in f.relative_to(PKG).parts]
     files.append(PKG.parent / "chip_smoke.py")
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_uncertainty_path_runs_without_pandas():
+    """The uncertainty path imports and runs with pandas unavailable, as on the card's machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import Affine, uncertainty\n"
+        "rng = np.random.default_rng(0)\n"
+        "dem = (rng.normal(size=(48, 52)).cumsum(0).cumsum(1) * 3).astype(np.float32)\n"
+        "other = dem + rng.normal(0, 0.5, dem.shape).astype(np.float32)\n"
+        "sig, rho = uncertainty.estimate_uncertainty(dem, other, transform=Affine.from_origin(0, 0, 20, 20),\n"
+        "                                            subsample=200, random_state=1)\n"
+        "assert np.isfinite(sig.numpy()).mean() > 0.8 and abs(rho(np.array([0.0]))[0] - 1) < 1e-9\n"
+        "assert 'pandas' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("name", ["ALL_STENCILS", "DIV_CONST", "DIV_POW", "_FIT_DERIVS",
@@ -147,3 +170,8 @@ def test_default_device_and_dtype():
     t = xdem_tpu_torch.as_tensor(np.ma.masked_array(np.arange(4.0), mask=[0, 1, 0, 0]))
     assert t.dtype == torch.float32 and t.device.type == dev.type
     assert math.isnan(float(t[1])) and float(t[2]) == 2.0
+    read_only = np.arange(4.0, dtype=np.float32)
+    read_only.flags.writeable = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert float(xdem_tpu_torch.as_tensor(read_only)[3]) == 3.0

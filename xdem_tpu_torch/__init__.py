@@ -1,7 +1,8 @@
 """xdem_tpu_torch: the PyTorch and CUDA port of xdem_tpu.
 
-Terrain attributes (``xdem_tpu_torch.terrain``) and Nuth & Kääb coregistration
-(``xdem_tpu_torch.coreg``) on tensors, in float32, on one device: CUDA when present, else
+Terrain attributes (``xdem_tpu_torch.terrain``), Nuth & Kääb coregistration
+(``xdem_tpu_torch.coreg``) and the uncertainty of elevation differences
+(``xdem_tpu_torch.uncertainty``, ``xdem_tpu_torch.spatialstats``) on tensors, in float32, on one device: CUDA when present, else
 the CPU. On a CUDA tensor the terrain attributes come from hand-written CUDA kernels built
 with ``nvcc`` at first use; on a CPU tensor from their plain PyTorch versions. The package
 imports neither JAX nor xdem_tpu, which stays the reference it is tested against.
@@ -13,6 +14,7 @@ __version__ = "0.1.0"
 
 from xdem_tpu_torch._device import as_tensor, default_device
 from xdem_tpu_torch.georef import Affine
-from xdem_tpu_torch import coreg, georef, ops, terrain
+from xdem_tpu_torch import coreg, georef, ops, spatialstats, terrain, uncertainty
 
-__all__ = ["Affine", "as_tensor", "default_device", "coreg", "georef", "ops", "terrain"]
+__all__ = ["Affine", "as_tensor", "default_device", "coreg", "georef", "ops", "spatialstats", "terrain",
+           "uncertainty"]

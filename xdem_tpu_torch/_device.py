@@ -30,5 +30,7 @@ def as_tensor(x: Any, device: torch.device | str | None = None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x if device is None else x.to(device)
         return t.to(DTYPE) if t.dtype != DTYPE else t
-    arr = np.asarray(unmask(x), dtype=np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device or default_device())
+    arr = np.ascontiguousarray(unmask(x), dtype=np.float32)
+    if not arr.flags.writeable:  # torch.from_numpy warns on read-only memory (a JAX array's view)
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device or default_device())

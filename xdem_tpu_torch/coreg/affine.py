@@ -26,6 +26,7 @@ from xdem_tpu_torch.georef import Affine, is_projected
 from xdem_tpu_torch.ops.interp import interp_rowcol
 from xdem_tpu_torch.ops.reductions import binned_median as _binned_median
 from xdem_tpu_torch.ops.reductions import masked_median as _masked_median
+from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask
 
 
@@ -44,13 +45,6 @@ def _count_from_subsample(subsample: float | int, n_valid: int) -> int:
     if subsample <= 1:
         return max(int(subsample * n_valid), 1)
     return min(int(subsample), n_valid)
-
-
-def _seed_from(random_state: Any) -> int:
-    """An int seed: the random_state itself, or a draw from it (None or a numpy Generator)."""
-    if isinstance(random_state, (int, np.integer)):
-        return int(random_state)
-    return int(np.random.default_rng(random_state).integers(2**31))
 
 
 def _dh_device(pts_z, rows, cols, raster, sx_px, sy_px, invert: bool) -> torch.Tensor:
@@ -136,16 +130,6 @@ def _nk_slope_aspect_valid(ref: torch.Tensor, tba: torch.Tensor, inlier: torch.T
     return slope_tan, aspect, valid
 
 
-def _topk_subsample(generator: torch.Generator, valid_flat: torch.Tensor, count: int):
-    """Seeded fixed-size subsample without replacement: uniform scores with invalid slots
-    parked at -inf, then top-k. Returns (indices, picked_valid); when count exceeds the
-    valid population the overflow picks have picked_valid=False and must be NaN-poisoned."""
-    u = torch.rand(valid_flat.shape, generator=generator, device=valid_flat.device)
-    scores = torch.where(valid_flat, u, -math.inf)
-    idx = torch.topk(scores, count, sorted=False).indices
-    return idx, valid_flat[idx]
-
-
 def _nuth_kaab_rst_rst_device(
     ref: torch.Tensor,
     tba: torch.Tensor,
@@ -169,7 +153,7 @@ def _nuth_kaab_rst_rst_device(
     count = min(int(subsample), ref.numel()) if subsample > 1 else _count_from_subsample(subsample, n_valid)
 
     generator = torch.Generator(device=ref.device).manual_seed(seed)
-    idx, picked_ok = _topk_subsample(generator, valid.reshape(-1), count)
+    idx, picked_ok = topk_subsample(generator, valid.reshape(-1), count)
     rr = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
     cc = (idx % w).to(torch.float32)
     pts_z = torch.where(picked_ok, ref.reshape(-1)[idx], torch.nan)
@@ -212,7 +196,7 @@ def nuth_kaab(
         )
     inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
     out = _nuth_kaab_rst_rst_device(
-        ref_elev, tba_elev, inlier, _seed_from(random_state), subsample,
+        ref_elev, tba_elev, inlier, seed_from(random_state), subsample,
         transform.xres, transform.yres, tolerance,
         max_iterations=int(max_iterations), n_bins=int(n_bins), bin_before_fit=bin_before_fit,
     )

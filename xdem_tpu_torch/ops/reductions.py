@@ -45,6 +45,12 @@ def nanmean(x: torch.Tensor) -> torch.Tensor:
     return torch.nanmean(x)
 
 
+def nanstd(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """Standard deviation (ddof 0) over the non-NaN entries, along `axis` or of all of `x`."""
+    mean = torch.nanmean(x, dim=axis, keepdim=True)
+    return torch.sqrt(torch.nanmean((x - mean) ** 2, dim=axis))
+
+
 def nanmedian(x: torch.Tensor) -> torch.Tensor:
     """Median over the non-NaN entries, as 0.5 * (lo + hi) of the middle pair.
 
@@ -62,3 +68,10 @@ def nmad(x: torch.Tensor) -> torch.Tensor:
     """
     med = nanmedian(x)
     return _NMAD_FACTOR * nanmedian(torch.abs(x - med))
+
+
+def masked_nmad(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """NMAD over the non-NaN entries of `x` where `valid` (0-dim tensor; NaN when none)."""
+    keep = valid.reshape(-1) & ~torch.isnan(x.reshape(-1))
+    med = _median_where(x, keep)
+    return _NMAD_FACTOR * _median_where(torch.abs(x - med), keep)
