@@ -22,6 +22,18 @@ Phases:
      with identical injected inputs (terrain variables, subsample indices, ring draw):
      identical counts, sigma within 5e-3 (p99.9) and 1e-2 (max) of its mean, gamma within
      1e-5. First, steady and per-stage times and a 1 km^2 Hugonnet n_eff are printed.
+  6. coregistration at 10 000 x 10 000 on phase 4's DEM: ICP (5e4 points, which must take the
+     brute search on the card), LZD and CPD recover RIGID_TRUTH, applied about the lower-left
+     corner by the tier-3 regrid, re-expressed about each fit's centroid (ICP 2 m / 5e-3 deg,
+     LZD 1 m / 5e-3 deg, CPD 0.1 deg in rotation); the ICP and LZD applies (tier 3 over 1e8
+     pixels) leave var(dh / std(dh0)) < 0.05. DhMinimize recovers phase 4's shift within 5 %
+     and cuts var(dh) below 1 %. A Deramp + DirectionalBias(30) + TerrainBias pipeline fitted on
+     the DEM plus a +-5 m order-2 ramp, a 1 m 20 km sinusoid at 30 deg and 1 m x the clipped
+     maximum curvature removes >= 90 % of each field's variance (TerrainBias read at the
+     reference's curvature, which defines its field), K1 launches in its fit and its apply,
+     and a saved and loaded copy applies to the same bits. On a 1024^2 crop each method fits
+     on the card and the CPU from one draw: matrices within 1e-4, tier-3 applies within 1e-3 m
+     with identical NaN masks. Fit, apply and host-draw times are printed.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -45,6 +57,8 @@ SUITE = ("slope", "aspect", "hillshade", "profile_curvature", "tangential_curvat
          "topographic_position_index", "terrain_ruggedness_index", "roughness", "rugosity",
          "fractal_roughness")
 UNC_CROP = 1024  # side of the card-against-CPU crop of phase 5
+COREG_CROP = 1024  # side of the card-against-CPU crop of phase 6
+RIGID_TRUTH = (20, 5, 0.1, 0.1, 0.05, 0.01)  # tx, ty, tz (m), rotations about x, y, z (deg) of phase 6
 UNC_HETERO_PICKS = 5_000_000  # estimate_uncertainty's heteroscedasticity sample
 UNC_PAIRS = 100 * 224 * (11 * 224)  # runs x samples x (nb_rings + 1) * samples at subsample 10 000
 KERNELS = {
@@ -170,17 +184,12 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
     return max_err
 
 
-def phase_main(dev, n: int, seed: int = 0) -> dict:
-    """The main path at n x n: terrain suite, Nuth & Kääb fit and apply. Returns timings."""
+def main_pair(dev, n: int, seed: int = 0):
+    """The main path's pair at n x n: a spectral DEM and the same with its terrain moved by
+    TBA_SHIFT, with 20 seeded NaN holes in the moved copy (float32, on `dev`)."""
     import numpy as np
-    import torch
-
-    from xdem_tpu_torch import Affine, coreg, terrain
-    from xdem_tpu_torch.terrain import cuda_kernels as ck
-    from xdem_tpu_torch.terrain import surfit, window
 
     dx, dy, dz = TBA_SHIFT
-    t0 = time.perf_counter()
     # Terrain moved by (+dx east, +dy north): rows shift by -dy/RES, columns by +dx/RES.
     ref64, tba64 = spectral_dem(n, seed, shift_px=(-dy / RES, dx / RES), device=dev)
     ref = ref64.float().contiguous()
@@ -190,6 +199,20 @@ def phase_main(dev, n: int, seed: int = 0) -> dict:
     for _ in range(20):
         r, c = int(rng.integers(0, n - 200)), int(rng.integers(0, n - 200))
         tba[r:r + int(rng.integers(5, 200)), c:c + int(rng.integers(5, 200))] = float("nan")
+    return ref, tba
+
+
+def phase_main(dev, n: int, seed: int = 0) -> dict:
+    """The main path at n x n: terrain suite, Nuth & Kääb fit and apply. Returns timings."""
+    import torch
+
+    from xdem_tpu_torch import Affine, coreg, terrain
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit, window
+
+    dx, dy, dz = TBA_SHIFT
+    t0 = time.perf_counter()
+    ref, tba = main_pair(dev, n, seed)
     torch.cuda.synchronize()
     print(f"  pair {n}x{n} made on the card in {time.perf_counter() - t0:.2f} s")
 
@@ -494,6 +517,218 @@ def phase_uncertainty(dev, n: int) -> dict:
             "neff": neff, "neff_ms": times[-1]}
 
 
+def _synced(fn):
+    """(fn(), seconds) on the host clock between two torch.cuda.synchronize()."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _removed_share(field, corr) -> float:
+    """Share of var(field) that the correction `corr` (expected near -field) removes."""
+    import torch
+
+    ok = torch.isfinite(field) & torch.isfinite(corr)
+    f = field[ok].double()
+    return 1.0 - float((f + corr[ok].double()).var()) / float(f.var())
+
+
+def phase_coreg(dev, n: int) -> dict:
+    """Coregistration at n x n on phase 4's DEM: rigid fits (ICP, LZD, CPD) of a pair moved by
+    RIGID_TRUTH through tier 3, DhMinimize on phase 4's translated pair, a bias-correction
+    pipeline on known fields with a save/load round trip, and card against CPU on a crop."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import Affine, coreg, fit, terrain
+    from xdem_tpu_torch.coreg import affine, biascorr
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+
+    transform = Affine.from_origin(5e5, 8e6, RES, RES)
+    kw = dict(transform=transform, crs=32633)
+    ref, tba_shift = main_pair(dev, n)
+    out: dict = {"fits": {}}
+
+    # Rigid pair: the truth applied about the lower-left corner at the mean height (tier 3).
+    truth = coreg.matrix_from_translations_rotations(*RIGID_TRUTH)
+    c1 = (transform.c, transform.f - n * RES, float(ref.double().mean()))
+    (tba_rigid, _), t_build = _synced(lambda: coreg.apply_matrix(ref, truth, centroid=c1, transform=transform))
+    frac = float(torch.isfinite(tba_rigid).float().mean())
+    check(tba_rigid.is_cuda and frac > 0.9, f"tier 3 left {frac:.4f} of the moved DEM finite")
+    print(f"  rigid pair: tier 3 moved {n}x{n} by {RIGID_TRUTH} in {t_build:.3f} s ({frac:.5f} finite)")
+    dh0 = ref - tba_rigid
+    std0 = float(dh0[torch.isfinite(dh0)].double().std())
+    del dh0
+
+    def fit_twice(make, ref_, tba_):
+        """First and steady fit of a fresh method, each with the host draw's time."""
+        res = []
+        for _ in range(2):
+            with Stages({"draw": (affine, "_draw_pixels"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
+                c, secs = _synced(lambda: make().fit(ref_, tba_, random_state=42, **kw))
+            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, "brute" in st.ms))
+        return res
+
+    for name, make, atol_t, atol_r in (("ICP", lambda: coreg.ICP(subsample=50000), 2.0, 5e-3),
+                                       ("LZD", lambda: coreg.LZD(), 1.0, 5e-3),
+                                       ("CPD", lambda: coreg.CPD(), None, 0.1)):
+        (c, t_first, d_first, brute), (_, t_steady, d_steady, _) = fit_twice(make, ref, tba_rigid)
+        aff = c.meta["outputs"]["affine"]
+        # The fit is stored about its own centroid c2: re-express the truth about c2.
+        d = np.asarray(c1) - np.asarray(aff["centroid"])
+        want_m = truth.copy()
+        want_m[:3, 3] = truth[:3, 3] + d - truth[:3, :3] @ d
+        got = coreg.translations_rotations_from_matrix(coreg.invert_matrix(aff["matrix"]))
+        want = coreg.translations_rotations_from_matrix(want_m)
+        err_t = max(abs(g - w) for g, w in zip(got[:3], want[:3]))
+        err_r = max(abs(g - w) for g, w in zip(got[3:], want[3:]))
+        row = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first, "draw_steady_s": d_steady,
+               "err_t_m": err_t, "err_r_deg": err_r, "count": c.meta["outputs"]["random"]["subsample_final"]}
+        print(f"  {name}: fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / "
+              f"{d_steady:.3f} s); {row['count']} points; got {[round(v, 4) for v in got]}, "
+              f"want {[round(v, 4) for v in want]}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg")
+        if name == "ICP":
+            print(f"  ICP nn_method='auto' resolved to {'brute on the card' if brute else 'kdtree on the host'}")
+            check(brute, "ICP auto did not take the brute device search on the card")
+        if atol_t is not None:
+            check(err_t <= atol_t, f"{name} translation off by {err_t:.4f} m > {atol_t} m")
+        check(err_r <= atol_r, f"{name} rotation off by {err_r:.5f} deg > {atol_r} deg")
+        if name in ("ICP", "LZD"):
+            (aligned, _), t_apply = _synced(lambda: c.apply(tba_rigid, transform=transform))
+            dh = ref - aligned
+            ratio = float((dh[torch.isfinite(dh)].double() / std0).var())
+            row.update(apply_s=t_apply, var_ratio=ratio)
+            print(f"  {name}: tier-3 apply over {n}x{n} in {t_apply:.3f} s; var(dh / std(dh0)) = {ratio:.5f}")
+            check(ratio < 0.05, f"{name}: var(dh / std(initial dh)) = {ratio:.4f}, not below 0.05")
+            del dh, aligned
+        out["fits"][name] = row
+    out["tier3_build_s"] = t_build
+
+    # Translated pair: DhMinimize on phase 4's pair.
+    dx, dy, dz = TBA_SHIFT
+    (dm, t_first, d_first, _), (_, t_steady, d_steady, _) = fit_twice(lambda: coreg.DhMinimize(), ref, tba_shift)
+    tx, ty, tz = dm.to_translations()
+    mag = math.hypot(dx, dy)
+    aligned, _ = dm.apply(tba_shift, transform=transform)
+    dh_b, dh_a = ref - tba_shift, ref - aligned
+    var_b = float(dh_b[torch.isfinite(dh_b)].double().var())
+    var_a = float(dh_a[torch.isfinite(dh_a)].double().var())
+    it = dm.meta["outputs"]["iterative"]["last_iteration"]
+    print(f"  DhMinimize: fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / {d_steady:.3f} s), "
+          f"{it} Nelder-Mead iterations; translation ({tx:.4f}, {ty:.4f}, {tz:.4f}) m, truth ({-dx}, {-dy}, {-dz}) m; "
+          f"var(dh) {var_b:.6g} -> {var_a:.6g}")
+    check(abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
+          f"DhMinimize shift ({tx:.3f}, {ty:.3f}) not within 5% of ({-dx}, {-dy})")
+    check(var_a < 0.01 * var_b, f"DhMinimize: var(dh) after apply is {var_a / var_b:.3e} of before")
+    out["fits"]["DhMinimize"] = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first,
+                                 "draw_steady_s": d_steady, "iterations": it, "shift": [tx, ty, tz],
+                                 "var_ratio": var_a / var_b}
+    del dh_b, dh_a, aligned
+
+    # Bias corrections: known fields added to the reference, then a pipeline.
+    cols = torch.arange(n, dtype=torch.float32, device=dev)[None, :]
+    rows = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    u, v = 2 * cols / (n - 1) - 1, 2 * rows / (n - 1) - 1
+    theta = math.radians(30.0)
+    along = cols * (RES * math.cos(theta)) + ((n - 1) - rows) * (RES * math.sin(theta))
+    ck.reset_launch_counts()
+    curv = terrain.get_terrain_attribute(ref, "max_curvature", resolution=RES)
+    absc = curv[::4, ::4].abs()
+    absc = absc[torch.isfinite(absc)]
+    q99 = float(torch.kthvalue(absc, int(0.99 * absc.numel())).values)  # on every 16th pixel
+    fields = {"Deramp": 2.5 * (u * u - v * v) + 2.5 * u * v,  # order 2 in pixel coordinates, within +-5 m
+              "DirectionalBias": torch.sin(2 * math.pi * along / 20000.0),
+              "TerrainBias": torch.clamp(curv / q99, -1.0, 1.0)}
+    del absc, along, u, v
+    tba_bias = ref + fields["Deramp"] + fields["DirectionalBias"] + fields["TerrainBias"]
+    steps = [coreg.Deramp(subsample=5e5), coreg.DirectionalBias(angle=30, subsample=5e5),
+             coreg.TerrainBias(subsample=5e5)]
+    pipe = coreg.CoregPipeline(steps)
+    # The first fit and a steady fit of a copy, each split by stage.
+    split_spec = {"host draw": (affine, "_draw_pixels"), "terrain (K1)": (terrain, "get_terrain_attribute"),
+                  "binning (host)": (ss, "nd_binning"), "periodogram (host)": (fit, "_periodogram_best_wavelength"),
+                  "LM polish (host)": (fit, "_polish_sumsin"), "in-fit applies": (biascorr.BiasCorr, "_apply_func")}
+    ck.reset_launch_counts()
+    with Stages(split_spec, sync=True) as split_first:
+        _, t_pfit = _synced(lambda: pipe.fit(ref, tba_bias, random_state=42, **kw))
+    fit_launches = ck.LAUNCHES["surface_fit"]
+    with Stages(split_spec, sync=True) as split:
+        _, t_pfit_steady = _synced(lambda: pipe.copy().fit(ref, tba_bias, random_state=42, **kw))
+    pfit_split_first = {k: round(v, 3) for k, v in split_first.ms.items()}
+    pfit_split = {k: round(v, 3) for k, v in split.ms.items()}
+    ck.reset_launch_counts()
+    (corrected, _), t_papply = _synced(lambda: pipe.apply(tba_bias, transform=transform))
+    apply_launches = ck.LAUNCHES["surface_fit"]
+    print(f"  pipeline Deramp + DirectionalBias(30) + TerrainBias(max_curvature): fit first {t_pfit:.3f} s "
+          f"(K1 launches {fit_launches}), steady {t_pfit_steady:.3f} s; apply {t_papply:.3f} s (K1 launches "
+          f"{apply_launches}); q99 |max_curvature| {q99:.6g}")
+    print(f"  pipeline fit split (ms, synchronized; K1 is also inside the in-fit applies): first {pfit_split_first}, "
+          f"steady {pfit_split}")
+    check(fit_launches > 0 and apply_launches > 0, "K1 did not launch in the pipeline's fit and apply")
+    # What each step removes of its own field, step by step as the apply chains them.
+    removed, x = {}, tba_bias
+    for step in steps:
+        y, _ = step.apply(x, transform=transform)
+        removed[type(step).__name__] = _removed_share(fields[type(step).__name__], y - x)
+        x = y
+    # TerrainBias evaluates the curvature of the DEM it corrects; the field it learned is
+    # defined by the reference's curvature, so its correction is also read there.
+    at_ref, _ = steps[2].apply(ref, transform=transform)
+    removed["TerrainBias at the reference's curvature"] = _removed_share(fields["TerrainBias"], at_ref - ref)
+    check(torch.equal(torch.isnan(x), torch.isnan(corrected)) and torch.equal(x.nan_to_num(), corrected.nan_to_num()),
+          "the step-by-step apply differs from the pipeline's apply")
+    print(f"  share of each field's variance removed: {dict((k, round(r, 5)) for k, r in removed.items())}")
+    for k in ("Deramp", "DirectionalBias", "TerrainBias at the reference's curvature"):
+        check(removed[k] >= 0.9, f"{k} removed {removed[k]:.4f} of its field's variance, not 0.9")
+    del x, y, at_ref
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline.pkl")
+        pipe.save(path)
+        again, _ = coreg.Coreg.load(path).apply(tba_bias, transform=transform)
+    same = torch.equal(torch.isnan(again), torch.isnan(corrected)) and torch.equal(again.nan_to_num(),
+                                                                                   corrected.nan_to_num())
+    print(f"  saved, loaded and applied again: bitwise equal {same}")
+    check(same, "the loaded pipeline's apply differs from the first apply")
+    out["pipeline"] = {"fit_first_s": t_pfit, "fit_steady_s": t_pfit_steady, "fit_split_first_ms": pfit_split_first,
+                       "fit_split_ms": pfit_split, "apply_s": t_papply, "k1_fit": fit_launches,
+                       "k1_apply": apply_launches, "removed": removed}
+    del tba_bias, corrected, again, fields, curv
+
+    # Card against CPU on a crop: the same draw, so the same points on both devices.
+    k, c0 = COREG_CROP, (n - COREG_CROP) // 2
+    crop_kw = dict(transform=Affine.from_origin(transform.c + c0 * RES, transform.f - c0 * RES, RES, RES),
+                   crs=32633, random_state=42)
+    ref_c, rig_c, sh_c = (a[c0:c0 + k, c0:c0 + k].contiguous() for a in (ref, tba_rigid, tba_shift))
+    worst, worst_apply = {}, {}
+    for name, make, tba_c in (("ICP", lambda: coreg.ICP(nn_method="brute", subsample=10000), rig_c),
+                              ("LZD", lambda: coreg.LZD(subsample=100000), rig_c),
+                              ("CPD", lambda: coreg.CPD(subsample=2000), rig_c),
+                              ("DhMinimize", lambda: coreg.DhMinimize(subsample=100000), sh_c)):
+        on_card = make().fit(ref_c, tba_c, **crop_kw)
+        on_cpu = make().fit(ref_c.cpu(), tba_c.cpu(), **crop_kw)
+        m_card, m_cpu = on_card.to_matrix(), on_cpu.to_matrix()
+        worst[name] = float(np.abs(m_card - m_cpu).max() / np.abs(m_cpu).max())
+        check(worst[name] <= 1e-4, f"{name} card vs CPU on the crop: {worst[name]:.3e} relative")
+        if name in ("ICP", "LZD"):
+            a_card = on_cpu.apply(tba_c, transform=crop_kw["transform"])[0].cpu()
+            a_cpu = on_cpu.apply(tba_c.cpu(), transform=crop_kw["transform"])[0]
+            check(torch.equal(torch.isnan(a_card), torch.isnan(a_cpu)), f"{name} tier-3 NaN masks differ")
+            fin = torch.isfinite(a_cpu)
+            worst_apply[name] = float((a_card[fin] - a_cpu[fin]).abs().max())
+            check(worst_apply[name] <= 1e-3, f"{name} tier 3 card vs CPU: {worst_apply[name]:.3e} m")
+    print(f"  card vs CPU on {k}^2: matrices max rel {dict((a, f'{b:.2e}') for a, b in worst.items())}; "
+          f"tier-3 applies max abs {dict((a, f'{b:.2e}') for a, b in worst_apply.items())} m, NaN masks identical")
+    out.update(crop_matrix_rel=worst, crop_apply_abs_m=worst_apply)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -506,7 +741,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/5] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/6] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
@@ -514,20 +749,24 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/5] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/6] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     for line in log.splitlines():
         if "Used" in line or "spill" in line:
             print("  " + line.strip())
 
-    print("[3/5] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/6] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/5] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/6] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[5/5] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/6] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
+    torch.cuda.empty_cache()
+
+    print(f"[6/6] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    cor = phase_coreg(dev, MAIN_SIZE)
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
@@ -535,7 +774,7 @@ def main() -> int:
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE,
-        "uncertainty": unc}
+        "uncertainty": unc, "coreg": cor}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -231,12 +231,19 @@ def test_geographic_and_unported_crs_raise(pair):
     (dict(), ValueError),
     (dict(transform=TRANSFORM, weights=np.ones(3)), NotImplementedError),
     (dict(transform=TRANSFORM, mesh=object()), NotImplementedError),
-    (dict(transform=TRANSFORM, bias_vars={"x": 1}), NotImplementedError),
+    (dict(transform=TRANSFORM, bias_vars={"x": np.ones((256, 256), np.float32)}), None),
 ])
 def test_fit_refuses_what_is_not_ported(pair, kwargs, err):
+    """What is not ported raises; bias_vars= is ported, and an affine method ignores it as
+    xdem_tpu does."""
     ref, tba = pair
-    with pytest.raises(err):
-        coreg.NuthKaab().fit(ref, tba, **kwargs)
+    if err is None:
+        got = coreg.NuthKaab().fit(ref, tba, random_state=42, **kwargs).to_translations()
+        want = jcoreg.NuthKaab().fit(ref, tba, random_state=42, **dict(kwargs, transform=JAX_TRANSFORM))
+        np.testing.assert_allclose(got[:2], want.to_translations()[:2], rtol=0.01)
+    else:
+        with pytest.raises(err):
+            coreg.NuthKaab().fit(ref, tba, **kwargs)
     with pytest.raises(NotImplementedError, match="2-D"):
         coreg.NuthKaab().fit(ref[None], tba, transform=TRANSFORM)
 
@@ -270,8 +277,13 @@ def test_apply_matrix_translation_tiers(pair):
     g, w = to_np(got[0]), np.asarray(want[0])
     assert np.array_equal(np.isnan(g), np.isnan(w))
     np.testing.assert_allclose(g[np.isfinite(w)], w[np.isfinite(w)], rtol=1e-6, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="rotations"):
-        coreg.apply_matrix(ref, coreg.matrix_from_translations_rotations(alpha=1.0), transform=t)
+    # A rotation goes to the regrid tiers, as in xdem_tpu (about the grid's centre, so the
+    # heights stay small enough for a 1e-3 m bound in float32).
+    rot, c = coreg.matrix_from_translations_rotations(alpha=1.0), (t.c + 128 * RES, t.f - 128 * RES, 0.0)
+    g = to_np(coreg.apply_matrix(ref, rot, centroid=c, transform=t)[0])
+    w = np.asarray(jbase.apply_matrix(ref, rot, centroid=c, transform=JAX_TRANSFORM)[0])
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[np.isfinite(w)], w[np.isfinite(w)], rtol=0, atol=1e-3)
 
 
 # ------------------------------------------------------------------ fitted state
@@ -315,8 +327,8 @@ def test_load_refuses_foreign_callables_and_code(tmp_path):
     path.write_bytes(pickle.dumps({"class": "VerticalShift", "meta": meta, "fit_called": True}))
     loaded = coreg.Coreg.load(str(path))
     assert loaded.meta["inputs"]["affine"]["vshift_reduc_func"] is None
-    path.write_bytes(pickle.dumps({"class": "ICP", "meta": meta, "fit_called": True}))
-    with pytest.raises(NotImplementedError, match="ICP"):
+    path.write_bytes(pickle.dumps({"class": "BlockwiseNuthKaab", "meta": meta, "fit_called": True}))
+    with pytest.raises(NotImplementedError, match="BlockwiseNuthKaab"):
         coreg.Coreg.load(str(path))
     path.write_bytes(pickle.dumps({"class": "VerticalShift", "meta": {"x": jcoreg.VerticalShift}, "fit_called": True}))
     with pytest.raises(pickle.UnpicklingError, match="Refusing"):

@@ -253,3 +253,77 @@ def test_estimate_uncertainty_on_the_card(cuda_device):
     assert ck.LAUNCHES["surface_fit"] == 1
     assert sig.is_cuda and float(torch.isfinite(sig).float().mean()) > 0.98
     assert rho(np.array([0.0]))[0] == pytest.approx(1.0)
+
+
+# ---------------------------------------------------------------------- coregistration path
+# Card against CPU (or scipy) with identical inputs: the rigid fits draw their subsample on
+# the host with numpy, so both devices see the same points.
+
+
+def test_brute_nearest_on_the_card_equals_kdtree(cuda_device):
+    """2e4 query points against 2e4 reference points: the blocked direct-difference argmin
+    on the card picks, index for index, what scipy's float64 KD-tree picks."""
+    from scipy.spatial import KDTree
+
+    from xdem_tpu_torch.coreg import affine
+
+    rng = np.random.default_rng(11)
+    ref = rng.uniform(0, 1000, (20_000, 3)).astype(np.float32)
+    q = rng.uniform(0, 1000, (20_000, 3)).astype(np.float32)
+    idx, dist = affine._brute_nearest(torch.from_numpy(ref).to(cuda_device), torch.from_numpy(q).to(cuda_device))
+    want_d, want_i = KDTree(ref.astype(np.float64)).query(q.astype(np.float64))
+    assert idx.is_cuda
+    np.testing.assert_array_equal(idx.cpu().numpy(), want_i)
+    np.testing.assert_allclose(dist.cpu().numpy(), want_d, rtol=1e-5)
+
+
+def test_tier3_apply_on_the_card_matches_the_cpu(cuda_device):
+    dem = _dem("cpu", shape=(512, 512))
+    t = Affine.from_origin(5e5, 8e6, 20.0, 20.0)
+    m = coreg.matrix_from_translations_rotations(20, 5, 0.1, 0.1, 0.05, 0.01)
+    centroid = (5e5, 8e6 - 512 * 20.0, 500.0)
+    got, _ = coreg.apply_matrix(dem.to(cuda_device), m, centroid=centroid, transform=t)
+    want, _ = coreg.apply_matrix(dem, m, centroid=centroid, transform=t)
+    assert got.is_cuda
+    assert_same_nan(got.cpu(), want, "tier 3")
+    fin = torch.isfinite(want)
+    assert float((got.cpu()[fin] - want[fin]).abs().max()) <= 1e-3
+
+
+def test_rigid_fits_on_the_card_match_the_cpu(cuda_device):
+    """ICP (brute), LZD, CPD and DhMinimize fitted on the card and on the CPU from one draw.
+    CPD runs 8 EM steps: on this pair its variance keeps shrinking towards the float32 noise
+    floor, where the card's and the CPU's matmul roundings decide the step at which it stops
+    (measured: the card's EM collapsed at step 13, the CPU's ran all 100)."""
+    dem = _dem("cpu", shape=(512, 512), holes=False)
+    t = Affine.from_origin(5e5, 8e6, 20.0, 20.0)
+    m = coreg.matrix_from_translations_rotations(20, 5, 0.1, 0.1, 0.05, 0.01)
+    tba, _ = coreg.apply_matrix(dem, m, centroid=(5e5, 8e6 - 512 * 20.0, 500.0), transform=t)
+    for c, sub in ((coreg.ICP(nn_method="brute"), 5000), (coreg.LZD(), 50000), (coreg.CPD(max_iterations=8), 1000),
+                   (coreg.DhMinimize(), 50000)):
+        kw = dict(transform=t, subsample=sub, random_state=3)
+        on_card = c.copy().fit(dem.to(cuda_device), tba.to(cuda_device), **kw).to_matrix()
+        on_cpu = c.copy().fit(dem, tba, **kw).to_matrix()
+        assert np.abs(on_card - on_cpu).max() <= 1e-4 * np.abs(on_cpu).max(), type(c).__name__
+
+
+def test_icp_auto_takes_the_brute_search_on_the_card(cuda_device, monkeypatch):
+    from xdem_tpu_torch.coreg import affine
+
+    calls = []
+    solve = affine._icp_solve_device
+    monkeypatch.setattr(affine, "_icp_solve_device", lambda *a, **k: calls.append(1) or solve(*a, **k))
+    dem = _dem(cuda_device, shape=(256, 256), holes=False)
+    coreg.ICP(subsample=3000).fit(dem, dem + 1.0, transform=Affine.from_origin(0, 0, 20, 20), random_state=1)
+    assert calls == [1]
+
+
+def test_bias_pipeline_on_the_card_launches_k1(cuda_device):
+    dem = _dem(cuda_device, shape=(300, 320), holes=False)
+    yy = torch.arange(300, dtype=torch.float32, device=cuda_device)[:, None].expand(300, 320)
+    tba = dem + 1e-4 * (yy - 150) ** 2
+    pipe = coreg.CoregPipeline([coreg.Deramp(subsample=20000), coreg.TerrainBias(subsample=20000)])
+    ck.reset_launch_counts()
+    out, _ = pipe.fit_and_apply(dem, tba, transform=Affine.from_origin(0, 0, 20, 20), random_state=2)
+    assert out.is_cuda and ck.LAUNCHES["surface_fit"] >= 2
+    assert float(torch.nanmean((dem - out) ** 2)) < 0.1 * float(torch.nanmean((dem - tba) ** 2))

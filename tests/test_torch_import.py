@@ -29,8 +29,9 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
     code = (
         "import sys; import xdem_tpu_torch, xdem_tpu_torch.terrain, xdem_tpu_torch.coreg, "
         "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels, xdem_tpu_torch.spatialstats, "
-        "xdem_tpu_torch.uncertainty; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) "
+        "xdem_tpu_torch.uncertainty, xdem_tpu_torch.fit, xdem_tpu_torch.coreg.biascorr, "
+        "xdem_tpu_torch.coreg.filters, xdem_tpu_torch.coreg.blockwise; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -39,7 +40,7 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
 
 
 def test_sources_never_import_jax_or_xdem_tpu():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xdem_tpu|pandas)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xdem_tpu|pandas|sklearn)\b", re.M)
     # _build/ holds build outputs (git-ignored), not sources.
     files = [f for f in PKG.rglob("*.py") if "_build" not in f.relative_to(PKG).parts]
     files.append(PKG.parent / "chip_smoke.py")
@@ -61,6 +62,36 @@ def test_uncertainty_path_runs_without_pandas():
         "                                            subsample=200, random_state=1)\n"
         "assert np.isfinite(sig.numpy()).mean() > 0.8 and abs(rho(np.array([0.0]))[0] - 1) < 1e-9\n"
         "assert 'pandas' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_coreg_path_runs_without_pandas_or_sklearn():
+    """A pipeline of rigid and bias-correction steps fits, saves, loads and applies with
+    pandas and scikit-learn unavailable, as on the card's machine; sklearn is asked for only
+    by name, and then its absence is named."""
+    code = (
+        "import sys; sys.modules['pandas'] = None; sys.modules['sklearn'] = None\n"
+        "import os, tempfile, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import Affine, coreg, fit\n"
+        "rng = np.random.default_rng(0)\n"
+        "dem = (rng.normal(size=(64, 64)).cumsum(0).cumsum(1) * 3).astype(np.float32)\n"
+        "tba = dem + np.linspace(0, 1, 64, dtype=np.float32)[None, :]\n"
+        "t = Affine.from_origin(0, 1280, 20, 20)\n"
+        "pipe = coreg.LZD(subsample=2000) + coreg.TerrainBias(\"slope\", bin_sizes=8)\n"
+        "out, _ = pipe.fit_and_apply(dem, tba, transform=t, random_state=1)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'p.pkl'); pipe.save(path)\n"
+        "again, _ = coreg.Coreg.load(path).apply(tba, transform=t)\n"
+        "assert torch.equal(torch.isnan(out), torch.isnan(again)) and bool(torch.nan_to_num(out - again).eq(0).all())\n"
+        "try:\n"
+        "    fit.robust_norder_polynomial_fit(np.arange(20.0), np.arange(20.0), linear_pkg='sklearn')\n"
+        "    raise SystemExit('sklearn did not raise')\n"
+        "except ImportError as e:\n"
+        "    assert 'scikit-learn' in str(e)\n"
+        "assert not [m for m in ('pandas', 'sklearn') if sys.modules.get(m) is not None]\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(PKG.parent), timeout=300)

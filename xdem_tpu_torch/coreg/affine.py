@@ -1,14 +1,24 @@
-"""Affine coregistration: AffineCoreg, VerticalShift and Nuth & Kääb (2011).
+"""Affine coregistration: AffineCoreg, VerticalShift, Nuth & Kääb (2011), DhMinimize, ICP,
+CPD and LZD.
 
-Port of the raster-raster paths of xdem_tpu/coreg/affine.py. The Nuth & Kääb fit runs on the
-device of its inputs: slope and aspect from ``torch.gradient``, a seeded subsample without
-replacement (uniform scores from an explicit ``torch.Generator``, invalid pixels parked at
--inf, top-k), then at most ``max_iterations`` steps of bilinear dh, aspect-binned medians
-and a closed-form 3x3 solve of the cosine model, with the reference's stop rule. The
-normal equations are plain float32 products: nothing here turns TF32 on.
+Port of the raster-raster paths of xdem_tpu/coreg/affine.py. Every solver runs on the device
+of its inputs, in float32 (nothing here turns TF32 on); where xdem_tpu has a
+``lax.while_loop`` the port has a Python loop whose stop test reads one scalar per
+iteration.
 
-The random draws differ from xdem_tpu's (torch and JAX generators give other bits from one
-seed), so fits agree with the reference to the coregistration tolerance, not bitwise.
+- Nuth & Kääb: slope and aspect from ``torch.gradient``, a seeded subsample without
+  replacement (uniform scores from an explicit ``torch.Generator``, invalid pixels parked at
+  -inf, top-k), then bilinear dh, aspect-binned medians and a closed-form 3x3 solve of the
+  cosine model. Its draw differs from xdem_tpu's (torch and JAX generators give other bits
+  from one seed), so the fit agrees with the reference to the coregistration tolerance.
+- VerticalShift, DhMinimize, ICP, CPD and LZD draw their subsample on the host with
+  ``np.random.default_rng(random_state).choice`` over the jointly valid pixels, exactly as
+  xdem_tpu does, so the samples are identical and the fits agree closely.
+- DhMinimize: Nelder-Mead on NMAD(dh) (medians as the mean of the two middle order
+  statistics); ICP: point-to-plane (Low 2004) or point-to-point, the nearest neighbours by a
+  blocked direct-difference argmin on the device (``nn_method="brute"``) or a scipy KD-tree on
+  the host; CPD: the EM of Myronenko & Song (2010) with the (M, N) responsibilities on the
+  device; LZD: the linearised 6-parameter least squares of Rosenholm & Torlegård (1988).
 """
 
 from __future__ import annotations
@@ -16,12 +26,19 @@ from __future__ import annotations
 import logging
 import math
 import warnings
-from typing import Any, Callable
+from typing import Any, Callable, Literal
 
 import numpy as np
 import torch
 
-from xdem_tpu_torch.coreg.base import Coreg, _check_matrix, matrix_from_translations_rotations
+from xdem_tpu_torch.coreg.base import (
+    Coreg,
+    _check_matrix,
+    _make_matrix_valid,
+    invert_matrix,
+    matrix_from_translations_rotations,
+    translations_rotations_from_matrix,
+)
 from xdem_tpu_torch.georef import Affine, is_projected
 from xdem_tpu_torch.ops.interp import interp_rowcol
 from xdem_tpu_torch.ops.reductions import binned_median as _binned_median
@@ -53,6 +70,144 @@ def _dh_device(pts_z, rows, cols, raster, sx_px, sy_px, invert: bool) -> torch.T
     interp = interp_rowcol(raster, rows - sgn * sy_px, cols + sgn * sx_px, method="linear")
     dh = pts_z - interp
     return -dh if invert else dh
+
+
+# ======================================================================================
+# Shared subsampling: numpy's draw over the jointly valid pixels, as xdem_tpu draws
+# ======================================================================================
+
+
+def _finite_all(arrays: list[torch.Tensor]) -> torch.Tensor:
+    """Joint finite mask of same-shape grids."""
+    out = torch.isfinite(arrays[0])
+    for a in arrays[1:]:
+        out &= torch.isfinite(a)
+    return out
+
+
+def _gather_flat(arrays: list[torch.Tensor], flat_idx: torch.Tensor) -> torch.Tensor:
+    """(K, n) float32: every grid of `arrays` at the flat pixel indices `flat_idx`."""
+    return torch.stack([a.reshape(-1)[flat_idx].to(torch.float32) for a in arrays])
+
+
+def _host_mask(mask: Any) -> np.ndarray:
+    return mask.detach().cpu().numpy().astype(bool) if isinstance(mask, torch.Tensor) else np.asarray(mask, bool)
+
+
+def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int, random_state: Any):
+    """Draw the subsample over the pixels where every grid is finite and the inlier mask is
+    set, with ``np.random.default_rng(random_state).choice`` as xdem_tpu draws it.
+
+    `grids` maps names to device tensors, host arrays, or functions of the drawn
+    (rows, cols) that give float64 values (variables defined everywhere, such as pixel or
+    rotated coordinates, so never built over the whole grid). Device grids contribute one
+    joint finite mask and one gather at the picks. Returns (rows, cols, count, values), with
+    device values as float32 numpy, host values indexed as stored.
+    """
+    dev = {k: v for k, v in grids.items() if isinstance(v, torch.Tensor)}
+    host = {k: np.asarray(v) for k, v in grids.items() if not isinstance(v, torch.Tensor) and not callable(v)}
+    shape = next(iter(dev.values())).shape if dev else next(iter(host.values())).shape
+    valid = _finite_all(list(dev.values())).cpu().numpy() if dev else np.ones(shape, bool)
+    for v in host.values():
+        valid &= np.isfinite(v)
+    if inlier_mask is not None:
+        valid &= _host_mask(inlier_mask)
+    idx_flat = np.flatnonzero(valid)
+    if idx_flat.size == 0:
+        raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
+    count = _count_from_subsample(subsample, idx_flat.size)
+    rng = np.random.default_rng(random_state)
+    choice = rng.choice(idx_flat, count, replace=False) if count < idx_flat.size else idx_flat
+    rr, cc = np.unravel_index(choice, tuple(shape))
+    vals: dict[str, np.ndarray] = {}
+    if dev:
+        device = next(iter(dev.values())).device
+        gathered = _gather_flat(list(dev.values()), torch.from_numpy(choice).to(device)).cpu().numpy()
+        vals.update(zip(dev, gathered))
+    for k, v in host.items():
+        vals[k] = v[rr, cc]
+    for k, v in grids.items():
+        if callable(v) and not isinstance(v, torch.Tensor):
+            vals[k] = np.asarray(v(rr, cc), dtype=np.float64)
+    return rr, cc, int(count), vals
+
+
+def _subsample_pair(ref_elev: torch.Tensor, tba_elev: torch.Tensor, inlier_mask: Any, transform: Affine,
+                    subsample: float | int, random_state: Any, aux_vars: dict[str, Any] | None = None) -> dict:
+    """Subsample a raster pair for the shift-and-compare methods: the reference heights and
+    pixel coordinates of the picks as float32 tensors on the pair's device, the
+    to-be-aligned grid to interpolate, the count, and float32 aux values."""
+    aux_vars = aux_vars or {}
+    rr, cc, count, vals = _draw_pixels({"__ref__": ref_elev, "__tba__": tba_elev, **aux_vars},
+                                       inlier_mask, subsample, random_state)
+    dev = tba_elev.device
+    out = {
+        "pts_z": torch.from_numpy(vals["__ref__"]).to(dev),
+        "rows": torch.from_numpy(rr.astype(np.float32)).to(dev),
+        "cols": torch.from_numpy(cc.astype(np.float32)).to(dev),
+        "raster": tba_elev,
+        "invert": False,
+        "count": count,
+    }
+    if aux_vars:
+        out["aux"] = {k: np.asarray(vals[k]).astype(np.float32) for k in aux_vars}
+    return out
+
+
+def _subsample_pair_values(ref_elev: torch.Tensor, tba_elev: torch.Tensor, inlier_mask: Any, transform: Affine,
+                           subsample: float | int, random_state: Any, aux_vars: dict[str, Any] | None = None):
+    """Subsample a raster pair at common pixels: (ref, tba, x, y, aux) as float64 numpy, with
+    x, y the world coordinates of the pixel centres."""
+    aux_vars = aux_vars or {}
+    rr, cc, _, vals = _draw_pixels({"__ref__": ref_elev, "__tba__": tba_elev, **aux_vars},
+                                   inlier_mask, subsample, random_state)
+    x, y = transform.xy(rr, cc)
+    aux = {k: np.asarray(vals[k]).astype(np.float64) for k in aux_vars}
+    return vals["__ref__"].astype(np.float64), vals["__tba__"].astype(np.float64), x, y, aux
+
+
+def _standardize_epc(ref_epc: np.ndarray, tba_epc: np.ndarray, scale_std: bool = True):
+    """Centroid removal and NMAD standardisation of 3 x N point clouds."""
+    centroid = np.median(ref_epc, axis=1)
+    ref_epc = ref_epc - centroid[:, None]
+    tba_epc = tba_epc - centroid[:, None]
+    if scale_std:
+        def _nmad(v):
+            med = np.nanmedian(v)
+            return 1.4826 * np.nanmedian(np.abs(v - med))
+
+        std_fac = np.mean([_nmad(ref_epc[0]), _nmad(ref_epc[1]), _nmad(ref_epc[2])])
+    else:
+        std_fac = 1.0
+    return ref_epc / std_fac if scale_std else ref_epc, tba_epc / std_fac if scale_std else tba_epc, \
+        (float(centroid[0]), float(centroid[1]), float(centroid[2])), float(std_fac)
+
+
+def _apply_matrix_pts_mat(mat: np.ndarray, matrix: np.ndarray, invert: bool = False) -> np.ndarray:
+    """Apply a 4x4 matrix to a 3 x N point array."""
+    if invert:
+        matrix = invert_matrix(matrix)
+    pts = np.vstack([mat, np.ones((1, mat.shape[1]))])
+    return (np.asarray(matrix) @ pts)[:3]
+
+
+def _rotation_xyz(alpha: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Rz @ Ry @ Rx of three 0-dim tensors (radians): the extrinsic x-y-z composition of
+    matrix_from_translations_rotations."""
+    one, zero = torch.ones_like(alpha), torch.zeros_like(alpha)
+    ca, sa, cb, sb, cg, sg = (torch.cos(alpha), torch.sin(alpha), torch.cos(beta), torch.sin(beta),
+                              torch.cos(gamma), torch.sin(gamma))
+    rx = torch.stack([one, zero, zero, zero, ca, -sa, zero, sa, ca]).reshape(3, 3)
+    ry = torch.stack([cb, zero, sb, zero, one, zero, -sb, zero, cb]).reshape(3, 3)
+    rz = torch.stack([cg, -sg, zero, sg, cg, zero, zero, zero, one]).reshape(3, 3)
+    return rz @ ry @ rx
+
+
+def _rigid_step(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    step = torch.eye(4, dtype=R.dtype, device=R.device)
+    step[:3, :3] = R
+    step[:3, 3] = t
+    return step
 
 
 # ======================================================================================
@@ -267,6 +422,12 @@ class AffineCoreg(Coreg):
     def from_translations(cls, x_off: float = 0.0, y_off: float = 0.0, z_off: float = 0.0) -> "AffineCoreg":
         return cls.from_matrix(matrix_from_translations_rotations(t_x=x_off, t_y=y_off, t_z=z_off))
 
+    @classmethod
+    def from_rotations(cls, x_rot: float = 0.0, y_rot: float = 0.0, z_rot: float = 0.0,
+                       use_degrees: bool = True) -> "AffineCoreg":
+        return cls.from_matrix(matrix_from_translations_rotations(
+            alpha=x_rot, beta=y_rot, gamma=z_rot, use_degrees=use_degrees))
+
     @property
     def centroid(self) -> tuple[float, float, float] | None:
         return self._meta["outputs"].get("affine", {}).get("centroid")
@@ -282,6 +443,7 @@ def vertical_shift(
     ref_elev: torch.Tensor,
     tba_elev: torch.Tensor,
     inlier_mask: Any,
+    transform: Affine,
     subsample: float | int,
     random_state: Any,
     vshift_reduc_func: Callable[[np.ndarray], Any] = np.median,
@@ -293,26 +455,15 @@ def vertical_shift(
     xdem_tpu, evaluates dh on the device and reduces on the host.
     """
     logging.info("Running vertical shift coregistration")
-    inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
     if isinstance(subsample, float) and subsample == 1.0 and vshift_reduc_func in (np.median, np.nanmedian):
+        inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
         med, n_valid = _masked_median_diff(ref_elev, tba_elev, inlier)
         if n_valid == 0:
             raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
         return med, n_valid
-    valid = (torch.isfinite(tba_elev) & torch.isfinite(ref_elev) & inlier).cpu().numpy()
-    idx_flat = np.flatnonzero(valid)
-    if idx_flat.size == 0:
-        raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
-    count = _count_from_subsample(subsample, idx_flat.size)
-    rng = np.random.default_rng(random_state)
-    choice = rng.choice(idx_flat, count, replace=False) if count < idx_flat.size else idx_flat
-    rr, cc = np.unravel_index(choice, valid.shape)
-    dev = ref_elev.device
-    rows = torch.from_numpy(rr.astype(np.float32)).to(dev)
-    cols = torch.from_numpy(cc.astype(np.float32)).to(dev)
-    pts_z = ref_elev[torch.from_numpy(rr).to(dev), torch.from_numpy(cc).to(dev)]
-    dh = _dh_device(pts_z, rows, cols, tba_elev, 0.0, 0.0, False).cpu().numpy()
-    return float(vshift_reduc_func(dh[np.isfinite(dh)])), int(count)
+    sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
+    dh = _dh_device(sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], 0.0, 0.0, False).cpu().numpy()
+    return float(vshift_reduc_func(dh[np.isfinite(dh)])), sub["count"]
 
 
 class VerticalShift(AffineCoreg):
@@ -326,7 +477,7 @@ class VerticalShift(AffineCoreg):
     def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
         p = self._meta["inputs"]["random"]
         vshift, count = vertical_shift(
-            ref_elev, tba_elev, inlier_mask, p["subsample"], p["random_state"],
+            ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"],
             vshift_reduc_func=self._meta["inputs"]["affine"]["vshift_reduc_func"],
         )
         self._meta["outputs"]["affine"] = {"shift_z": vshift}
@@ -389,3 +540,760 @@ class NuthKaab(AffineCoreg):
         m[1, 3] += aff["shift_y"]
         m[2, 3] += aff["shift_z"]
         return m
+
+
+# ======================================================================================
+# DhMinimize
+# ======================================================================================
+
+
+def _nmad_dev(x: torch.Tensor) -> torch.Tensor:
+    """NMAD over the finite entries, with medians as the mean of the two middle order
+    statistics (the formula of xdem_tpu, not torch's lower-middle median)."""
+    med = _masked_median(x)
+    return 1.4826 * _masked_median(torch.abs(x - med))
+
+
+def _nelder_mead_2d(f: Callable[[torch.Tensor], torch.Tensor]):
+    """2-D Nelder-Mead of an objective `f(v)` (a float32 2-vector on the CPU to a 0-dim
+    float32 CPU tensor), with scipy's defaults: reflect/expand/contract/shrink coefficients
+    1, 2, 0.5, 0.5; xatol = fatol = 1e-4; at most 400 iterations; start (1, 1) with a 5 %
+    initial simplex. The simplex lives on the CPU in float32; the vertices are ordered by a
+    stable sort, as JAX's argsort is stable. Returns (x_best, f_best, iterations)."""
+    x0 = torch.tensor([1.0, 1.0])
+    s = torch.stack([x0, x0 + torch.tensor([0.05, 0.0]), x0 + torch.tensor([0.0, 0.05])])
+    fv = torch.stack([f(s[0]), f(s[1]), f(s[2])])
+
+    def _sorted(s, fv):
+        idx = torch.argsort(fv, stable=True)
+        return s[idx], fv[idx]
+
+    it = 0
+    while True:
+        s, fv = _sorted(s, fv)
+        xa = torch.max(torch.abs(s[1:] - s[0]))
+        fa = torch.max(torch.abs(fv[1:] - fv[0]))
+        if not (it < 400 and bool((xa > 1e-4) | (fa > 1e-4))):
+            break
+        centroid = (s[0] + s[1]) / 2.0
+        xr = centroid + (centroid - s[2])
+        fr = f(xr)
+        if fr < fv[0]:  # expand
+            xe = centroid + 2.0 * (centroid - s[2])
+            fe = f(xe)
+            s[2], fv[2] = (xe, fe) if fe < fr else (xr, fr)
+        elif fr < fv[1]:  # reflect
+            s[2], fv[2] = xr, fr
+        else:  # contract, outside or inside
+            outside = bool(fr < fv[2])
+            xc = centroid + 0.5 * (centroid - s[2]) if outside else centroid - 0.5 * (centroid - s[2])
+            fc = f(xc)
+            if fc < (fr if outside else fv[2]):
+                s[2], fv[2] = xc, fc
+            else:  # shrink towards the best vertex
+                s = torch.stack([s[0], s[0] + 0.5 * (s[1] - s[0]), s[0] + 0.5 * (s[2] - s[0])])
+                fv = torch.stack([fv[0], f(s[1]), f(s[2])])
+        it += 1
+    return s[0], fv[0], it
+
+
+def _dh_minimize_nm_device(pts_z, rows, cols, raster, res_x: float, res_y: float, invert: bool):
+    """Nelder-Mead of NMAD(dh(sx, sy)) over the points, each objective on their device.
+    Returns (x_best metres, f_best, iterations, median dh at the optimum)."""
+    res = torch.tensor([res_x, res_y], dtype=torch.float32)
+
+    def f(v):
+        sx, sy = (v / res).tolist()  # float32 quotients, exact as Python floats
+        return _nmad_dev(_dh_device(pts_z, rows, cols, raster, sx, sy, invert)).cpu()
+
+    x_best, f_best, it = _nelder_mead_2d(f)
+    sx, sy = (x_best / res).tolist()
+    vshift = _masked_median(_dh_device(pts_z, rows, cols, raster, sx, sy, invert))
+    return x_best, f_best, it, vshift
+
+
+def dh_minimize(
+    ref_elev: torch.Tensor,
+    tba_elev: torch.Tensor,
+    inlier_mask: Any,
+    transform: Affine,
+    subsample: float | int,
+    random_state: Any,
+    fit_minimizer: Any = None,
+    fit_loss_func: Callable | None = None,
+) -> tuple[tuple[float, float, float], int, int]:
+    """Elevation-difference minimisation: minimise a dispersion loss (default NMAD) of dh
+    over a 2-D shift. Returns ((east, north, vertical) offsets in m, subsample count,
+    Nelder-Mead iterations; 0 for a host minimizer)."""
+    logging.info("Running dh minimization coregistration.")
+    sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
+    args = (sub["pts_z"], sub["rows"], sub["cols"], sub["raster"])
+    invert = sub["invert"]
+    res_x, res_y = transform.xres, transform.yres
+    if fit_minimizer is None and fit_loss_func is None:
+        x_best, _, it, vshift = _dh_minimize_nm_device(*args, res_x, res_y, invert)
+        east, north = (-float(v) for v in x_best)
+        return (east, north, float(vshift)), sub["count"], int(it)
+
+    from scipy.optimize import minimize
+
+    def dh_at(v) -> torch.Tensor:
+        return _dh_device(*args, v[0] / res_x, v[1] / res_y, invert)
+
+    if fit_loss_func is None:
+        def objective(v):
+            return float(_nmad_dev(dh_at(v)))
+    else:
+        def objective(v):
+            return float(fit_loss_func(dh_at(v).cpu().numpy()))
+
+    minimizer = fit_minimizer or minimize
+    # Nelder-Mead struggles from exactly (0, 0).
+    result = minimizer(objective, (1.0, 1.0), method="Nelder-Mead") if minimizer is minimize \
+        else minimizer(objective, (1.0, 1.0))
+    east, north = -float(result.x[0]), -float(result.x[1])
+    vshift = float(np.nanmedian(dh_at((-east, -north)).cpu().numpy()))
+    return (east, north, vshift), sub["count"], 0
+
+
+class DhMinimize(AffineCoreg):
+    """Direct 2-D minimisation of a dispersion loss of dh (default: Nelder-Mead on NMAD)."""
+
+    def __init__(self, fit_minimizer: Any = None, fit_loss_func: Callable | None = None,
+                 subsample: int | float = 5e5, initial_shift: tuple | None = None):
+        super().__init__(subsample=subsample, initial_shift=initial_shift)
+        self._meta["inputs"]["fitorbin"] = {"fit_minimizer": fit_minimizer, "fit_loss_func": fit_loss_func}
+
+    def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
+        p = self._meta["inputs"]["random"]
+        fb = self._meta["inputs"]["fitorbin"]
+        (east, north, vshift), count, n_it = dh_minimize(
+            ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"],
+            fit_minimizer=fb["fit_minimizer"], fit_loss_func=fb["fit_loss_func"],
+        )
+        self._meta["outputs"]["affine"] = {"shift_x": east, "shift_y": north, "shift_z": vshift}
+        self._meta["outputs"]["random"] = {"subsample_final": count}
+        self._meta["outputs"]["iterative"] = {"last_iteration": n_it}
+
+    def _to_matrix_func(self) -> np.ndarray:
+        m = np.eye(4)
+        aff = self._meta["outputs"]["affine"]
+        m[0, 3] += aff["shift_x"]
+        m[1, 3] += aff["shift_y"]
+        m[2, 3] += aff["shift_z"]
+        return m
+
+
+# ======================================================================================
+# ICP
+# ======================================================================================
+
+
+# Coordinate that pads reference clouds to a block multiple: it squares to ~3e30 (finite in
+# float32, unlike inf, whose differences can go NaN), so a padded point never wins an argmin.
+_NN_PAD_COORD = 1e15
+
+
+def _nn_planes_scan(ref_pts: torch.Tensor, rblk: int = 2048):
+    """An ``nn(q) -> (index, d2)`` nearest-neighbour search over a fixed (N, 3) reference
+    cloud: direct-difference squared distances, block by block of `rblk` reference points,
+    with a running argmin. Never the |a|^2 + |b|^2 - 2ab expansion, which loses ~1e-4
+    relative to cancellation.
+
+    Ties go to the lowest reference index: within a block ``torch.min`` returns the first
+    minimum, and a later block takes over only when strictly closer."""
+    n = ref_pts.shape[0]
+    pad = torch.full(((-n) % rblk, 3), _NN_PAD_COORD, dtype=ref_pts.dtype, device=ref_pts.device)
+    r = torch.cat([ref_pts, pad])
+    rx, ry, rz = (r[:, k].reshape(-1, rblk) for k in range(3))
+
+    def nn(q: torch.Tensor):
+        qx, qy, qz = q[:, 0:1], q[:, 1:2], q[:, 2:3]
+        best_d2 = best_i = None
+        for blk in range(rx.shape[0]):
+            d2 = (qx - rx[blk][None, :]).square_()
+            d2 += (qy - ry[blk][None, :]).square_()
+            d2 += (qz - rz[blk][None, :]).square_()
+            bd, bi = torch.min(d2, dim=1)
+            bi += blk * rblk
+            if best_d2 is None:
+                best_d2, best_i = bd, bi
+            else:
+                take = bd < best_d2
+                best_d2 = torch.where(take, bd, best_d2)
+                best_i = torch.where(take, bi, best_i)
+            del d2
+        return best_i, best_d2
+
+    return nn
+
+
+def _brute_nearest(ref_pts: torch.Tensor, query_pts: torch.Tensor, chunk: int = 2048):
+    """Nearest reference index and distance of each query point by the blocked
+    direct-difference argmin (`chunk` reference points per block)."""
+    idx, d2 = _nn_planes_scan(ref_pts, rblk=chunk)(query_pts)
+    return idx, torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations: int, method: str, picky: bool,
+                    only_translation: bool, n_segments: int):
+    """The ICP iterations on the device of the clouds: transform the original cloud by the
+    running matrix, find the neighbours with `nn`, keep one query per matched reference point
+    with Picky (the closest; ties to the lowest query index), solve the step (Low 2004's
+    linearised point-to-plane normal equations, or Besl & McKay's SVD for point-to-point),
+    compose it. Stops once the step's translation statistic drops below `tolerance` after
+    the third step. Returns (matrix, iterations, statistic)."""
+    dev, dt = ref.device, ref.dtype
+    m = tba.shape[0]
+    qidx = torch.arange(m, device=dev)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    matrix = torch.eye(4, dtype=dt, device=dev)
+    tol32 = float(np.float32(tolerance))
+    it, stat = 0, math.inf
+    while it < max_iterations and (it <= 2 or stat >= tol32):
+        tq = tba @ matrix[:3, :3].T + matrix[:3, 3]
+        ind, d2 = nn(tq)
+        if picky:
+            dmin = torch.full((n_segments,), math.inf, dtype=dt, device=dev).scatter_reduce(0, ind, d2, "amin")
+            is_min = d2 <= dmin[ind]
+            qmin = torch.full((n_segments,), m, dtype=qidx.dtype, device=dev).scatter_reduce(
+                0, ind, torch.where(is_min, qidx, m), "amin")
+            keep = is_min & (qidx == qmin[ind])
+        else:
+            keep = torch.ones(m, dtype=torch.bool, device=dev)
+        w = keep.to(dt)
+        r = ref[ind]
+        if method == "point-to-plane":
+            nrm = norms[ind]
+            B = torch.sum((r - tq) * nrm, dim=1)
+            A = nrm if only_translation else torch.cat([torch.linalg.cross(tq, nrm, dim=1), nrm], dim=1)
+            Aw = A * w[:, None]
+            x = torch.linalg.solve(Aw.T @ A + 1e-8 * torch.eye(A.shape[1], dtype=dt, device=dev), Aw.T @ B)
+            R, t = (eye3, x) if only_translation else (_rotation_xyz(x[0], x[1], x[2]), x[3:])
+        else:
+            wsum = torch.clamp(w.sum(), min=1.0)
+            mu_r = (r * w[:, None]).sum(dim=0) / wsum
+            mu_t = (tq * w[:, None]).sum(dim=0) / wsum
+            H = ((tq - mu_t) * w[:, None]).T @ (r - mu_r)
+            U, _s, Vt = torch.linalg.svd(H)
+            d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+            diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d])
+            R = eye3 if only_translation else Vt.T @ torch.diag(diag) @ U.T
+            t = mu_r - R @ mu_t
+        step = _rigid_step(R, t)
+        matrix = step @ matrix
+        stat = float(torch.abs(torch.sum(step[:3, 3])))
+        it += 1
+    return matrix, it, stat
+
+
+def _icp_solve_device(ref, tba, norms, tolerance, max_iterations: int, method: str = "point-to-plane",
+                      picky: bool = True, only_translation: bool = False, chunk: int = 2048):
+    """ICP with the brute neighbour search, on the device of the (N, 3) float32 clouds."""
+    nn = _nn_planes_scan(ref, rblk=chunk)
+    return _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations, method, picky, only_translation,
+                           n_segments=ref.shape[0])
+
+
+def _icp_norms_device(dem: torch.Tensor, xres: float, yres: float):
+    """Plane normals from the DEM gradients for point-to-plane ICP, in xdem's formulation
+    (including its (gradient_x, gradient_y) naming of the (d/drow, d/dcol) outputs)."""
+    gradient_x, gradient_y = torch.gradient(dem)
+    normal_east = torch.sin(torch.arctan(gradient_y / torch.tensor(yres, dtype=dem.dtype, device=dem.device))) * -1
+    normal_north = torch.sin(torch.arctan(gradient_x / torch.tensor(xres, dtype=dem.dtype, device=dem.device)))
+    normal_up = 1 - torch.hypot(normal_east, normal_north)
+    return normal_east, normal_north, normal_up
+
+
+def _icp_fit_approx_lsq(ref: np.ndarray, tba: np.ndarray, norms: np.ndarray,
+                        only_translation: bool = False) -> np.ndarray:
+    """Low (2004) linearised point-to-plane least squares, x = lstsq(A, B) with
+    A = [tba x n, n], on the host in float64."""
+    B = np.sum(ref * norms, axis=1) - np.sum(tba * norms, axis=1)
+    if only_translation:
+        x, *_ = np.linalg.lstsq(norms, B, rcond=None)
+        return matrix_from_translations_rotations(t_x=x[0], t_y=x[1], t_z=x[2], use_degrees=False)
+    A = np.hstack((np.cross(tba, norms), norms))
+    x, *_ = np.linalg.lstsq(A, B, rcond=None)
+    return matrix_from_translations_rotations(
+        alpha=x[0], beta=x[1], gamma=x[2], t_x=x[3], t_y=x[4], t_z=x[5], use_degrees=False
+    )
+
+
+def _icp_fit_minimizer_step(ref: np.ndarray, tba: np.ndarray, norms: np.ndarray | None, method: str,
+                            fit_minimizer: Callable, fit_loss_func: Any, only_translation: bool) -> np.ndarray:
+    """One ICP step through a scipy.optimize.least_squares-style minimizer, called as
+    ``fit_minimizer(fit_func, x0, loss=fit_loss_func)`` on the 3 x N pairs of this step."""
+
+    def fit_func(x: np.ndarray) -> np.ndarray:
+        ts, als = (x, (0.0, 0.0, 0.0)) if only_translation else (x[:3], x[3:])
+        m = matrix_from_translations_rotations(t_x=ts[0], t_y=ts[1], t_z=ts[2], alpha=als[0], beta=als[1],
+                                               gamma=als[2], use_degrees=False)
+        trans = _apply_matrix_pts_mat(tba, matrix=m)
+        if method == "point-to-plane":
+            return np.sum((trans - ref) * norms, axis=0)
+        return np.sqrt(np.sum((trans - ref) ** 2, axis=0))
+
+    results = fit_minimizer(fit_func, np.zeros(3 if only_translation else 6), loss=fit_loss_func)
+    x = np.asarray(results.x, dtype=np.float64)
+    ts, als = (x, (0.0, 0.0, 0.0)) if only_translation else (x[:3], x[3:])
+    return matrix_from_translations_rotations(t_x=ts[0], t_y=ts[1], t_z=ts[2], alpha=als[0], beta=als[1],
+                                              gamma=als[2], use_degrees=False)
+
+
+def _picky_first_per_match(ind: np.ndarray, dists: np.ndarray) -> np.ndarray:
+    """For each matched reference index (ascending), the query of smallest distance, ties to
+    the lowest query index: pandas' ``groupby("ind")["dists"].idxmin()`` without pandas."""
+    order = np.lexsort((np.arange(len(ind)), dists, ind))
+    si = ind[order]
+    first = np.ones(len(order), bool)
+    first[1:] = si[1:] != si[:-1]
+    return order[first]
+
+
+def icp(
+    ref_elev: torch.Tensor,
+    tba_elev: torch.Tensor,
+    inlier_mask: Any,
+    transform: Affine,
+    crs: Any,
+    subsample: float | int,
+    random_state: Any,
+    max_iterations: int = 20,
+    tolerance: float = 0.01,
+    method: str = "point-to-plane",
+    picky: bool = True,
+    only_translation: bool = False,
+    standardize: bool = True,
+    fit_minimizer: Any = "lsq_approx",
+    fit_loss_func: Any = "linear",
+    nn_method: str = "auto",
+) -> tuple[np.ndarray, tuple[float, float, float], int]:
+    """Iterative closest point registration of a raster pair; returns (matrix, centroid,
+    point count).
+
+    ``nn_method="brute"`` runs the whole registration on the device of the inputs (blocked
+    direct-difference argmin, Picky by scatter-min, the solve on the device);
+    ``"kdtree"`` queries a scipy KD-tree on the host each iteration and solves in float64
+    there (a callable ``fit_minimizer`` needs it). ``"auto"`` picks brute on a CUDA tensor
+    when the minimizer is built in and N x M <= 1e10 with a 2048-block of distances within
+    1.5 GB, and kdtree otherwise (always on the CPU, where the KD-tree is faster).
+    """
+    if callable(fit_minimizer) and nn_method == "brute":
+        raise ValueError(
+            'A custom fit_minimizer runs on the host: it cannot drive the nn_method="brute" device '
+            'loop. Use nn_method="kdtree" for a callable minimizer, or fit_minimizer="lsq_approx".'
+        )
+    logging.info("Running ICP coregistration")
+    from scipy.spatial import KDTree
+
+    aux = None
+    if method == "point-to-plane":
+        nx, ny, nz = _icp_norms_device(ref_elev, transform.xres, transform.yres)
+        aux = {"nx": nx, "ny": ny, "nz": nz}
+    sub_ref, sub_tba, x, y, sub_aux = _subsample_pair_values(
+        ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, aux_vars=aux
+    )
+    ref_epc = np.vstack((x, y, sub_ref))
+    tba_epc = np.vstack((x, y, sub_tba))
+    norms = np.vstack((sub_aux["nx"], sub_aux["ny"], sub_aux["nz"])) if aux is not None else None
+    ref_epc, tba_epc, centroid, std_fac = _standardize_epc(ref_epc, tba_epc, scale_std=standardize)
+    tolerance = tolerance / std_fac
+
+    if nn_method == "auto":
+        n_pts = ref_epc.shape[1]
+        fits = (float(n_pts) * float(tba_epc.shape[1]) <= 1e10) and (2048 * n_pts * 4 <= 1.5e9)
+        on_cuda = ref_elev.device.type == "cuda"
+        nn_method = "brute" if (on_cuda and not callable(fit_minimizer) and fits) else "kdtree"
+        logging.info("ICP nn_method='auto' resolved to '%s' (device %s, %d points)", nn_method,
+                     ref_elev.device, n_pts)
+
+    if nn_method == "brute":
+        dev = ref_elev.device
+        norms_dev = torch.from_numpy(
+            (norms.T if norms is not None else np.zeros((ref_epc.shape[1], 3))).astype(np.float32)).to(dev)
+        matrix_dev, n_it, _stat = _icp_solve_device(
+            torch.from_numpy(ref_epc.T.astype(np.float32)).to(dev),
+            torch.from_numpy(tba_epc.T.astype(np.float32)).to(dev),
+            norms_dev, np.float32(tolerance), max_iterations=int(max_iterations), method=method,
+            picky=picky, only_translation=only_translation,
+        )
+        # float32 rotation composition drifts off orthogonality by ~1e-6: re-orthogonalise.
+        matrix = _make_matrix_valid(matrix_dev.double().cpu().numpy())
+        logging.info("ICP converged in %d device iterations", n_it)
+        matrix[:3, 3] *= std_fac
+        return matrix, centroid, len(sub_ref)
+
+    tree = KDTree(ref_epc.T)
+    matrix = np.eye(4)
+    for it in range(max_iterations):
+        trans_tba = _apply_matrix_pts_mat(tba_epc, matrix=matrix)
+        dists, ind = tree.query(trans_tba.T, k=1)
+        ind_tba = _picky_first_per_match(ind, dists) if picky else np.arange(len(ind))
+        ind_ref = ind[ind_tba]
+        step_ref = ref_epc[:, ind_ref]
+        step_tba = trans_tba[:, ind_tba]
+        if callable(fit_minimizer):
+            step_norms = norms[:, ind_ref] if norms is not None else None
+            step_matrix = _icp_fit_minimizer_step(step_ref, step_tba, step_norms, method, fit_minimizer,
+                                                  fit_loss_func, only_translation=only_translation)
+        elif method == "point-to-plane":
+            step_matrix = _icp_fit_approx_lsq(step_ref.T, step_tba.T, norms[:, ind_ref].T,
+                                              only_translation=only_translation)
+        else:
+            mu_r = step_ref.mean(axis=1, keepdims=True)
+            mu_t = step_tba.mean(axis=1, keepdims=True)
+            H = (step_tba - mu_t) @ (step_ref - mu_r).T
+            U, _, Vt = np.linalg.svd(H)
+            d = np.sign(np.linalg.det(Vt.T @ U.T))
+            R = Vt.T @ np.diag([1, 1, d]) @ U.T if not only_translation else np.eye(3)
+            step_matrix = np.eye(4)
+            step_matrix[:3, :3] = R
+            step_matrix[:3, 3] = (mu_r - R @ mu_t).ravel()
+        matrix = step_matrix @ matrix
+        stat = np.sqrt(np.sum(step_matrix[:3, 3]) ** 2)
+        logging.info("ICP iteration %d: tolerance statistic %.6f", it + 1, stat)
+        if it > 1 and stat < tolerance:
+            break
+    matrix[:3, 3] *= std_fac
+    return matrix, centroid, len(sub_ref)
+
+
+class ICP(AffineCoreg):
+    """Iterative closest point registration. Defaults: point-to-plane with Picky duplicate
+    removal and the Low (2004) linearised solve; the neighbour search picked by device."""
+
+    def __init__(
+        self,
+        method: Literal["point-to-point", "point-to-plane"] = "point-to-plane",
+        picky: bool = True,
+        only_translation: bool = False,
+        fit_minimizer: Any = "lsq_approx",
+        fit_loss_func: Any = "linear",
+        max_iterations: int = 20,
+        tolerance: float = 0.01,
+        standardize: bool = True,
+        subsample: float | int = 5e5,
+        initial_shift: tuple | None = None,
+        nn_method: Literal["auto", "kdtree", "brute"] = "auto",
+    ):
+        super().__init__(subsample=subsample, initial_shift=initial_shift)
+        self._meta["inputs"]["specific"] = {
+            "icp_method": method, "icp_picky": picky, "only_translation": only_translation,
+            "standardize": standardize, "nn_method": nn_method,
+        }
+        self._meta["inputs"]["fitorbin"] = {"fit_minimizer": fit_minimizer, "fit_loss_func": fit_loss_func}
+        self._meta["inputs"]["iterative"] = {"max_iterations": max_iterations, "tolerance": tolerance}
+
+    def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
+        p = self._meta["inputs"]["random"]
+        s = self._meta["inputs"]["specific"]
+        it = self._meta["inputs"]["iterative"]
+        matrix, centroid, count = icp(
+            ref_elev, tba_elev, inlier_mask, transform, crs,
+            subsample=p["subsample"], random_state=p["random_state"],
+            max_iterations=it["max_iterations"], tolerance=it["tolerance"],
+            method=s["icp_method"], picky=s["icp_picky"], only_translation=s["only_translation"],
+            standardize=s["standardize"], fit_minimizer=self._meta["inputs"]["fitorbin"]["fit_minimizer"],
+            fit_loss_func=self._meta["inputs"]["fitorbin"]["fit_loss_func"],
+            nn_method=s.get("nn_method", "auto"),
+        )
+        _store_rigid(self, matrix, centroid, count)
+
+
+def _store_rigid(c: AffineCoreg, matrix: np.ndarray, centroid: tuple, count: int) -> None:
+    tx, ty, tz, *_ = translations_rotations_from_matrix(matrix)
+    c._meta["outputs"]["affine"] = {"matrix": matrix, "centroid": centroid, "shift_x": tx, "shift_y": ty,
+                                    "shift_z": tz}
+    c._meta["outputs"]["random"] = {"subsample_final": count}
+
+
+# ======================================================================================
+# CPD
+# ======================================================================================
+
+
+def _cpd_em_step(X: torch.Tensor, Y: torch.Tensor, TY: torch.Tensor, weight_cpd: float, sigma2: torch.Tensor,
+                 sigma2_min: float, only_translation: bool = False):
+    """One rigid CPD expectation-maximisation step (Myronenko & Song 2010, Fig. 2).
+
+    The (M, N) responsibilities come from the pairwise squared distances by the expansion
+    |x|^2 + |y|^2 - 2 x.y, the algorithm's own, as a float32 matmul (TF32 stays off)."""
+    N, D = X.shape
+    M = Y.shape[0]
+    x2 = torch.sum(X * X, dim=1)[None, :]
+    t2 = torch.sum(TY * TY, dim=1)[:, None]
+    P = t2 + x2 - 2.0 * TY @ X.T
+    P = torch.exp(-P / (2 * sigma2))
+    Pden = torch.sum(P, dim=0, keepdim=True)
+    c = (2 * math.pi * sigma2) ** (D / 2) * weight_cpd / (1.0 - weight_cpd) * M / N
+    Pden = torch.clamp(Pden, min=torch.finfo(X.dtype).eps) + c
+    P = P / Pden
+
+    Pt1 = torch.sum(P, dim=0)
+    P1 = torch.sum(P, dim=1)
+    Np = torch.sum(P1)
+    PX = P @ X
+    muX = torch.sum(PX, dim=0) / Np
+    muY = (P.T @ Y).sum(dim=0) / Np
+    X_hat = X - muX[None, :]
+    Y_hat = Y - muY[None, :]
+    YPY = P1 @ torch.sum(Y_hat * Y_hat, dim=1)
+    A = X_hat.T @ P.T @ Y_hat
+    if not only_translation:
+        U, _, Vt = torch.linalg.svd(A, full_matrices=True)
+        C = torch.ones(D, dtype=X.dtype, device=X.device)
+        C[D - 1] = torch.linalg.det(U @ Vt)
+        R = (U @ torch.diag(C) @ Vt).T
+    else:
+        R = torch.eye(D, dtype=X.dtype, device=X.device)
+    s = 1.0
+    t = muX - s * (R.T @ muY)
+    trAR = torch.trace(A @ R)
+    xPx = Pt1 @ torch.sum(X_hat * X_hat, dim=1)
+    q = (xPx - 2 * s * trAR + s * s * YPY) / (2 * sigma2) + D * Np / 2 * torch.log(sigma2)
+    new_sigma2 = (xPx - s * trAR) / (Np * D)
+    new_sigma2 = torch.where(new_sigma2 <= 0, sigma2_min, new_sigma2)
+    return R, t, new_sigma2, q
+
+
+def _cpd_solve(X: torch.Tensor, Y: torch.Tensor, weight_cpd: float, sigma2_init: float, sigma2_min: float,
+               tolerance: float, max_iterations: int, only_translation: bool):
+    """The CPD EM iterations (each step re-fits the whole transform). A step whose R or t is
+    not finite keeps the previous estimate and stops the loop after the third step.
+    Returns (R, t, iterations, degenerate)."""
+    dev, dt = X.device, X.dtype
+    R = torch.eye(3, dtype=dt, device=dev)
+    t = torch.zeros(3, dtype=dt, device=dev)
+    s2 = torch.tensor(sigma2_init, dtype=dt, device=dev)
+    q = torch.tensor(math.inf, dtype=dt, device=dev)
+    tol32 = float(np.float32(tolerance))
+    it, stat = 0, math.inf
+    while it < max_iterations and not (it > 2 and stat < tol32):
+        # TY = R^T (y + t) for row vectors: the rigid inverse of the previous step's [R | -t].
+        TY = (Y + t[None, :]) @ R
+        Rn, tn, s2n, qn = _cpd_em_step(X, Y, TY, weight_cpd, s2, sigma2_min, only_translation=only_translation)
+        ok = torch.isfinite(Rn).all() & torch.isfinite(tn).all()
+        ok_f, stat_f = torch.stack([ok.to(dt), torch.abs(qn - q)]).tolist()
+        if ok_f:
+            R, t, s2, q, stat = Rn, tn, s2n, qn, stat_f
+        else:  # degenerate EM (variance collapse)
+            stat = -math.inf
+        it += 1
+    return R, t, it, stat == -math.inf
+
+
+def cpd(
+    ref_elev: torch.Tensor,
+    tba_elev: torch.Tensor,
+    inlier_mask: Any,
+    transform: Affine,
+    crs: Any,
+    subsample: float | int,
+    random_state: Any,
+    weight_cpd: float = 0.0,
+    max_iterations: int = 100,
+    tolerance: float = 0.01,
+    only_translation: bool = False,
+    standardize: bool = True,
+) -> tuple[np.ndarray, tuple[float, float, float], int]:
+    """Coherent Point Drift rigid registration of a raster pair on the device of the inputs;
+    returns (matrix, centroid, point count)."""
+    logging.info("Running CPD coregistration")
+    sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
+                                                       random_state)
+    ref_epc, tba_epc, centroid, std_fac = _standardize_epc(np.vstack((x, y, sub_ref)), np.vstack((x, y, sub_tba)),
+                                                           scale_std=standardize)
+    tolerance = tolerance / std_fac
+    sigma2_min = tolerance / 10
+    dev = ref_elev.device
+    X = torch.from_numpy(ref_epc.T.astype(np.float32)).to(dev)
+    Y = torch.from_numpy(tba_epc.T.astype(np.float32)).to(dev)
+    # Initial variance: the mean pairwise squared distance.
+    diff2 = float(torch.mean(torch.sum(Y * Y, dim=1)) + torch.mean(torch.sum(X * X, dim=1))
+                  - 2 * float(torch.mean(Y @ torch.mean(X, dim=0))))
+    R, t, n_it, degenerate = _cpd_solve(X, Y, float(weight_cpd), diff2, float(sigma2_min), float(tolerance),
+                                        int(max_iterations), bool(only_translation))
+    if degenerate:
+        logging.warning("CPD EM step became degenerate (variance collapsed) at iteration %d; "
+                        "stopping with the previous estimate.", n_it)
+    logging.info("CPD converged in %d iterations", n_it)
+    matrix = np.eye(4)
+    matrix[:3, :3] = R.double().cpu().numpy()
+    matrix[:3, 3] = -t.double().cpu().numpy()
+    final_matrix = invert_matrix(matrix)
+    final_matrix[:3, 3] *= std_fac
+    return final_matrix, centroid, len(sub_ref)
+
+
+class CPD(AffineCoreg):
+    """Coherent Point Drift rigid registration."""
+
+    def __init__(
+        self,
+        weight: float = 0,
+        only_translation: bool = False,
+        max_iterations: int = 100,
+        tolerance: float = 0.01,
+        standardize: bool = True,
+        subsample: int | float = 5e3,
+        initial_shift: tuple | None = None,
+    ):
+        super().__init__(subsample=subsample, initial_shift=initial_shift)
+        self._meta["inputs"]["specific"] = {
+            "weight_cpd": weight, "only_translation": only_translation, "standardize": standardize,
+        }
+        self._meta["inputs"]["iterative"] = {"max_iterations": max_iterations, "tolerance": tolerance}
+
+    def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
+        p = self._meta["inputs"]["random"]
+        s = self._meta["inputs"]["specific"]
+        it = self._meta["inputs"]["iterative"]
+        matrix, centroid, count = cpd(
+            ref_elev, tba_elev, inlier_mask, transform, crs,
+            subsample=p["subsample"], random_state=p["random_state"],
+            weight_cpd=s["weight_cpd"], max_iterations=it["max_iterations"], tolerance=it["tolerance"],
+            only_translation=s["only_translation"], standardize=s["standardize"],
+        )
+        _store_rigid(self, matrix, centroid, count)
+
+
+# ======================================================================================
+# LZD
+# ======================================================================================
+
+
+def _lzd_solve_device(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Tensor, xc0: torch.Tensor,
+                      yc0: torch.Tensor, zc0: torch.Tensor, cz: float, inv_transform: list[float], tolerance: float,
+                      max_iterations: int, only_translation: bool = False):
+    """The LZD iterations on the device of the raster: transform the points by the running
+    matrix (rotation about the centroid), interpolate the DEM and its gradients there, and
+    solve the linearised 6-parameter model by column-equilibrated masked normal equations
+    (the raw columns mix ~1e4 m coordinates with ~0.1 gradients).
+
+    Coordinates arrive centroid-centred; `inv_transform` holds (a, b, c, d, e, f) of the
+    inverted georeferencing with the centroid folded into c and f: col = a*xc + b*yc + c,
+    row = d*xc + e*yc + f. Points of zero weight get zero coordinates, so a NaN height never
+    reaches the sums. Stops after the third step once the translation statistic drops below
+    `tolerance`, or when no point is valid. Returns (matrix, iterations, statistic, valid
+    count of the last step)."""
+    dev, dt = raster.device, raster.dtype
+    pts = torch.stack([xc0, yc0, zc0])
+    n_total = torch.tensor(float(xc0.shape[0]), dtype=dt, device=dev)
+    a, b, c, d, e, f = (float(v) for v in np.asarray(inv_transform, np.float32))
+    cz = float(np.float32(cz))
+    tol32 = float(np.float32(tolerance))
+    eye = torch.eye(3 if only_translation else 6, dtype=dt, device=dev)
+    matrix = torch.eye(4, dtype=dt, device=dev)
+    it, stat, nvalid = 0, math.inf, 1.0
+    while it < max_iterations and (it <= 2 or stat >= tol32) and (it == 0 or nvalid > 0):
+        trans = matrix[:3, :3] @ pts + matrix[:3, 3][:, None]
+        xc, yc, zc = trans
+        cols = a * xc + b * yc + c
+        rows = d * xc + e * yc + f
+        z_rst = interp_rowcol(raster, rows, cols, method="linear")
+        gx = interp_rowcol(gradx, rows, cols, method="linear")
+        gy = interp_rowcol(grady, rows, cols, method="linear")
+        dh = z_rst - (zc + cz)
+        ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
+        w = ok.to(dt)
+        dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
+        xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
+        ones = torch.ones_like(gx)
+        if only_translation:
+            A = torch.stack([-gx, -gy, ones], dim=1)
+        else:
+            A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
+        scale = torch.sqrt(torch.clamp((A * A * w[:, None]).sum(dim=0) / n_total, min=1e-12))
+        As = A / scale[None, :]
+        Aw = As * w[:, None]
+        sol = torch.linalg.solve(Aw.T @ As + 1e-7 * eye, Aw.T @ dh) / scale
+        R = torch.eye(3, dtype=dt, device=dev) if only_translation else _rotation_xyz(sol[3], sol[4], sol[5])
+        step = _rigid_step(R, sol[:3])
+        matrix = step @ matrix
+        stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), w.sum()]).tolist()
+        it += 1
+    return matrix, it, stat, nvalid
+
+
+def lzd(
+    ref_elev: torch.Tensor,
+    tba_elev: torch.Tensor,
+    inlier_mask: Any,
+    transform: Affine,
+    crs: Any,
+    subsample: float | int,
+    random_state: Any,
+    max_iterations: int = 200,
+    tolerance: float = 0.01,
+    only_translation: bool = False,
+) -> tuple[np.ndarray, tuple[float, float, float], int]:
+    """Least Z-difference coregistration (Rosenholm & Torlegård 1988) of a raster pair;
+    returns (matrix, centroid, point count). The linearised model is linear in the 6
+    parameters, so each iteration is one least-squares solve on the device."""
+    logging.info("Running LZD coregistration")
+    if crs is not None and not is_projected(crs):
+        raise NotImplementedError(
+            f"LZD coregistration needs planar (projected) coordinates, but the input CRS is {crs}. "
+            f"Reproject to a local projected system first."
+        )
+    raster = ref_elev
+    gy, gx = torch.gradient(raster)
+    gradx = gx / torch.tensor(transform.xres, dtype=raster.dtype, device=raster.device)
+    grady = -gy / torch.tensor(transform.yres, dtype=raster.dtype, device=raster.device)  # rows run south
+    _, sub_pts, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
+                                                 random_state)
+    # The to-be-aligned points move; the reference raster is interpolated at their positions.
+    centroid = (float(np.nanmean(x)), float(np.nanmean(y)), float(np.nanmean(sub_pts)))
+    cx, cy, cz = centroid
+    inv = transform.invert()
+    # The centroid folds into the inverse-transform constants in float64 on the host, so the
+    # device works in small centred coordinates only.
+    cc = inv.a * cx + inv.b * cy + inv.c - 0.5
+    cf = inv.d * cx + inv.e * cy + inv.f - 0.5
+    dev = raster.device
+    matrix_dev, n_it, stat, nvalid = _lzd_solve_device(
+        raster, gradx, grady,
+        torch.from_numpy(np.asarray(x - cx, np.float32)).to(dev),
+        torch.from_numpy(np.asarray(y - cy, np.float32)).to(dev),
+        torch.from_numpy(np.asarray(sub_pts - cz, np.float32)).to(dev),
+        cz, [inv.a, inv.b, cc, inv.d, inv.e, cf], tolerance,
+        max_iterations=int(max_iterations), only_translation=only_translation,
+    )
+    if nvalid == 0.0:
+        raise ValueError(
+            "The subsample contains no more valid values. This can happen if the affine transformation "
+            "to correct is larger than the data extent, or if the algorithm diverged."
+        )
+    matrix = _make_matrix_valid(matrix_dev.double().cpu().numpy())
+    logging.info("LZD converged in %d device iterations (statistic %.6f)", n_it, stat)
+    return matrix, centroid, len(sub_pts)
+
+
+class LZD(AffineCoreg):
+    """Least Z-difference coregistration."""
+
+    def __init__(
+        self,
+        only_translation: bool = False,
+        fit_minimizer: Any = None,
+        fit_loss_func: Any = "linear",
+        max_iterations: int = 200,
+        tolerance: float = 0.01,
+        subsample: float | int = 5e5,
+        initial_shift: tuple | None = None,
+    ):
+        super().__init__(subsample=subsample, initial_shift=initial_shift)
+        self._meta["inputs"]["specific"] = {"only_translation": only_translation}
+        self._meta["inputs"]["iterative"] = {"max_iterations": max_iterations, "tolerance": tolerance}
+
+    def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
+        p = self._meta["inputs"]["random"]
+        it = self._meta["inputs"]["iterative"]
+        matrix, centroid, count = lzd(
+            ref_elev, tba_elev, inlier_mask, transform, crs,
+            subsample=p["subsample"], random_state=p["random_state"],
+            max_iterations=it["max_iterations"], tolerance=it["tolerance"],
+            only_translation=self._meta["inputs"]["specific"]["only_translation"],
+        )
+        _store_rigid(self, matrix, centroid, count)

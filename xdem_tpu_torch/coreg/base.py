@@ -1,13 +1,16 @@
-"""Coregistration framework: matrix toolbox, matrix application and the Coreg base class.
+"""Coregistration framework: matrix toolbox, matrix application, the Coreg base class and
+CoregPipeline.
 
 Port of xdem_tpu/coreg/base.py for gridded elevation given as arrays or tensors with
-``transform=`` (and ``crs=``). Of the four matrix-application tiers the translation tiers
-are ported (a pure vertical shift, and a translation applied by updating the
-georeferencing, resampled back onto the input grid by bilinear gathers); the rotation tiers
-raise NotImplementedError. Raster, point-cloud and pipeline inputs are not ported yet.
+``transform=`` (and ``crs=``). A matrix is applied in four tiers: (1) a pure vertical shift,
+(2) a translation applied by updating the georeferencing (resampled back onto the input grid
+by bilinear gathers), (3) small rotations by a fixed-point inverse regrid on the device of the
+DEM, (4) large rotations by a host Delaunay regrid (scipy). Raster and point-cloud inputs are
+not ported yet.
 
 The fitted state is the ``meta`` dict. :meth:`Coreg.load` reads the pickle that
-``xdem_tpu``'s ``Coreg.save`` writes, and :meth:`Coreg.from_meta` takes such a tree in memory.
+``xdem_tpu``'s ``Coreg.save`` writes (pipelines included), and :meth:`Coreg.from_meta` takes
+such a tree in memory.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 import copy as _copy
 import importlib
 import io
+import logging
+import math
 import pickle
 import warnings
 from typing import Any
@@ -121,10 +126,90 @@ def _matrix_is_translation_only(matrix: np.ndarray) -> bool:
 # ------------------------------------------------------------------ matrix application
 
 
-def _apply_matrix_rst(dem: torch.Tensor, transform: Affine, matrix: np.ndarray,
-                      force_regrid_method: str | None = None) -> tuple[torch.Tensor, Affine]:
-    """Apply a rigid matrix to a DEM: (1) pure z shift, (2) pure translation via the
-    georeferencing. The rotation tiers are not ported yet."""
+def _apply_matrix_pts_arr(x: np.ndarray, y: np.ndarray, z: np.ndarray, matrix: np.ndarray,
+                          centroid: tuple[float, float, float] | None = None, invert: bool = False):
+    """Exact rigid transform of points (float64, on the host), about `centroid`."""
+    if invert:
+        matrix = invert_matrix(matrix)
+    cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
+    pts = np.stack([np.asarray(x) - cx, np.asarray(y) - cy, np.asarray(z) - cz, np.ones_like(np.asarray(z))], axis=0)
+    out = np.asarray(matrix) @ pts
+    return out[0] + cx, out[1] + cy, out[2] + cz
+
+
+def _iterate_affine_regrid_small_rotations(
+    dem: torch.Tensor,
+    transform: Affine,
+    matrix: np.ndarray,
+    centroid: tuple[float, float, float] | None,
+    resampling: str = "linear",
+    max_iterations: int = 20,
+    tolerance: float = 1e-4,
+) -> torch.Tensor:
+    """Fixed-point inverse regrid for small rotations, on the device of `dem`.
+
+    For each output node (X, Y) seek the source height z whose forward-transformed point lands
+    on (X, Y): inverse-transform (X, Y, z_guess), interpolate the DEM there, forward-transform,
+    and stop once the largest horizontal residual over the finite pixels is below `tolerance`
+    pixels or after `max_iterations` steps (one scalar read per step).
+
+    Everything runs in float32 about the centroid: the large constants (georeferencing
+    offsets minus the centroid, the pixel offsets of the centroid) are grouped in float64 on
+    the host first, so UTM magnitudes never meet a float32 tensor. The divisions by the
+    determinant and the pixel sizes are by tensors, true divisions on every device.
+    """
+    h, w = dem.shape
+    dev, f32 = dem.device, torch.float32
+    inv = invert_matrix(matrix)
+    cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
+
+    cols = torch.arange(w, dtype=f32, device=dev)[None, :]
+    rows = torch.arange(h, dtype=f32, device=dev)[:, None]
+    a, b, c, d, e, f = (float(v) for v in tuple(transform))
+    X = a * (cols + 0.5) + b * (rows + 0.5) + (c - cx)
+    Y = d * (cols + 0.5) + e * (rows + 0.5) + (f - cy)
+
+    det = a * e - b * d
+    col_off = (e * cx - b * cy - (e * c - b * f)) / det - 0.5
+    row_off = (-d * cx + a * cy - (-d * c + a * f)) / det - 0.5
+    det_t = torch.tensor(det, dtype=f32, device=dev)
+    res_x = torch.tensor(transform.xres, dtype=f32, device=dev)
+    res_y = torch.tensor(transform.yres, dtype=f32, device=dev)
+    # Matrix entries as exact float32 values (the float32 matrices of the reference).
+    mi = [[float(v) for v in row] for row in np.asarray(inv, np.float32)]
+    mf = [[float(v) for v in row] for row in np.asarray(matrix, np.float32)]
+
+    zg = dem - cz
+    tol32 = float(np.float32(tolerance))
+    it, maxres = 0, math.inf
+    while it < max_iterations and maxres > tol32:
+        xs = mi[0][0] * X + mi[0][1] * Y + mi[0][2] * zg + mi[0][3]
+        ys = mi[1][0] * X + mi[1][1] * Y + mi[1][2] * zg + mi[1][3]
+        colp = (e * xs - b * ys) / det_t + col_off
+        rowp = (-d * xs + a * ys) / det_t + row_off
+        zsrc = interp_rowcol(dem, rowp, colp, method=resampling) - cz
+        del colp, rowp
+        xf = mf[0][0] * xs + mf[0][1] * ys + mf[0][2] * zsrc + mf[0][3]
+        yf = mf[1][0] * xs + mf[1][1] * ys + mf[1][2] * zsrc + mf[1][3]
+        zg = mf[2][0] * xs + mf[2][1] * ys + mf[2][2] * zsrc + mf[2][3]
+        del xs, ys, zsrc
+        res = torch.hypot((xf - X) / res_x, (yf - Y) / res_y)
+        maxres = float(torch.where(torch.isfinite(zg), res, 0.0).max())
+        it += 1
+    return zg + cz
+
+
+def _apply_matrix_rst(
+    dem: torch.Tensor,
+    transform: Affine,
+    matrix: np.ndarray,
+    centroid: tuple[float, float, float] | None = None,
+    resampling: str = "linear",
+    force_regrid_method: str | None = None,
+) -> tuple[torch.Tensor, Affine]:
+    """Apply a rigid matrix to a DEM in four tiers: (1) pure z shift, (2) pure translation
+    via the georeferencing, (3) small rotations (< 20 degrees about x and y) by the
+    fixed-point regrid on the device, (4) large rotations by a host Delaunay regrid."""
     matrix = np.asarray(matrix, dtype=np.float64)
     # Tier 1: vertical shift only
     if np.allclose(matrix, np.diag(np.diag(matrix))) and np.allclose(np.diag(matrix), 1) and np.allclose(
@@ -134,10 +219,34 @@ def _apply_matrix_rst(dem: torch.Tensor, transform: Affine, matrix: np.ndarray,
     # Tier 2: translation only — update the geotransform, shift z
     if _matrix_is_translation_only(matrix) and force_regrid_method is None:
         return dem + matrix[2, 3], transform.translation(matrix[0, 3], matrix[1, 3])
-    raise NotImplementedError(
-        "Applying a matrix with rotations (the iterative and Delaunay regrid tiers) is not "
-        "ported to xdem_tpu_torch yet; only translations are."
-    )
+
+    _, _, _, a_deg, b_deg, _ = translations_rotations_from_matrix(_make_matrix_valid(matrix))
+    small = max(abs(a_deg), abs(b_deg)) < 20.0
+    if (small and force_regrid_method is None) or force_regrid_method == "iterative":
+        if centroid is None:
+            # Re-centre about the raster centre in float64 on the host, exact algebra:
+            # R p + t == R (p - c0) + (t + R c0 - c0) + c0.
+            h0, w0 = dem.shape
+            c0x, c0y = transform.xy((h0 - 1) / 2.0, (w0 - 1) / 2.0)
+            c0 = np.array([c0x, c0y, 0.0])
+            matrix = matrix.copy()
+            matrix[:3, 3] = matrix[:3, 3] + matrix[:3, :3] @ c0 - c0
+            centroid = (float(c0x), float(c0y), 0.0)
+        return _iterate_affine_regrid_small_rotations(dem, transform, matrix, centroid, resampling=resampling), \
+            transform
+
+    # Tier 4: large rotations — host point transform and Delaunay regrid (rare path).
+    from scipy.interpolate import griddata
+
+    arr = dem.detach().cpu().numpy().astype(np.float64)
+    h, w = arr.shape
+    rr, cc = np.nonzero(np.isfinite(arr))
+    x, y = transform.xy(rr, cc)
+    xt, yt, zt = _apply_matrix_pts_arr(x, y, arr[rr, cc], matrix, centroid=centroid)
+    cgrid, rgrid = np.meshgrid(np.arange(w), np.arange(h))
+    gx, gy = transform.xy(rgrid, cgrid)
+    out = griddata((xt, yt), zt, (gx, gy), method="linear")
+    return torch.from_numpy(out.astype(np.float32)).to(dem.device), transform
 
 
 def _reproject_horizontal_shift_samecrs(raster: torch.Tensor, src_transform: Affine,
@@ -162,23 +271,33 @@ def apply_matrix(
     elev: Any,
     matrix: np.ndarray,
     invert: bool = False,
+    centroid: tuple[float, float, float] | None = None,
     resample: bool = True,
     resampling: str = "linear",
     transform: Affine | None = None,
+    crs: Any = None,
+    z_name: str = "z",
     force_regrid_method: str | None = None,
 ) -> tuple[torch.Tensor, Affine]:
-    """Apply a 4x4 rigid transform to a gridded DEM (array or tensor with `transform`).
+    """Apply a 4x4 rigid transform, about `centroid` (default the origin), to a gridded DEM
+    (array or tensor with `transform`); returns (tensor, transform).
 
     `resample=True` resamples the result back onto the input georeferencing; with
-    `resample=False` a translation only moves the returned transform (lossless).
+    `resample=False` a translation only moves the returned transform (lossless). `crs` and
+    `z_name` are accepted for the signature of xdem_tpu: the matrix acts in the projected
+    coordinates of `transform`, and point clouds are not ported.
     """
     resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
+    if not _is_grid(elev):
+        raise NotImplementedError("xdem_tpu_torch applies a matrix to 2-D arrays or tensors only; "
+                                  "point clouds are not ported yet.")
     if transform is None:
         raise ValueError("'transform' must be given for array input.")
+    transform = _as_affine(transform)
     if invert:
         matrix = invert_matrix(matrix)
-    data, new_transform = _apply_matrix_rst(as_tensor(elev), transform, matrix,
-                                            force_regrid_method=force_regrid_method)
+    data, new_transform = _apply_matrix_rst(as_tensor(elev), transform, matrix, centroid=centroid,
+                                            resampling=resampling, force_regrid_method=force_regrid_method)
     if resample and not new_transform.almost_equals(transform):
         data = _reproject_horizontal_shift_samecrs(data, new_transform, transform, resampling)
         new_transform = transform
@@ -222,6 +341,13 @@ def _preprocess_coreg_fit(reference_elev: Any, to_be_aligned_elev: Any, inlier_m
     return ref, tba, inlier_mask, transform
 
 
+def _bias_vars_on(bias_vars: dict[str, Any] | None, device: torch.device) -> dict[str, torch.Tensor] | None:
+    """Bias variables as float32 tensors on `device` (masked arrays NaN-filled)."""
+    if bias_vars is None:
+        return None
+    return {k: as_tensor(v, device=device) for k, v in bias_vars.items()}
+
+
 # ------------------------------------------------------------------ pickles of fitted state
 
 
@@ -242,21 +368,35 @@ class _MetaUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str) -> Any:
         if (module, name) in self._ALLOWED:
             return super().find_class(module, name)
+        if module == "pandas" or module.startswith("pandas."):
+            raise pickle.UnpicklingError(
+                f"This coreg state holds a pandas object ({module}.{name}), such as the "
+                "'bin_dataframe' of a binned bias correction saved by xdem_tpu. xdem_tpu_torch does "
+                "not use pandas and cannot read it: save the fit in 'fit' mode, or fit it with "
+                "xdem_tpu_torch, whose bin tables are dicts of numpy arrays."
+            )
         raise pickle.UnpicklingError(f"Refusing to load {module}.{name} from a coreg state file.")
 
 
+# Modules whose stored callables map onto xdem_tpu_torch.fit (the fit models and optimizers).
+_FIT_MODULES = ("xdem_tpu.fit", "xdem_tpu_torch.fit")
+
+
 def _restore_tree(o: Any) -> Any:
-    """Restore a sanitized meta tree. Callables stored by qualified name come back only
-    when they are numpy's; any other name becomes None."""
+    """Restore a sanitized meta tree. Callables stored by qualified name come back when they
+    are numpy's, or a function of ``xdem_tpu.fit`` or ``xdem_tpu_torch.fit`` (both restored
+    from ``xdem_tpu_torch.fit``); any other name becomes None."""
     if isinstance(o, dict):
         if set(o.keys()) == {"__callable__"}:
             mod_name, _, qual = o["__callable__"].rpartition(".")
-            if mod_name == "numpy" or mod_name.startswith("numpy."):
-                obj: Any = importlib.import_module(mod_name)
-                for part in qual.split("."):
-                    obj = getattr(obj, part, None)
-                return obj if callable(obj) else None
-            return None
+            if mod_name in _FIT_MODULES:
+                mod_name = "xdem_tpu_torch.fit"
+            elif not (mod_name == "numpy" or mod_name.startswith("numpy.")):
+                return None
+            obj: Any = importlib.import_module(mod_name)
+            for part in qual.split("."):
+                obj = getattr(obj, part, None)
+            return obj if callable(obj) else None
         return {k: _restore_tree(v) for k, v in o.items()}
     if isinstance(o, (list, tuple)):
         return type(o)(_restore_tree(v) for v in o)
@@ -365,9 +505,7 @@ class Coreg:
         arrays or tensors on the grid `transform` (and `crs`, an EPSG code)."""
         if weights is not None:
             raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
-        if bias_vars is not None:
-            raise NotImplementedError("bias_vars= (bias corrections) are not ported to xdem_tpu_torch yet.")
-        if kwargs.get("mesh") is not None:
+        if kwargs.pop("mesh", None) is not None:
             raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
         ref, tba, mask, transform = _preprocess_coreg_fit(reference_elev, to_be_aligned_elev,
                                                           inlier_mask, transform)
@@ -375,6 +513,7 @@ class Coreg:
             self._meta["inputs"]["random"]["subsample"] = subsample
         if random_state is not None:
             self._meta["inputs"]["random"]["random_state"] = random_state
+        bias_vars = _bias_vars_on(bias_vars, ref.device)
 
         # Initial shift: pre-translate the to-be-aligned DEM, re-add the shift afterwards.
         initial_shift = self._meta["inputs"].get("affine", {}).get("initial_shift")
@@ -385,12 +524,16 @@ class Coreg:
                                   transform=transform)
 
         self._fit_rst_rst(ref_elev=ref, tba_elev=tba, inlier_mask=mask, transform=transform,
-                          crs=crs, z_name=z_name)
+                          crs=crs, z_name=z_name, bias_vars=bias_vars, **kwargs)
         if initial_shift is not None:
             aff = self._meta["outputs"].get("affine", {})
             for key, add in (("shift_x", sx0), ("shift_y", sy0), ("shift_z", sz0)):
                 if key in aff:
                     aff[key] = aff[key] + add
+            if "matrix" in aff:
+                m = np.asarray(aff["matrix"]).copy()
+                m[:3, 3] += [sx0, sy0, sz0]
+                aff["matrix"] = m
 
         # A fit that produced non-finite parameters must not be applied.
         aff_out = self._meta["outputs"].get("affine", {})
@@ -420,19 +563,20 @@ class Coreg:
         """Apply the estimated transform to a gridded DEM; returns (tensor, transform)."""
         if not self._fit_called and not (self.is_affine and "matrix" in self._meta["outputs"].get("affine", {})):
             raise AssertionError(".fit() does not seem to have been called yet")
-        if bias_vars is not None:
-            raise NotImplementedError("bias_vars= (bias corrections) are not ported to xdem_tpu_torch yet.")
         resampling = {"bilinear": "linear", "cubic_spline": "cubic", None: "linear"}.get(resampling, resampling)
         transform = _as_affine(transform)
         if not _is_grid(elev):
             raise NotImplementedError("xdem_tpu_torch applies a coregistration to 2-D arrays or tensors only.")
+        elev = as_tensor(elev)
+        bias_vars = _bias_vars_on(bias_vars, elev.device)
         try:
-            return self._apply_func(elev=elev, transform=transform, resample=resample, resampling=resampling)
+            return self._apply_func(elev=elev, bias_vars=bias_vars, transform=transform, crs=crs,
+                                    resample=resample, resampling=resampling, **kwargs)
         except NotImplementedCoregApply:
             if not self.is_affine:
                 raise
-        return apply_matrix(elev, self.to_matrix(), resample=resample, resampling=resampling,
-                            transform=transform)
+        return apply_matrix(elev, self.to_matrix(), centroid=self._meta["outputs"].get("affine", {}).get("centroid"),
+                            resample=resample, resampling=resampling, transform=transform)
 
     def _apply_func(self, **kwargs: Any) -> Any:
         raise NotImplementedCoregApply(f"{type(self).__name__} has no custom apply.")
@@ -469,8 +613,12 @@ class Coreg:
 
     def save(self, path: str) -> None:
         """Write the fitted state in the pickle format of xdem_tpu's Coreg.save."""
-        payload = {"class": type(self).__name__, "meta": _sanitize(self._meta),
-                   "fit_called": self._fit_called}
+        payload: dict[str, Any] = {"class": type(self).__name__, "meta": _sanitize(self._meta),
+                                   "fit_called": self._fit_called}
+        steps = getattr(self, "pipeline", None)
+        if steps is not None:  # CoregPipeline: the fitted state lives in the steps
+            payload["steps"] = [{"class": type(st).__name__, "meta": _sanitize(st._meta),
+                                 "fit_called": st._fit_called} for st in steps]
         with open(path, "wb") as f:
             pickle.dump(payload, f)
 
@@ -489,13 +637,13 @@ class Coreg:
         with open(path, "rb") as f:
             payload = _MetaUnpickler(io.BytesIO(f.read())).load()
         if "steps" in payload:
-            raise NotImplementedError("CoregPipeline states are not ported to xdem_tpu_torch yet.")
-        from xdem_tpu_torch import coreg as _coreg_pkg
-
-        cls = getattr(_coreg_pkg, payload["class"], None)
-        if not (isinstance(cls, type) and issubclass(cls, Coreg)):
-            raise NotImplementedError(f"Coreg method {payload['class']!r} is not ported to xdem_tpu_torch yet.")
-        return cls.from_meta(payload["meta"], fit_called=payload["fit_called"])
+            steps = [_ported_class(st["class"]).from_meta(st["meta"], fit_called=st["fit_called"])
+                     for st in payload["steps"]]
+            obj = CoregPipeline(steps)
+            obj._meta = _restore_tree(_copy.deepcopy(payload["meta"]))
+            obj._fit_called = bool(payload["fit_called"])
+            return obj
+        return _ported_class(payload["class"]).from_meta(payload["meta"], fit_called=payload["fit_called"])
 
     # ------------------------------- matrix access
 
@@ -521,5 +669,81 @@ class Coreg:
             )
         raise NotImplementedError("This coreg method does not produce a transform matrix.")
 
+    # ------------------------------- pipeline composition
+
+    def __add__(self, other: "Coreg") -> "CoregPipeline":
+        if not isinstance(other, Coreg):
+            raise ValueError(f"Incompatible add type: {type(other)}. Expected 'Coreg' subclass")
+        return CoregPipeline([self, other])
+
     def copy(self) -> "Coreg":
         return _copy.deepcopy(self)
+
+
+def _ported_class(name: str) -> type:
+    """This package's Coreg class of a stored class name."""
+    from xdem_tpu_torch import coreg as _coreg_pkg
+
+    cls = getattr(_coreg_pkg, name, None)
+    if not (isinstance(cls, type) and issubclass(cls, Coreg)):
+        raise NotImplementedError(f"Coreg method {name!r} is not ported to xdem_tpu_torch yet.")
+    return cls
+
+
+class CoregPipeline(Coreg):
+    """A sequential pipeline of Coreg steps: each step is fitted on the to-be-aligned DEM as
+    the steps before it left it, and the applies chain."""
+
+    def __init__(self, pipeline: list[Coreg]):
+        self.pipeline = pipeline
+        super().__init__()
+
+    def __repr__(self) -> str:
+        return f"Pipeline: {self.pipeline}"
+
+    def copy(self) -> "CoregPipeline":
+        return CoregPipeline([step.copy() for step in self.pipeline])
+
+    def __iter__(self):
+        return iter(self.pipeline)
+
+    def __getitem__(self, idx: int) -> Coreg:
+        return self.pipeline[idx]
+
+    def _parse_bias_vars(self, step_idx: int, bias_vars: dict[str, Any] | None) -> dict[str, Any] | None:
+        """The bias variables a step needs: none for steps that make their own."""
+        step = self.pipeline[step_idx]
+        if not getattr(step, "_needs_vars", False) or bias_vars is None:
+            return None
+        needed = step._meta["inputs"]["fitorbin"].get("bias_var_names")
+        if needed is None:
+            return bias_vars
+        return {k: bias_vars[k] for k in needed if k in bias_vars}
+
+    def fit(self, reference_elev: Any, to_be_aligned_elev: Any, inlier_mask: Any = None,
+            bias_vars: dict[str, Any] | None = None, **kwargs: Any) -> "CoregPipeline":
+        """Fit each step on the running to-be-aligned DEM; the transform each apply returns
+        threads into the next step."""
+        tba = to_be_aligned_elev
+        apply_kw = {k: kwargs[k] for k in ("transform", "crs", "z_name") if k in kwargs}
+        for i, step in enumerate(self.pipeline):
+            logging.info("Running pipeline step: %d / %d", i + 1, len(self.pipeline))
+            step_bias = self._parse_bias_vars(i, bias_vars)
+            step.fit(reference_elev, tba, inlier_mask=inlier_mask, bias_vars=step_bias, **kwargs)
+            tba, apply_kw["transform"] = step.apply(tba, bias_vars=step_bias, **apply_kw)
+        self._fit_called = True
+        return self
+
+    def apply(self, elev: Any, bias_vars: dict[str, Any] | None = None, **kwargs: Any) -> tuple[torch.Tensor, Affine]:
+        """Chain the apply of each step; returns (tensor, transform) like Coreg.apply."""
+        out = elev
+        for i, step in enumerate(self.pipeline):
+            out, kwargs["transform"] = step.apply(out, bias_vars=self._parse_bias_vars(i, bias_vars), **kwargs)
+        return out, kwargs["transform"]
+
+    def _to_matrix_func(self) -> np.ndarray:
+        """Product of the step matrices."""
+        out = np.eye(4)
+        for step in self.pipeline:
+            out = step.to_matrix() @ out
+        return out
