@@ -8,11 +8,15 @@ Phases:
   2. build: compiles the CUDA kernels K1, K2, K3 from ``xdem_tpu_torch/csrc`` with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
      2047 x 2061 DEM with NaN holes and a NaN border strip (scaled max deviation <= 1e-3,
-     identical NaN masks);
+     identical NaN masks). K3 is held to the bit (max abs error 0, identical NaN masks) on
+     every route, with an inf and a -inf centre pixel added: windows 5, 8, 13, 21 on the
+     whole DEM, and the last window whose box-maxima planes fit in shared memory and the next
+     (global reads) on a 512 x 520 crop;
   4. main path at 10 000 x 10 000 (20 m pixels): the 14-attribute terrain suite and a
      Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
      Every kernel must have launched; the fit must recover the shift within 5 % and cut
-     var(dh) below 1 %; suite, kernel (beside plain) and fit times are printed.
+     var(dh) below 1 %; suite, kernel (beside plain and the kernel's bound, with the card's
+     name and power limit) and fit times are printed.
   5. uncertainty at 10 000 x 10 000 (20 m): estimate_uncertainty (H2022, subsample 10 000) of
      a seeded spectral DEM against itself plus 0.004 x an independent field, as bench.py's
      10k^2 leg builds the pair. K1 must launch in each call; sigma must stay on the card,
@@ -61,6 +65,10 @@ COREG_CROP = 1024  # side of the card-against-CPU crop of phase 6
 RIGID_TRUTH = (20, 5, 0.1, 0.1, 0.05, 0.01)  # tx, ty, tz (m), rotations about x, y, z (deg) of phase 6
 UNC_HETERO_PICKS = 5_000_000  # estimate_uncertainty's heteroscedasticity sample
 UNC_PAIRS = 100 * 224 * (11 * 224)  # runs x samples x (nb_rings + 1) * samples at subsample 10 000
+# H100 SXM f32 peak outside the tensor cores (NVIDIA's data sheet, 700 W). It counts a fused
+# multiply-add as two operations: unfused f32 instructions issue at half this rate.
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -137,11 +145,53 @@ def scaled_dev(got, want, circular: bool = False) -> tuple[float, float, bool]:
     return err / scale, err, same_nan
 
 
+def fractal_ops_per_pixel(w: int) -> int:
+    """f32 operations K3 does per pixel at window w: a subtraction, a max, a min and an add
+    per box, a row and a column max per plane value for each factor of a plane's build, the
+    five operations of log(Ns / q) into the two sums per scale, and the slope's six."""
+    hw = w // 2
+    ops = 6
+    for q in (d for d in range(1, hw + 1) if hw % d == 0):
+        nq = (w - 1) // q
+        ops += 4 * nq * nq + 5
+        if q > 1:
+            src = max(d for d in range(1, q) if q % d == 0)
+            ops += 2 * (q // src - 1)
+    return ops
+
+
+def kernel_bounds(pixels: int, sf_attrs, windowed_attrs, fractal_w: int) -> dict[str, tuple[float, str]]:
+    """(least time in ms, "bytes" or "operations") of each kernel's call on the main path: the
+    larger of its bytes (the DEM read once, each output plane written once) over HBM's rate
+    and its f32 operations over the f32 peak (which counts an FMA as two). K1 counts a multiply and an add per stencil
+    tap, two per derivative (centring, divisor) and 20 per attribute formula; K2 at w = 3
+    counts TPI 13, TRI 28, roughness 19 and rugosity 193 (16 half-lengths of 6, 8 Heron
+    triangles of 12, one division); K3 as fractal_ops_per_pixel."""
+    import numpy as np
+
+    from xdem_tpu_torch.terrain import surfit
+
+    roles, names, _ = surfit.fit_plan(sf_attrs, "Florinsky")
+    taps = sum(int(np.count_nonzero(surfit.ALL_STENCILS[n])) for n in names)
+    k2_ops = {"topographic_position_index": 13, "terrain_ruggedness_index": 28, "roughness": 19, "rugosity": 193}
+    work = {  # (bytes, operations) per pixel
+        "surface_fit": (4 * (1 + len(sf_attrs)), 2 * taps + 2 * len(roles) + 20 * len(sf_attrs)),
+        "windowed": (4 * (1 + len(windowed_attrs)), sum(k2_ops[a] for a in windowed_attrs)),
+        "fractal": (8, fractal_ops_per_pixel(fractal_w)),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        t_bytes, t_ops = nbytes * pixels / HBM_BYTES_PER_S, ops * pixels / F32_OPS_PER_S
+        out[k] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
 def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
     """Each kernel against its plain version on the card; returns max abs error per kernel."""
     import numpy as np
     import torch
 
+    from xdem_tpu_torch import _build
     from xdem_tpu_torch.terrain import cuda_kernels as ck
     from xdem_tpu_torch.terrain import surfit, window
 
@@ -176,10 +226,25 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
         got = ck.windowed_indexes(z, RES, attrs, ws, tri)
         want = window.windowed_indexes(z, RES, attrs, ws, tri)
         compare("windowed", f"w={ws} {tri}", attrs, got, want)
-    for ws in (5, 13, 21):
-        got = ck.fractal_roughness(z, ws)[None]
-        want = window.fractal_roughness(z, ws)[None]
-        compare("fractal", f"w={ws}", ("fractal_roughness",), got, want)
+    # K3 to the bit on each route, with an inf and a -inf centre pixel (inf - inf is NaN).
+    zf = z.clone()
+    zf[1000, 1000], zf[300, 1700] = float("inf"), -float("inf")
+    top = _build.load().fractal_max_shared_window()
+    crop = zf[800:1312, 900:1420].contiguous()
+    crop[200, 100], crop[400, 300] = float("inf"), -float("inf")
+    for ws, zz in ((5, zf), (8, zf), (13, zf), (21, zf), (top, crop), (top + 1, crop)):
+        got = ck.fractal_roughness(zz, ws)
+        want = window.fractal_roughness(zz, ws)
+        same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+        num = ~torch.isnan(want)
+        err = float((got[num].double() - want[num].double()).abs().max()) if bool(num.any()) else 0.0
+        exact = bool(torch.equal(got[num], want[num]))
+        label = f"w={ws} ({tuple(zz.shape)[0]}x{tuple(zz.shape)[1]})"
+        print(f"  {'fractal':11s} {label:38s} {'fractal_roughness':28s} max_abs={err:.3e} bit_equal={exact} "
+              f"nan_mask_equal={same} finite={int(torch.isfinite(want).sum())}")
+        check(same and exact, f"fractal {label}: not bit-equal to the plain version (max abs {err:.3e}, NaN masks equal {same})")
+        check(int(torch.isfinite(want).sum()) > 10000, f"fractal {label}: too few finite pixels to compare")
+        max_err["fractal"] = max(max_err["fractal"], err)
     torch.cuda.synchronize()
     return max_err
 
@@ -202,7 +267,7 @@ def main_pair(dev, n: int, seed: int = 0):
     return ref, tba
 
 
-def phase_main(dev, n: int, seed: int = 0) -> dict:
+def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     """The main path at n x n: terrain suite, Nuth & Kääb fit and apply. Returns timings."""
     import torch
 
@@ -314,6 +379,7 @@ def phase_main(dev, n: int, seed: int = 0) -> dict:
         "fractal": (lambda: ck.fractal_roughness(ref, 13),
                     lambda: window.fractal_roughness(ref, 13)),
     }
+    bounds = kernel_bounds(n * n, sf_attrs, SUITE[9:13], 13)
     times = {}
     for k, (kern, plain_fn) in cases.items():
         p1 = device_ms(plain_fn)
@@ -321,11 +387,18 @@ def phase_main(dev, n: int, seed: int = 0) -> dict:
         k2 = device_ms(kern)
         p2 = device_ms(plain_fn)
         times[k] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
-        print(f"  {k:11s} kernel {times[k][0]:.3f} ms   plain {times[k][1]:.3f} ms   (plain, kernel, kernel, plain: "
+        bound, by = bounds[k]
+        print(f"  {k:11s} kernel {times[k][0]:.3f} ms   plain {times[k][1]:.3f} ms   bound {bound:.3f} ms ({by}), "
+              f"roofline share {bound / times[k][0]:.3f}   (plain, kernel, kernel, plain: "
               f"{p1:.3f}, {k1:.3f}, {k2:.3f}, {p2:.3f})")
         torch.cuda.empty_cache()
-    return {"launches": launches, "times": times, "suite_ms": t_suite * 1e3, "fit_ms": t_fit_steady * 1e3,
-            "first_fit_ms": t_fit * 1e3}
+    bound, by = bounds["fractal"]
+    print(f"  K3 fractal roughness, w = 13, {n}x{n}: {times['fractal'][0]:.3f} ms against a bound of {bound:.3f} ms "
+          f"({fractal_ops_per_pixel(13)} f32 operations per pixel at the FMA-counted peak, {by}): "
+          f"{100 * bound / times['fractal'][0]:.1f} % of the roofline, {200 * bound / times['fractal'][0]:.1f} % of "
+          f"the unfused issue rate (none of its operations fuses) on {card}")
+    return {"launches": launches, "times": times, "bounds": bounds, "suite_ms": t_suite * 1e3,
+            "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3}
 
 
 class Stages:
@@ -743,7 +816,8 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     print(f"[1/6] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable")
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
+    print(card)
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
 
@@ -751,14 +825,14 @@ def main() -> int:
     _build.load()
     print(f"[2/6] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
+        if line.startswith("nvcc ") or "Used" in line or "spill" in line:
             print("  " + line.strip())
 
     print("[3/6] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
     print(f"[4/6] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
-    res = phase_main(dev, MAIN_SIZE)
+    res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
     print(f"[5/6] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
@@ -770,7 +844,8 @@ def main() -> int:
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
-         "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1]}
+         "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1],
+         "bound_ms": res["bounds"][k][0], "bound_by": res["bounds"][k][1], "library_ms": None}
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE,

@@ -7,7 +7,7 @@ import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run
 
 Tolerance: identical NaN masks and max deviation <= 1e-3 of the mean magnitude, the
 repository's terrain tolerance (the kernels are built with -fmad=false and add in the plain
-versions' order, so they are expected to agree to the bit).
+versions' order, so they are expected to agree to the bit); K3 is held to the bit.
 """
 
 import math
@@ -17,7 +17,7 @@ import pytest
 import torch
 from torch_port_helpers import assert_same_nan, cuda_device, scaled_dev  # noqa: F401
 
-from xdem_tpu_torch import coreg, terrain
+from xdem_tpu_torch import _build, coreg, terrain
 from xdem_tpu_torch.georef import Affine
 from xdem_tpu_torch.terrain import cuda_kernels as ck
 from xdem_tpu_torch.terrain import surfit, window
@@ -67,13 +67,24 @@ def test_windowed_kernel_matches_plain(cuda_device, w, tri):
         _close(got[i], want[i], a)
 
 
-@pytest.mark.parametrize("w", [5, 8, 13, 21])
+@pytest.mark.parametrize("w", [5, 8, 13, 21, "last shared", "first global"])
 def test_fractal_kernel_matches_plain(cuda_device, w):
+    """K3 equals its plain version to the bit (max abs error 0, identical NaN masks) on every
+    route: compile-time windows (5, 13, 21), runtime planes (8 and the last window whose planes
+    fit in shared memory) and global reads (the next window). The 301 x 389 DEM is no multiple
+    of either tile and holds NaN holes, a NaN border, an inf and a -inf centre pixel."""
+    top = _build.load().fractal_max_shared_window()
+    w = {"last shared": top, "first global": top + 1}.get(w, w)
     dem = _dem(cuda_device)
+    dem[170, 230] = -math.inf
     ck.reset_launch_counts()
     got = ck.fractal_roughness(dem, w)
     assert ck.LAUNCHES["fractal"] == 1
-    _close(got, window.fractal_roughness(dem, w), "fractal_roughness")
+    want = window.fractal_roughness(dem, w)
+    assert_same_nan(got.cpu(), want.cpu(), f"w={w}")
+    num = ~torch.isnan(want)
+    assert int(torch.isfinite(want).sum()) > 1000
+    assert torch.equal(got[num], want[num]), float((got[num] - want[num]).abs().max())
 
 
 def test_large_windows_take_the_global_memory_path(cuda_device):
@@ -84,8 +95,8 @@ def test_large_windows_take_the_global_memory_path(cuda_device):
 
 
 def test_large_fractal_windows_take_the_global_memory_path(cuda_device):
-    """w = 229: the (32 + 228) x (8 + 228) tile exceeds 227 KB of shared memory, so K3 reads
-    the raster directly; same results as the plain version on the pixels the window fits."""
+    """w = 229 is far past the last window whose box-maxima planes fit in shared memory, so K3
+    reads the raster directly; same results as the plain version on the pixels the window fits."""
     dem = _dem(cuda_device, shape=(260, 270), holes=False)
     ck.reset_launch_counts()
     got = ck.fractal_roughness(dem, 229)

@@ -84,6 +84,53 @@ def test_fractal_box_geometry_skips_last_row_and_column():
     assert np.isfinite(frac[10, 10])
 
 
+def _fractal_from_definition(dem: np.ndarray, w: int) -> np.ndarray:
+    """Taud & Parrot (2005) box counting written from its definition, in numpy float32: for
+    each divisor q of w // 2, Ns(q) = sum over the ((w-1)//q)^2 boxes starting at (j*q, k*q)
+    from the window's top-left corner (j outer, k inner) of clip(max(box) - centre, 0, w),
+    each box maximum taken over its own q x q values, NaN beyond the edges; the result is
+    minus the least-squares slope of log(Ns / q) against log q, in float64."""
+    h, wd = dem.shape
+    hw = w // 2
+    pad = np.pad(dem, hw, constant_values=np.nan)
+    qs = [q for q in range(1, hw + 1) if hw % q == 0]
+    x = np.log(np.array(qs, np.float64))
+    ys = []
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for q in qs:
+            boxes = np.lib.stride_tricks.sliding_window_view(pad, (q, q)).max(axis=(2, 3))
+            ns = np.zeros_like(dem)
+            for j in range((w - 1) // q):
+                for k in range((w - 1) // q):
+                    ns = ns + np.clip(boxes[j * q: j * q + h, k * q: k * q + wd] - dem, np.float32(0), np.float32(w))
+            ys.append(np.log(ns.astype(np.float64) / q))
+        y = np.stack(ys)
+        dx = (x - x.mean())[:, None, None]
+        return -((dx * (y - y.mean(axis=0))).sum(axis=0) / (dx * dx).sum(axis=0))
+
+
+@pytest.mark.parametrize("w", [5, 8, 13, 21])
+def test_fractal_roughness_matches_its_definition(w):
+    """The plain version (the CUDA kernel's reference) against a brute-force box count, on a
+    DEM with NaN holes, a NaN border strip, +inf and -inf pixels and an infinite centre:
+    identical NaN masks (a NaN in a box, or inf - inf at an infinite centre, poisons the
+    pixel) and max deviation <= 1e-5 of the mean magnitude (float32 rounding of the slope;
+    measured <= 8e-7)."""
+    rng = np.random.default_rng(5)
+    dem = rng.normal(size=(64, 75)).cumsum(0).cumsum(1)
+    dem = ((dem - dem.min()) / (dem.max() - dem.min()) * 1000.0).astype(np.float32)
+    dem[5:9, 50:56] = np.nan
+    dem[:, -1] = np.nan
+    dem[40, 30] = np.inf
+    dem[22, 20] = -np.inf
+    want = _fractal_from_definition(dem, w)
+    got = to_np(window.fractal_roughness(torch.from_numpy(dem), w))
+    assert_same_nan(got, want, f"w={w}")
+    assert np.isnan(got[40, 30]) and np.isnan(got[22, 20])  # inf - inf at the infinite centres
+    assert np.isfinite(want).sum() > 300
+    assert_plane_close(got, want.astype(np.float32), "fractal_roughness", tol=1e-5)
+
+
 def test_rugosity_needs_3x3_and_small_windows_are_nan():
     with pytest.raises(ValueError, match="3x3"):
         window.windowed_indexes(torch.zeros((9, 9)), 1.0, ("rugosity",), 5)

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` file of the package into one shared library with a
-plain C interface (no PyTorch headers, so it builds in seconds), under
-``xdem_tpu_torch/_build/<hash of sources and flags>/``; ``ctypes`` loads it. The build runs
-at first use, never at import: the package imports on machines without ``nvcc``.
+``nvcc`` compiles every ``csrc/*.cu`` file of the package, one process per file, all started
+together (so a build takes its slowest file's time, not the sum), and links the objects into
+one shared library with a plain C interface (no PyTorch headers, so it builds in seconds), under ``xdem_tpu_torch/_build/<hash of sources and
+flags>/``; ``ctypes`` loads it. The build runs at first use, never at import: the package
+imports on machines without ``nvcc``.
 
 Each exported ``launch_*`` function takes device pointers, host pointers to small parameter
 tables and a CUDA stream, launches on that stream, allocates nothing and returns
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -33,7 +35,7 @@ LIB_NAME = "libxdem_tpu_torch_kernels.so"
 # far outside the 1e-3 terrain tolerance; K2 and K3 stay within it either way.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas=-v",
 )
 
@@ -47,6 +49,7 @@ SIGNATURES = {
     "launch_surface_fit": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _F, _F, _F, _F, _F, _P),
     "launch_windowed": (_P, _P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P),
     "launch_fractal": (_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P),
+    "fractal_max_shared_window": (),
 }
 
 
@@ -71,9 +74,18 @@ def library_path() -> Path:
     return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
 
 
+def _run(job: tuple[str, list[str]]) -> tuple[str, list[str], str, int, float]:
+    """(label, command, output, exit code, seconds) of one nvcc job."""
+    label, cmd = job
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return label, cmd, proc.stdout, proc.returncode, time.perf_counter() - t0
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the kernels unless this exact build exists; returns (library, seconds spent
-    compiling, compiler output). Raises RuntimeError without nvcc or on a failed build."""
+    compiling, compiler output with each job's own seconds: a source's compile, or the
+    link). Raises RuntimeError without nvcc or on a failed build."""
     lib = library_path()
     if lib.is_file():
         return lib, 0.0, ""
@@ -84,16 +96,25 @@ def build() -> tuple[Path, float, str]:
             "CUDA kernels of xdem_tpu_torch cannot be built on this machine."
         )
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
+    tag = f"{os.getpid()}.tmp"
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [lib.with_name(f"{s.stem}.{tag}.o") for s in cus]
+    cmds = {s.name: [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(s)]
+            for s, o in zip(cus, objs)}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        runs = list(pool.map(_run, cmds.items()))
+    if all(rc == 0 for _, _, _, rc, _ in runs):
+        runs.append(_run(("link", [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)])))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(f"nvcc {label}: {secs:.2f} s\n{out}" for label, _, out, _, secs in runs)
+    for _, cmd, out, rc, _ in runs:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)  # atomic: concurrent builders never load a half-written library
     return lib, seconds, log
 

@@ -127,10 +127,16 @@ def windowed_indexes(
 def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
     """K3: fractal roughness as an (H, W) tensor; see window.fractal_roughness.
 
-    The kernel takes any window_size >= 5. Smaller windows raise ValueError on the card, as
-    the reference's Pallas kernel does, while a CPU tensor goes to the plain version, which
-    takes window_size >= 3 as the reference's XLA path does: so windows 3 and 4 succeed or
-    raise by device.
+    The kernel takes any window_size >= 5, by one of three routes, all bit-equal to the
+    plain version: the odd windows 5-21 (13 is the default) as compile-time instances on
+    64 x 32 tiles, 4 pixels per thread; any other window up to the last one whose planes fit
+    in shared memory (``_build.load().fractal_max_shared_window()``) with the same
+    box-maxima planes at runtime scales, one pixel per thread; larger windows by
+    bounds-checked global reads. The source note of ``csrc/fractal.cu`` gives the design.
+
+    Smaller windows raise ValueError on the card, as the reference's Pallas kernel does,
+    while a CPU tensor goes to the plain version, which takes window_size >= 3 as the
+    reference's XLA path does: so windows 3 and 4 succeed or raise by device.
     """
     if not _on_card(dem):
         return window.fractal_roughness(dem, window_size)
