@@ -7,16 +7,20 @@ Phases:
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels K1, K2, K3 from ``xdem_tpu_torch/csrc`` with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
-     2047 x 2061 DEM with NaN holes and a NaN border strip (scaled max deviation <= 1e-3,
-     identical NaN masks). K3 is held to the bit (max abs error 0, identical NaN masks) on
-     every route, with an inf and a -inf centre pixel added: windows 5, 8, 13, 21 on the
-     whole DEM, and the last window whose box-maxima planes fit in shared memory and the next
-     (global reads) on a 512 x 520 crop;
+     2047 x 2061 DEM with NaN holes and a NaN border strip (K2: scaled max deviation <= 1e-3,
+     identical NaN masks). K1 and K3 are held to the bit (max abs error 0, identical NaN
+     masks), with an inf and a -inf pixel added. K1: every fit and curvature method, a
+     hillshade z factor of 2, the ragged width (scalar stores) and a 2060-wide crop (vector
+     stores), the two- and one-attribute sets of the uncertainty call and of TerrainBias,
+     requests out of the table's order, an attribute named twice, and `center=` given.
+     K3 on every route: windows 5, 8, 13, 21 on the whole DEM, and the last window whose
+     box-maxima planes fit in shared memory and the next (global reads) on a 512 x 520 crop;
   4. main path at 10 000 x 10 000 (20 m pixels): the 14-attribute terrain suite and a
      Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
      Every kernel must have launched; the fit must recover the shift within 5 % and cut
      var(dh) below 1 %; suite, kernel (beside plain and the kernel's bound, with the card's
-     name and power limit) and fit times are printed.
+     name and power limit) and fit times are printed. K1 is timed three ways: the kernel
+     alone (`center=` given), `dem_center` alone, and the wrapper (both).
   5. uncertainty at 10 000 x 10 000 (20 m): estimate_uncertainty (H2022, subsample 10 000) of
      a seeded spectral DEM against itself plus 0.004 x an independent field, as bench.py's
      10k^2 leg builds the pair. K1 must launch in each call; sigma must stay on the card,
@@ -85,8 +89,10 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def device_ms(fn, reps: int = 3) -> float:
-    """Median device time of fn() in ms, by CUDA events, after one warm-up call."""
+def device_ms(fn, reps: int = 3, calls: int = 1) -> float:
+    """Median device time of one fn() in ms, by CUDA events around `calls` calls in a row,
+    after one warm-up call. With several calls the host's work on each hides behind the
+    device's work on the one before, so the figure is the device's time alone."""
     import torch
 
     fn()
@@ -94,10 +100,11 @@ def device_ms(fn, reps: int = 3) -> float:
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -212,39 +219,61 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
             check(rel <= TOL, f"{kernel} {label} {a}: scaled deviation {rel:.3e} > {TOL}")
             max_err[kernel] = max(max_err[kernel], err)
 
+    def compare_exact(kernel: str, label: str, names, got, want) -> None:
+        for i, a in enumerate(names):
+            same = bool(torch.equal(torch.isnan(got[i]), torch.isnan(want[i])))
+            num = ~torch.isnan(want[i])
+            err = float((got[i][num].double() - want[i][num].double()).abs().max()) if bool(num.any()) else 0.0
+            exact = bool(torch.equal(got[i][num], want[i][num]))
+            finite = int(torch.isfinite(want[i]).sum())
+            print(f"  {kernel:11s} {label:38s} {a:28s} max_abs={err:.3e} bit_equal={exact} nan_mask_equal={same} finite={finite}")
+            check(same and exact, f"{kernel} {label} {a}: not bit-equal to the plain version (max abs {err:.3e}, NaN masks equal {same})")
+            check(finite > 10000, f"{kernel} {label} {a}: too few finite pixels to compare")
+            max_err[kernel] = max(max_err[kernel], err)
+
+    # An inf and a -inf pixel: inf - centre stays inf, so K1's windows over them are NaN, and
+    # K3's inf - inf is NaN.
+    zf = z.clone()
+    zf[1000, 1000], zf[300, 1700] = float("inf"), -float("inf")
+    # K1 to the bit. The 2061-wide DEM takes the scalar stores, its 2060-wide crop the vector
+    # stores.
+    z4 = zf[:, :w - w % 4].contiguous()
+    check(w % 4 != 0, f"width {w} does not take the scalar stores")
     all10 = surfit.SURFACE_FIT_ATTRS
-    for fit, curv, attrs, zf in (("Horn", "geometric", ("slope", "aspect", "hillshade"), 1.0),
-                                 ("ZevenbergThorne", "directional", all10, 1.0),
-                                 ("Florinsky", "geometric", all10, 1.0),
-                                 ("Florinsky", "geometric", all10, 2.0)):
-        kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zf)
-        got = ck.surface_attributes(z, RES, attrs, **kw)
-        want = surfit.surface_attributes(z, RES, attrs, **kw)
-        compare("surface_fit", f"{fit} {curv} z_factor={zf}", attrs, got, want)
+    two, one = ("slope", "max_curvature"), ("max_curvature",)  # the uncertainty call's, TerrainBias's
+    mixed = ("min_curvature", "hillshade", "planform_curvature", "slope", "flowline_curvature", "aspect", "slope")
+    k1_cases = [(dem, fit, curv, attrs, zfac, None) for dem in (zf, z4) for fit, curv, attrs, zfac in (
+        ("Horn", "geometric", ("slope", "aspect", "hillshade"), 1.0),
+        ("ZevenbergThorne", "directional", all10, 1.0),
+        ("Florinsky", "geometric", all10, 1.0),
+        ("Florinsky", "geometric", all10, 2.0),
+        ("Florinsky", "geometric", two, 1.0),
+        ("Florinsky", "geometric", one, 1.0),
+        ("Florinsky", "geometric", mixed, 2.0))]
+    k1_cases += [(z4, "ZevenbergThorne", "geometric", all10, 1.0, None),
+                 (zf, "Florinsky", "directional", mixed, 1.0, None),
+                 (z4, "Florinsky", "directional", all10[::-1], 1.0, torch.tensor(500.0, device=dev)),
+                 (zf, "ZevenbergThorne", "directional", ("aspect", "tangential_curvature"), 1.0, 431.3)]
+    for dem, fit, curv, attrs, zfac, center in k1_cases:
+        kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zfac, center=center)
+        got = ck.surface_attributes(dem, RES, attrs, **kw)
+        want = surfit.surface_attributes(dem, RES, attrs, **kw)
+        label = f"{fit[:10]} {curv[:3]} z={zfac} W={dem.shape[1]} n={len(attrs)}" + ("" if center is None else " center=")
+        compare_exact("surface_fit", label, attrs, got, want)
     for ws, tri, attrs in ((3, "Riley", window.WINDOWED_ATTRS), (3, "Wilson", window.WINDOWED_ATTRS),
                            (5, "Riley", window.WINDOWED_ATTRS[:3]), (21, "Wilson", window.WINDOWED_ATTRS[:3])):
         got = ck.windowed_indexes(z, RES, attrs, ws, tri)
         want = window.windowed_indexes(z, RES, attrs, ws, tri)
         compare("windowed", f"w={ws} {tri}", attrs, got, want)
-    # K3 to the bit on each route, with an inf and a -inf centre pixel (inf - inf is NaN).
-    zf = z.clone()
-    zf[1000, 1000], zf[300, 1700] = float("inf"), -float("inf")
+    # K3 to the bit on each route.
     top = _build.load().fractal_max_shared_window()
     crop = zf[800:1312, 900:1420].contiguous()
     crop[200, 100], crop[400, 300] = float("inf"), -float("inf")
     for ws, zz in ((5, zf), (8, zf), (13, zf), (21, zf), (top, crop), (top + 1, crop)):
         got = ck.fractal_roughness(zz, ws)
         want = window.fractal_roughness(zz, ws)
-        same = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
-        num = ~torch.isnan(want)
-        err = float((got[num].double() - want[num].double()).abs().max()) if bool(num.any()) else 0.0
-        exact = bool(torch.equal(got[num], want[num]))
-        label = f"w={ws} ({tuple(zz.shape)[0]}x{tuple(zz.shape)[1]})"
-        print(f"  {'fractal':11s} {label:38s} {'fractal_roughness':28s} max_abs={err:.3e} bit_equal={exact} "
-              f"nan_mask_equal={same} finite={int(torch.isfinite(want).sum())}")
-        check(same and exact, f"fractal {label}: not bit-equal to the plain version (max abs {err:.3e}, NaN masks equal {same})")
-        check(int(torch.isfinite(want).sum()) > 10000, f"fractal {label}: too few finite pixels to compare")
-        max_err["fractal"] = max(max_err["fractal"], err)
+        compare_exact("fractal", f"w={ws} ({tuple(zz.shape)[0]}x{tuple(zz.shape)[1]})", ("fractal_roughness",),
+                      got[None], want[None])
     torch.cuda.synchronize()
     return max_err
 
@@ -392,13 +421,33 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
               f"roofline share {bound / times[k][0]:.3f}   (plain, kernel, kernel, plain: "
               f"{p1:.3f}, {k1:.3f}, {k2:.3f}, {p2:.3f})")
         torch.cuda.empty_cache()
+    # K1 three ways: the kernel alone (the centre given, five launches per event pair, so the
+    # host's work hides behind the device's), dem_center alone, and the wrapper (both, above).
+    center = surfit.dem_center(ref)
+    two = ("slope", "max_curvature")  # the uncertainty call's request
+    k1 = {"kernel": device_ms(lambda: ck.surface_attributes(ref, RES, sf_attrs, center=center), calls=5),
+          "center": device_ms(lambda: surfit.dem_center(ref), calls=5),
+          "wrapper": times["surface_fit"][0],
+          "kernel_two": device_ms(lambda: ck.surface_attributes(ref, RES, two, center=center), calls=5),
+          "wrapper_two": device_ms(lambda: ck.surface_attributes(ref, RES, two))}
+    bound, by = bounds["surface_fit"]
+    nbytes = 4 * (1 + len(sf_attrs)) * n * n
+    rate = nbytes / (k1["kernel"] * 1e-3)
+    print(f"  K1 surface fit, {len(sf_attrs)} attributes, Florinsky, {n}x{n} on {card}: kernel alone {k1['kernel']:.3f} ms "
+          f"({nbytes / 1e9:.1f} GB at {rate / 1e12:.3f} TB/s, {100 * rate / HBM_BYTES_PER_S:.1f} % of {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"bound {bound:.3f} ms by {by}), dem_center alone {k1['center']:.3f} ms, wrapper (dem_center + kernel) "
+          f"{k1['wrapper']:.3f} ms")
+    bound_two = kernel_bounds(n * n, two, SUITE[9:13], 13)["surface_fit"]
+    print(f"  K1 surface fit, {two}, Florinsky, {n}x{n} on {card}: kernel alone {k1['kernel_two']:.3f} ms, wrapper "
+          f"{k1['wrapper_two']:.3f} ms, bound {bound_two[0]:.3f} ms by {bound_two[1]}")
+    torch.cuda.empty_cache()
     bound, by = bounds["fractal"]
     print(f"  K3 fractal roughness, w = 13, {n}x{n}: {times['fractal'][0]:.3f} ms against a bound of {bound:.3f} ms "
           f"({fractal_ops_per_pixel(13)} f32 operations per pixel at the FMA-counted peak, {by}): "
           f"{100 * bound / times['fractal'][0]:.1f} % of the roofline, {200 * bound / times['fractal'][0]:.1f} % of "
           f"the unfused issue rate (none of its operations fuses) on {card}")
     return {"launches": launches, "times": times, "bounds": bounds, "suite_ms": t_suite * 1e3,
-            "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3}
+            "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3, "k1_ms": k1}
 
 
 class Stages:
@@ -824,9 +873,16 @@ def main() -> int:
     lib, seconds, log = _build.build()
     _build.load()
     print(f"[2/6] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
-    for line in log.splitlines():
-        if line.startswith("nvcc ") or "Used" in line or "spill" in line:
+    entry = spills = ""
+    for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
+        if line.startswith("nvcc "):
             print("  " + line.strip())
+        elif "Compiling entry function" in line:
+            entry = line.split("'")[1].split("_cu_")[-1][8:52]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
     print("[3/6] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
@@ -848,7 +904,7 @@ def main() -> int:
          "bound_ms": res["bounds"][k][0], "bound_by": res["bounds"][k][1], "library_ms": None}
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
-        "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE,
+        "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "uncertainty": unc, "coreg": cor}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

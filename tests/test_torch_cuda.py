@@ -5,9 +5,10 @@ These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere)
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 
-Tolerance: identical NaN masks and max deviation <= 1e-3 of the mean magnitude, the
-repository's terrain tolerance (the kernels are built with -fmad=false and add in the plain
-versions' order, so they are expected to agree to the bit); K3 is held to the bit.
+Tolerance: K1 and K3 are held to the bit (identical NaN masks, max abs error 0); K2 to
+identical NaN masks and max deviation <= 1e-3 of the mean magnitude, the repository's terrain
+tolerance (the kernels are built with -fmad=false and add in the plain versions' order, so
+K2 too is expected to agree to the bit).
 """
 
 import math
@@ -42,17 +43,54 @@ def _close(got, want, name):
     assert scaled_dev(got.cpu(), want.cpu(), circular=period) <= 1e-3, name
 
 
-@pytest.mark.parametrize("fit,curv,zf", [("Horn", "geometric", 1.0), ("ZevenbergThorne", "directional", 1.0),
-                                         ("Florinsky", "geometric", 2.0)])
-def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, zf):
+def _bit_equal(got, want, name):
+    assert_same_nan(got.cpu(), want.cpu(), name)
+    num = ~torch.isnan(want)
+    assert int(torch.isfinite(want).sum()) > 1000, name
+    assert torch.equal(got[num], want[num]), (name, float((got[num] - want[num]).abs().max()))
+
+
+_ALL10 = surfit.SURFACE_FIT_ATTRS
+_MIXED = ("min_curvature", "hillshade", "planform_curvature", "slope", "flowline_curvature", "aspect", "slope")
+K1_CASES = [
+    # (fit, curvature method, attributes, hillshade z factor, width, center)
+    ("Horn", "geometric", _ALL10[:3], 1.0, 389, None),
+    ("Horn", "geometric", _ALL10[:3], 1.0, 388, None),
+    ("ZevenbergThorne", "directional", _ALL10, 1.0, 389, None),
+    ("ZevenbergThorne", "geometric", _ALL10, 1.0, 388, None),
+    ("Florinsky", "geometric", _ALL10, 2.0, 389, None),
+    ("Florinsky", "geometric", _ALL10, 1.0, 388, None),
+    ("Florinsky", "directional", _ALL10[::-1], 1.0, 388, 431.3),
+    ("Florinsky", "geometric", ("slope", "max_curvature"), 1.0, 389, None),
+    ("Florinsky", "geometric", ("slope", "max_curvature"), 1.0, 388, "tensor"),
+    ("Florinsky", "geometric", ("max_curvature",), 1.0, 389, None),
+    ("Florinsky", "geometric", ("max_curvature",), 1.0, 388, None),
+    ("Florinsky", "geometric", _MIXED, 2.0, 389, None),
+    ("Florinsky", "directional", _MIXED, 1.0, 388, None),
+]
+
+
+@pytest.mark.parametrize("fit,curv,attrs,zf,width,center", K1_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{len(c[2])}-{c[3]}-{c[4]}-{c[5]}" for c in K1_CASES])
+def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, attrs, zf, width, center):
+    """K1 equals its plain version to the bit on every fit and curvature method, on the ragged
+    width 389 (scalar stores) and on 388 (vector stores), for the two- and one-attribute
+    requests, a request out of the table's order that names slope twice, and `center=` given
+    as a float or a tensor. The DEM holds a NaN hole, a NaN border, an inf and a -inf pixel
+    and a flat patch (where the sign of a zero derivative decides the aspect)."""
     dem = _dem(cuda_device)
-    attrs = ("slope", "aspect", "hillshade") if fit == "Horn" else surfit.SURFACE_FIT_ATTRS
+    dem[170, 230] = -math.inf
+    dem[200:230, 20:60] = 512.0
+    dem = dem[:, :width].contiguous()
+    if center == "tensor":
+        center = torch.tensor(400.0, device=cuda_device)
+    kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zf, center=center)
     ck.reset_launch_counts()
-    got = ck.surface_attributes(dem, 20.0, attrs, fit, curv, hillshade_z_factor=zf)
+    got = ck.surface_attributes(dem, 20.0, attrs, **kw)
     assert ck.LAUNCHES["surface_fit"] == 1 and got.is_cuda
-    want = surfit.surface_attributes(dem, 20.0, attrs, fit, curv, hillshade_z_factor=zf)
+    want = surfit.surface_attributes(dem, 20.0, attrs, **kw)
     for i, a in enumerate(attrs):
-        _close(got[i], want[i], a)
+        _bit_equal(got[i], want[i], a)
 
 
 @pytest.mark.parametrize("w,tri", [(3, "Riley"), (3, "Wilson"), (6, "Riley"), (21, "Wilson")])

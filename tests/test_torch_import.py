@@ -14,12 +14,15 @@ import pytest
 import torch
 import torch_port_helpers  # noqa: F401  (thread cap)
 
+import xdem_tpu
 import xdem_tpu_torch
+from xdem_tpu.coreg import base as jbase
 from xdem_tpu.georef import CRS
 from xdem_tpu.georef import Affine as JaxAffine
 from xdem_tpu.terrain import surfit as jsurf
 from xdem_tpu.terrain import window as jwin
 from xdem_tpu_torch import _build, georef
+from xdem_tpu_torch.coreg import base as tbase
 from xdem_tpu_torch.terrain import cuda_kernels, surfit, window
 
 PKG = Path(xdem_tpu_torch.__file__).resolve().parent
@@ -207,3 +210,54 @@ def test_default_device_and_dtype():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert float(xdem_tpu_torch.as_tensor(read_only)[3]) == 3.0
+
+
+def test_top_level_lists_every_ported_module():
+    """`fit` is imported and listed as xdem_tpu does, and nothing listed is missing."""
+    assert xdem_tpu_torch.fit.robust_norder_polynomial_fit is not None
+    assert "fit" in xdem_tpu_torch.__all__ and "fit" in xdem_tpu.__all__
+    for name in xdem_tpu_torch.__all__:
+        assert hasattr(xdem_tpu_torch, name), name
+    for word in ("ICP", "DhMinimize", "Deramp", "xdem_tpu_torch.fit"):
+        assert word in xdem_tpu_torch.__doc__, word
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor", "masked"])
+@pytest.mark.parametrize("nfact", [None, 2.0])
+def test_spatialstats_nmad_matches_original(kind, nfact):
+    """spatialstats.nmad takes an array or a tensor and nfact=, and returns xdem_tpu's float."""
+    rng = np.random.default_rng(5)
+    data = rng.normal(3.0, 2.0, (40, 50))
+    data[rng.random(data.shape) < 0.1] = np.nan
+    kw = {} if nfact is None else {"nfact": nfact}
+    with pytest.warns(DeprecationWarning):
+        want = xdem_tpu.spatialstats.nmad(data, **kw)
+    ours = {"numpy": data, "tensor": torch.from_numpy(data),
+            "masked": np.ma.masked_invalid(data)}[kind]
+    with pytest.warns(DeprecationWarning, match="nmad"):
+        got = xdem_tpu_torch.spatialstats.nmad(ours, **kw)
+    assert isinstance(got, float) and got == want
+    # The tensor NMAD of ops keeps its name and its fixed factor.
+    assert float(xdem_tpu_torch.ops.nmad(torch.from_numpy(data))) == pytest.approx(
+        xdem_tpu.spatialstats.nmad(data) if nfact is None else want / nfact * 1.4826, rel=1e-12)
+
+
+_CORE_DICTS = ["InRandomDict", "OutRandomDict", "InFitOrBinDict", "OutFitOrBinDict", "InIterativeDict",
+               "OutIterativeDict", "InSpecificDict", "OutSpecificDict", "InAffineDict", "OutAffineDict",
+               "InputCoregDict", "OutputCoregDict", "CoregDict"]
+
+
+@pytest.mark.parametrize("name", _CORE_DICTS)
+def test_coreg_typed_dicts_equal_originals(name):
+    ours, theirs = getattr(tbase, name), getattr(jbase, name)
+    assert ours.__annotations__.keys() == theirs.__annotations__.keys()
+    assert ours.__total__ is theirs.__total__ is False
+    assert ours.__optional_keys__ == theirs.__optional_keys__
+
+
+def test_coreg_typed_dicts_are_all_copied():
+    theirs = {n for n, v in vars(jbase).items() if isinstance(v, type) and hasattr(v, "__optional_keys__")}
+    assert theirs == set(_CORE_DICTS)
+    meta = tbase.Coreg().meta
+    assert set(meta) <= set(tbase.CoregDict.__annotations__)
+    assert set(meta["inputs"]) <= set(tbase.InputCoregDict.__annotations__)

@@ -2,9 +2,15 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` file of the package, one process per file, all started
 together (so a build takes its slowest file's time, not the sum), and links the objects into
-one shared library with a plain C interface (no PyTorch headers, so it builds in seconds), under ``xdem_tpu_torch/_build/<hash of sources and
-flags>/``; ``ctypes`` loads it. The build runs at first use, never at import: the package
-imports on machines without ``nvcc``.
+one shared library with a plain C interface (no PyTorch headers, so it builds in seconds),
+under ``xdem_tpu_torch/_build/<hash of sources, generated header and flags>/``; ``ctypes``
+loads it. The build runs at first use, never at import: the package imports on machines
+without ``nvcc``.
+
+The stencil tables of K1 are typed once, in ``terrain/surfit.py``: ``surface_fit_header()``
+writes them into the build directory as ``surface_fit_tables.h`` (flipped taps, non-zero
+ones only, as preprocessor lists) before ``nvcc`` runs, and ``csrc/surface_fit.cu`` includes
+that file.
 
 Each exported ``launch_*`` function takes device pointers, host pointers to small parameter
 tables and a CUDA stream, launches on that stream, allocates nothing and returns
@@ -22,6 +28,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -46,15 +54,55 @@ _F = ctypes.c_float
 # argtypes of every exported function: pointers and the stream as c_void_p (a c_int would
 # cut a 64-bit pointer), scalars as c_int / c_float.
 SIGNATURES = {
-    "launch_surface_fit": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _I, _F, _F, _F, _F, _F, _P),
+    "launch_surface_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _F, _P),
     "launch_windowed": (_P, _P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P),
     "launch_fractal": (_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P),
     "fractal_max_shared_window": (),
 }
 
 
+TABLES_HEADER = "surface_fit_tables.h"
+
+
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def surface_fit_header() -> str:
+    """Text of ``surface_fit_tables.h``, generated from the tables of ``terrain/surfit.py``.
+
+    Per attribute ``XDT_ATTR_<NAME>`` is its code (its place in ``SURFACE_FIT_ATTRS``); per
+    fit ``XDT_FIT_<NAME>`` is its id (its place in ``_FIT_DERIVS``). ``XDT_SURFIT_FITS(F)``
+    lists ``F(id, window size, number of derivative roles)``. Per fit and role
+    ``XDT_TAPS_<FIT>_<ROLE>(T)`` lists ``T(u, v, weight)`` for the non-zero taps of the flipped
+    stencil in row-major order, the order in which ``surfit._apply_stencils`` adds them:
+    offset (u, v) from the window's top-left corner takes ``K[k-1-u, k-1-v]``.
+    ``XDT_SURFIT_STENCILS(S)`` lists ``S(fit id, role id, taps list)`` for every stencil.
+    """
+    from xdem_tpu_torch.terrain import surfit
+
+    roles = tuple(surfit.DIV_POW)  # z_x, z_y, z_xx, z_yy, z_xy
+    lines = ["// Generated from xdem_tpu_torch/terrain/surfit.py by xdem_tpu_torch/_build.py: do not edit.",
+             "#pragma once"]
+    lines += [f"#define XDT_ATTR_{a.upper()} {code}" for code, a in enumerate(surfit.SURFACE_FIT_ATTRS)]
+    lines.append(f"#define XDT_N_ATTRS {len(surfit.SURFACE_FIT_ATTRS)}")
+    fits, stencils = [], []
+    for fit_id, (fit, derivs) in enumerate(surfit._FIT_DERIVS.items()):
+        lines.append(f"#define XDT_FIT_{fit.upper()} {fit_id}")
+        k = surfit.ALL_STENCILS[derivs["z_x"]].shape[0]
+        fits.append(f"F({fit_id}, {k}, {len(derivs)})")
+        for role_id, role in enumerate(roles):
+            if role not in derivs:
+                continue
+            flipped = surfit.ALL_STENCILS[derivs[role]][::-1, ::-1]
+            taps = " ".join(f"T({u}, {v}, {float(np.float32(flipped[u, v]))!r}f)"
+                            for u in range(k) for v in range(k) if flipped[u, v] != 0)
+            macro = f"XDT_TAPS_{fit.upper()}_{role.upper()}"
+            lines.append(f"#define {macro}(T) {taps}")
+            stencils.append(f"S({fit_id}, {role_id}, {macro})")
+    lines.append("#define XDT_SURFIT_FITS(F) " + " ".join(fits))
+    lines.append("#define XDT_SURFIT_STENCILS(S) " + " ".join(stencils))
+    return "\n".join(lines) + "\n"
 
 
 def find_nvcc() -> str | None:
@@ -70,6 +118,7 @@ def library_path() -> Path:
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
+    digest.update(surface_fit_header().encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
 
@@ -97,10 +146,13 @@ def build() -> tuple[Path, float, str]:
         )
     lib.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
+    header = lib.with_name(f"{TABLES_HEADER}.{tag}")
+    header.write_text(surface_fit_header())
+    os.replace(header, lib.with_name(TABLES_HEADER))  # the same text from every process that builds this hash
     tmp = lib.with_name(f"{LIB_NAME}.{tag}")
     cus = [s for s in sources() if s.suffix == ".cu"]
     objs = [lib.with_name(f"{s.stem}.{tag}.o") for s in cus]
-    cmds = {s.name: [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o), str(s)]
+    cmds = {s.name: [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-I", str(lib.parent), "-c", "-o", str(o), str(s)]
             for s, o in zip(cus, objs)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(cmds)) as pool:

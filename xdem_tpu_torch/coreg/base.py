@@ -22,7 +22,7 @@ import logging
 import math
 import pickle
 import warnings
-from typing import Any
+from typing import Any, Callable, Iterable, Literal, TypedDict
 
 import numpy as np
 import torch
@@ -412,6 +412,122 @@ def _sanitize(obj: Any) -> Any:
     if callable(obj) and not isinstance(obj, type):
         return {"__callable__": f"{getattr(obj, '__module__', '')}.{getattr(obj, '__qualname__', '')}"}
     return obj
+
+
+# ------------------------------------------------------------------ metadata typing
+# Typed views of the nested Coreg metadata dict, copies of xdem_tpu/coreg/base.py's (held
+# equal in keys to the originals by a test). total=False: every key is optional; methods
+# populate only the sections they use. Where xdem_tpu keeps a pandas frame under
+# "bin_dataframe", the port keeps a dict of numpy arrays.
+
+
+class InRandomDict(TypedDict, total=False):
+    """Inputs associated with randomization and subsampling."""
+
+    subsample: int | float
+    random_state: int | np.random.Generator | None
+
+
+class OutRandomDict(TypedDict, total=False):
+    """Outputs associated with randomization and subsampling."""
+
+    subsample_final: int
+
+
+class InFitOrBinDict(TypedDict, total=False):
+    """Inputs associated with binning and/or fitting."""
+
+    fit_or_bin: Literal["fit", "bin", "bin_and_fit"]
+    fit_func: Callable[..., Any]
+    fit_optimizer: Callable[..., Any]
+    fit_minimizer: Callable[..., Any]
+    fit_loss_func: Callable[..., Any]
+    bin_sizes: int | dict[str, int | Iterable[float]]
+    bin_statistic: Callable[..., Any]
+    bin_apply_method: Literal["linear", "per_bin"]
+    bias_var_names: list[str]
+    nd: int | None
+
+
+class OutFitOrBinDict(TypedDict, total=False):
+    """Outputs associated with binning and/or fitting."""
+
+    fit_params: Any
+    fit_perr: Any
+    bin_dataframe: Any
+
+
+class InIterativeDict(TypedDict, total=False):
+    """Inputs associated with iterative methods."""
+
+    max_iterations: int
+    tolerance: float
+
+
+class OutIterativeDict(TypedDict, total=False):
+    """Outputs associated with iterative methods."""
+
+    last_iteration: int
+    all_tolerances: list[float]
+
+
+class InSpecificDict(TypedDict, total=False):
+    """Inputs specific to a single method (terrain attribute, angle, poly order, ...)."""
+
+    terrain_attribute: str
+    angle: float
+    poly_order: int
+    best_poly_order: int
+    best_nb_sin_freq: int
+
+
+class OutSpecificDict(TypedDict, total=False):
+    """Outputs specific to a single method."""
+
+    partition: Any
+
+
+class InAffineDict(TypedDict, total=False):
+    """Inputs associated with affine methods."""
+
+    vshift_reduc_func: Callable[[Any], Any]
+    initial_shift: tuple[float, float] | None
+    standardize: bool
+    only_translation: bool
+    picky: bool
+
+
+class OutAffineDict(TypedDict, total=False):
+    """Outputs associated with affine methods."""
+
+    centroid: tuple[float, float, float]
+    matrix: Any
+    shift_x: float
+    shift_y: float
+    shift_z: float
+
+
+class InputCoregDict(TypedDict, total=False):
+    random: InRandomDict
+    fitorbin: InFitOrBinDict
+    iterative: InIterativeDict
+    specific: InSpecificDict
+    affine: InAffineDict
+
+
+class OutputCoregDict(TypedDict, total=False):
+    random: OutRandomDict
+    fitorbin: OutFitOrBinDict
+    iterative: OutIterativeDict
+    specific: OutSpecificDict
+    affine: OutAffineDict
+
+
+class CoregDict(TypedDict, total=False):
+    """Type of the full metadata dictionary of Coreg classes."""
+
+    inputs: InputCoregDict
+    outputs: OutputCoregDict
 
 
 # ------------------------------------------------------------------ Coreg class

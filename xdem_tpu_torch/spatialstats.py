@@ -30,13 +30,25 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch._device import as_tensor, default_device
-from xdem_tpu_torch.ops.reductions import _NMAD_FACTOR, binned_median, nmad
+from xdem_tpu_torch.ops.reductions import _NMAD_FACTOR, binned_median
+from xdem_tpu_torch.ops.reductions import nmad as _nmad_tensor
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask, unmask
 
 Table = dict  # column name -> 1-D numpy array
 
 _RASTER_SLICE = "Raster/DEM (the next slice of the port in ROADMAP.md)"
+
+
+def nmad(data: Any, nfact: float = _NMAD_FACTOR) -> float:
+    """Normalized median absolute deviation of an array or tensor, NaNs ignored, as a float
+    (xdem_tpu.spatialstats.nmad, deprecated there in favour of ``ops.nmad``, which takes and
+    returns tensors and has the factor fixed)."""
+    warnings.warn("Call to deprecated function 'nmad'. Use xdem_tpu_torch.ops.nmad instead.",
+                  DeprecationWarning, stacklevel=2)
+    data = _host(data)
+    med = np.nanmedian(data)
+    return float(nfact * np.nanmedian(np.abs(data - med)))
 
 
 def _stat_nmad(x: np.ndarray) -> float:
@@ -447,9 +459,9 @@ def _two_step_scale_core(gathered: torch.Tensor, mids_ext: Sequence[np.ndarray],
     interpolated unscaled error, drop |z| > fac * NMAD, return the NMAD of the rest."""
     err = _interp_grid_device(mids_ext, grid_ext, list(gathered[1:]))
     z = gathered[0] / err
-    spread0 = nmad(z)
+    spread0 = _nmad_tensor(z)
     z = torch.where(torch.abs(z) > fac_spread_outliers * spread0, torch.nan, z)
-    return nmad(z)
+    return _nmad_tensor(z)
 
 
 def _scale_and_sigma_device(gathered: torch.Tensor, mids_ext: Sequence[np.ndarray], grid_ext: np.ndarray,

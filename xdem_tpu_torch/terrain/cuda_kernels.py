@@ -60,6 +60,19 @@ def _codes(attrs: tuple[str, ...], table: tuple[str, ...]) -> np.ndarray:
     return np.array([table.index(a) for a in attrs], dtype=np.int32)
 
 
+def surface_fit_plan(attrs: tuple[str, ...]) -> tuple[int, np.ndarray]:
+    """(mask, plane_of) of a request, as K1 takes them: bit ``a`` of ``mask`` is set where the
+    attribute with code ``a`` (its place in ``surfit.SURFACE_FIT_ATTRS``) is requested, and
+    ``plane_of[a]`` is the index in ``attrs`` of the plane it is written to (its first mention;
+    -1 where it is not requested)."""
+    plane_of = np.full(len(surfit.SURFACE_FIT_ATTRS), -1, dtype=np.int32)
+    for i, code in enumerate(_codes(tuple(attrs), surfit.SURFACE_FIT_ATTRS)):
+        if plane_of[code] < 0:
+            plane_of[code] = i
+    mask = sum(1 << a for a in np.flatnonzero(plane_of >= 0))
+    return int(mask), plane_of
+
+
 def surface_attributes(
     dem: torch.Tensor,
     resolution: float,
@@ -69,27 +82,44 @@ def surface_attributes(
     hillshade_altitude: float = 45.0,
     hillshade_azimuth: float = 315.0,
     hillshade_z_factor: float = 1.0,
+    center: torch.Tensor | float | None = None,
 ) -> torch.Tensor:
-    """K1: surface-fit attributes as a (len(attrs), H, W) stack; see surfit.surface_attributes."""
+    """K1: surface-fit attributes as a (len(attrs), H, W) stack; see surfit.surface_attributes.
+
+    `center` (a tensor, a float or None) replaces the DEM's own mean as the constant removed
+    before the stencils, as in the plain version. On a CUDA tensor the centre reaches the
+    kernel as a device pointer to a 0-dim float32 tensor (``surfit.dem_center(dem)`` when
+    `center` is None), and nothing here reads a device value on the host: no ``float()``,
+    ``.item()`` or ``.cpu()``, so the call returns without waiting for the card.
+    """
     if not _on_card(dem):
         return surfit.surface_attributes(dem, resolution, attrs, surface_fit, curv_method,
-                                         hillshade_altitude, hillshade_azimuth, hillshade_z_factor)
-    codes = _codes(tuple(attrs), surfit.SURFACE_FIT_ATTRS)
-    roles, names, ksize = surfit.fit_plan(attrs, surface_fit)
+                                         hillshade_altitude, hillshade_azimuth, hillshade_z_factor, center)
+    attrs = tuple(attrs)
+    mask, plane_of = surface_fit_plan(attrs)
+    roles, names, _ = surfit.fit_plan(attrs, surface_fit)
     out = torch.empty((len(attrs), *dem.shape), dtype=torch.float32, device=dem.device)
     if dem.numel() == 0:
         return out
-    # Flipped taps: offset (u, v) takes K[k-1-u, k-1-v].
-    weights = np.concatenate([surfit.ALL_STENCILS[n][::-1, ::-1].ravel() for n in names]).astype(np.float32)
     divisors = np.array([float(d) for d in surfit.divisors(roles, names, resolution)], dtype=np.float32)
     sin_alt, cos_alt, azimuth = surfit.hillshade_constants(hillshade_altitude, hillshade_azimuth)
-    center = float(surfit.dem_center(dem))
-    return _launch(
+    if center is None:
+        center = surfit.dem_center(dem)
+    if isinstance(center, torch.Tensor):
+        center = center.to(device=dem.device, dtype=torch.float32).reshape(()).contiguous()
+    else:  # filled on the card: a host scalar copied over would make the stream wait
+        center = torch.full((), float(center), dtype=torch.float32, device=dem.device)
+    _launch(
         "surface_fit", _build.load().launch_surface_fit, dem, out,
-        ksize, len(roles), weights.ctypes.data, divisors.ctypes.data, len(codes), codes.ctypes.data,
-        int(curv_method.lower() == "geometric"), center, sin_alt, cos_alt, azimuth,
-        float(hillshade_z_factor),
+        list(surfit._FIT_DERIVS).index(surface_fit.lower()), int(curv_method.lower() == "geometric"),
+        len(roles), divisors.ctypes.data, mask, plane_of.ctypes.data, center.data_ptr(),
+        sin_alt, cos_alt, azimuth, float(hillshade_z_factor),
     )
+    for i, a in enumerate(attrs):  # an attribute named twice: the kernel wrote its first plane
+        first = attrs.index(a)
+        if first != i:
+            out[i].copy_(out[first])
+    return out
 
 
 _RUG_SEG_C = np.array([pos for pos, _ in window.RUGOSITY_CENTER_SEGS], dtype=np.int32).ravel()
