@@ -7,20 +7,25 @@ Phases:
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles the CUDA kernels K1, K2, K3 from ``xdem_tpu_torch/csrc`` with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
-     2047 x 2061 DEM with NaN holes and a NaN border strip (K2: scaled max deviation <= 1e-3,
-     identical NaN masks). K1 and K3 are held to the bit (max abs error 0, identical NaN
-     masks), with an inf and a -inf pixel added. K1: every fit and curvature method, a
-     hillshade z factor of 2, the ragged width (scalar stores) and a 2060-wide crop (vector
-     stores), the two- and one-attribute sets of the uncertainty call and of TerrainBias,
-     requests out of the table's order, an attribute named twice, and `center=` given.
-     K3 on every route: windows 5, 8, 13, 21 on the whole DEM, and the last window whose
-     box-maxima planes fit in shared memory and the next (global reads) on a 512 x 520 crop;
+     2047 x 2061 DEM with NaN holes, a NaN border strip, an inf and a -inf pixel. All three
+     are held to the bit (max abs error 0, identical NaN masks), on the ragged width (scalar
+     stores) and on a 2060-wide crop (vector stores). K1: every fit and curvature method, a
+     hillshade z factor of 2, the two- and one-attribute sets of the uncertainty call and of
+     TerrainBias, requests out of the table's order, an attribute named twice, and `center=`
+     given. K2 on every route: w = 3 with Riley's and Wilson's TRI and all four attributes, each
+     attribute alone, a request out of the table's order and one that names an attribute twice;
+     w = 5, 6 and 21 over a shared tile; the last window whose tile fits in shared memory and
+     the next (global reads) on a 512 x 520 DEM. K3 on every route: windows 5, 8, 13, 21 on
+     the whole DEM, and the last window whose box-maxima planes fit in shared memory and the
+     next (global reads) on a 512 x 520 crop;
   4. main path at 10 000 x 10 000 (20 m pixels): the 14-attribute terrain suite and a
      Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
      Every kernel must have launched; the fit must recover the shift within 5 % and cut
      var(dh) below 1 %; suite, kernel (beside plain and the kernel's bound, with the card's
      name and power limit) and fit times are printed. K1 is timed three ways: the kernel
-     alone (`center=` given), `dem_center` alone, and the wrapper (both).
+     alone (`center=` given), `dem_center` alone, and the wrapper (both); K2 and K3 through
+     their wrappers one launch at a time and alone (five launches per event pair), K2 also
+     without rugosity, with rugosity only, and at the runtime windows 5 and 21.
   5. uncertainty at 10 000 x 10 000 (20 m): estimate_uncertainty (H2022, subsample 10 000) of
      a seeded spectral DEM against itself plus 0.004 x an independent field, as bench.py's
      10k^2 leg builds the pair. K1 must launch in each call; sigma must stay on the card,
@@ -211,20 +216,12 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
     z[:, -3:] = float("nan")  # NaN border strip
     max_err = {k: 0.0 for k in KERNELS}
 
-    def compare(kernel: str, label: str, attrs, got, want) -> None:
-        for i, a in enumerate(attrs):
-            rel, err, same = scaled_dev(got[i], want[i], circular=a == "aspect")
-            print(f"  {kernel:11s} {label:38s} {a:28s} scaled_dev={rel:.3e} max_abs={err:.3e} nan_mask_equal={same}")
-            check(same, f"{kernel} {label} {a}: NaN masks differ")
-            check(rel <= TOL, f"{kernel} {label} {a}: scaled deviation {rel:.3e} > {TOL}")
-            max_err[kernel] = max(max_err[kernel], err)
-
     def compare_exact(kernel: str, label: str, names, got, want) -> None:
         for i, a in enumerate(names):
             same = bool(torch.equal(torch.isnan(got[i]), torch.isnan(want[i])))
-            num = ~torch.isnan(want[i])
-            err = float((got[i][num].double() - want[i][num].double()).abs().max()) if bool(num.any()) else 0.0
-            exact = bool(torch.equal(got[i][num], want[i][num]))
+            num, fin = ~torch.isnan(want[i]), torch.isfinite(want[i]) & torch.isfinite(got[i])
+            err = float((got[i][fin].double() - want[i][fin].double()).abs().max()) if bool(fin.any()) else 0.0
+            exact = bool(torch.equal(got[i][num], want[i][num]))  # infinite values too
             finite = int(torch.isfinite(want[i]).sum())
             print(f"  {kernel:11s} {label:38s} {a:28s} max_abs={err:.3e} bit_equal={exact} nan_mask_equal={same} finite={finite}")
             check(same and exact, f"{kernel} {label} {a}: not bit-equal to the plain version (max abs {err:.3e}, NaN masks equal {same})")
@@ -260,11 +257,23 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
         want = surfit.surface_attributes(dem, RES, attrs, **kw)
         label = f"{fit[:10]} {curv[:3]} z={zfac} W={dem.shape[1]} n={len(attrs)}" + ("" if center is None else " center=")
         compare_exact("surface_fit", label, attrs, got, want)
-    for ws, tri, attrs in ((3, "Riley", window.WINDOWED_ATTRS), (3, "Wilson", window.WINDOWED_ATTRS),
-                           (5, "Riley", window.WINDOWED_ATTRS[:3]), (21, "Wilson", window.WINDOWED_ATTRS[:3])):
-        got = ck.windowed_indexes(z, RES, attrs, ws, tri)
-        want = window.windowed_indexes(z, RES, attrs, ws, tri)
-        compare("windowed", f"w={ws} {tri}", attrs, got, want)
+    # K2 to the bit on each route: the 3 x 3 instances (Riley and Wilson, with and without
+    # rugosity, each attribute alone, a request out of the table's order, an attribute named
+    # twice), runtime windows over a shared tile, and the last such window and the next (global
+    # reads) on a 512 x 520 DEM of its own with a NaN and an inf pixel near two corners.
+    wa = window.WINDOWED_ATTRS
+    top = _build.load().windowed_max_shared_window()
+    wide = spectral_dem(520, seed + 1, device=dev)[0][:512].float().contiguous()
+    wide[5, 7], wide[500, 510] = float("nan"), float("inf")
+    k2_cases = [(dem, 3, tri, attrs) for dem in (zf, z4) for tri, attrs in (
+        ("Riley", wa), ("Wilson", wa), *(("Riley", (a,)) for a in wa), ("Wilson", wa[1:2]), ("Wilson", wa[::-1]),
+        ("Riley", ("rugosity", "roughness", "topographic_position_index", "roughness")))]
+    k2_cases += [(dem, ws, tri, wa[:3]) for dem in (zf, z4) for ws, tri in ((5, "Riley"), (6, "Riley"), (21, "Wilson"))]
+    k2_cases += [(wide, top, "Riley", wa[:3]), (wide, top + 1, "Wilson", wa[:3])]
+    for dem, ws, tri, attrs in k2_cases:
+        got = ck.windowed_indexes(dem, RES, attrs, ws, tri)
+        want = window.windowed_indexes(dem, RES, attrs, ws, tri)
+        compare_exact("windowed", f"w={ws} {tri} W={dem.shape[1]} n={len(attrs)}", attrs, got, want)
     # K3 to the bit on each route.
     top = _build.load().fractal_max_shared_window()
     crop = zf[800:1312, 900:1420].contiguous()
@@ -441,13 +450,36 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     print(f"  K1 surface fit, {two}, Florinsky, {n}x{n} on {card}: kernel alone {k1['kernel_two']:.3f} ms, wrapper "
           f"{k1['wrapper_two']:.3f} ms, bound {bound_two[0]:.3f} ms by {bound_two[1]}")
     torch.cuda.empty_cache()
+    # K2 and K3 alone: five launches per event pair, as K1's kernel above. K2 also without
+    # rugosity and with rugosity only, which is what the half-length planes and Heron cost.
+    wa = SUITE[9:13]
+    k2 = {"kernel": device_ms(cases["windowed"][0], calls=5), "wrapper": times["windowed"][0],
+          "kernel_no_rugosity": device_ms(lambda: ck.windowed_indexes(ref, RES, wa[:3], 3), calls=5),
+          "kernel_rugosity_only": device_ms(lambda: ck.windowed_indexes(ref, RES, wa[3:], 3), calls=5)}
+    bound, by = bounds["windowed"]
+    nbytes = 4 * (1 + len(wa)) * n * n
+    rate = nbytes / (k2["kernel"] * 1e-3)
+    print(f"  K2 windowed indexes, {len(wa)} attributes, w = 3, Riley, {n}x{n} on {card}: kernel alone {k2['kernel']:.3f} ms "
+          f"({nbytes / 1e9:.1f} GB at {rate / 1e12:.3f} TB/s, {100 * rate / HBM_BYTES_PER_S:.1f} % of {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"bound {bound:.3f} ms by {by}), through its wrapper one launch at a time {k2['wrapper']:.3f} ms; without rugosity "
+          f"{k2['kernel_no_rugosity']:.3f} ms, rugosity only {k2['kernel_rugosity_only']:.3f} ms")
+    # K2's runtime windows (off the main path, which runs w = 3): three attributes at w = 5 and
+    # w = 21, and each attribute alone at w = 21.
+    k2["runtime_windows"] = {
+        f"w = {w}, {'TPI + TRI + roughness' if len(attrs) == 3 else attrs[0]}":
+            device_ms(lambda: ck.windowed_indexes(ref, RES, attrs, w), calls=2)
+        for w, attrs in ((5, wa[:3]), (21, wa[:3]), (21, wa[:1]), (21, wa[1:2]), (21, wa[2:3]))}
+    print(f"  K2 runtime windows, {n}x{n}, kernel alone: " + "; ".join(f"{k} {v:.3f} ms" for k, v in k2["runtime_windows"].items()))
+    k3 = {"kernel": device_ms(cases["fractal"][0], calls=5), "wrapper": times["fractal"][0]}
+    torch.cuda.empty_cache()
     bound, by = bounds["fractal"]
-    print(f"  K3 fractal roughness, w = 13, {n}x{n}: {times['fractal'][0]:.3f} ms against a bound of {bound:.3f} ms "
+    print(f"  K3 fractal roughness, w = 13, {n}x{n}: kernel alone {k3['kernel']:.3f} ms, through its wrapper one launch at "
+          f"a time {times['fractal'][0]:.3f} ms against a bound of {bound:.3f} ms "
           f"({fractal_ops_per_pixel(13)} f32 operations per pixel at the FMA-counted peak, {by}): "
           f"{100 * bound / times['fractal'][0]:.1f} % of the roofline, {200 * bound / times['fractal'][0]:.1f} % of "
           f"the unfused issue rate (none of its operations fuses) on {card}")
     return {"launches": launches, "times": times, "bounds": bounds, "suite_ms": t_suite * 1e3,
-            "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3, "k1_ms": k1}
+            "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3, "k1_ms": k1, "k2_ms": k2, "k3_ms": k3}
 
 
 class Stages:
@@ -905,6 +937,7 @@ def main() -> int:
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
+        "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
         "uncertainty": unc, "coreg": cor}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,10 +5,8 @@ These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere)
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 
-Tolerance: K1 and K3 are held to the bit (identical NaN masks, max abs error 0); K2 to
-identical NaN masks and max deviation <= 1e-3 of the mean magnitude, the repository's terrain
-tolerance (the kernels are built with -fmad=false and add in the plain versions' order, so
-K2 too is expected to agree to the bit).
+Tolerance: K1, K2 and K3 are held to the bit (identical NaN masks, max abs error 0): the
+kernels are built with -fmad=false and add in the plain versions' order.
 """
 
 import math
@@ -93,16 +91,39 @@ def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, attrs, zf, wid
         _bit_equal(got[i], want[i], a)
 
 
-@pytest.mark.parametrize("w,tri", [(3, "Riley"), (3, "Wilson"), (6, "Riley"), (21, "Wilson")])
-def test_windowed_kernel_matches_plain(cuda_device, w, tri):
+_WA = window.WINDOWED_ATTRS
+K2_CASES = [
+    # (window, TRI method, attributes, width)
+    *((3, tri, _WA, width) for tri in ("Riley", "Wilson") for width in (389, 388)),
+    *((3, "Riley", (a,), width) for a in _WA for width in (389, 388)),
+    (3, "Wilson", _WA[1:2], 388),
+    (3, "Wilson", _WA[::-1], 389),
+    (3, "Riley", ("rugosity", "roughness", "topographic_position_index", "roughness"), 388),
+    (5, "Riley", _WA[:3], 389),
+    (6, "Riley", _WA[:3], 388),
+    (21, "Wilson", _WA[:3], 389),
+    (4, "Wilson", ("roughness", "topographic_position_index"), 388),
+]
+
+
+@pytest.mark.parametrize("w,tri,attrs,width", K2_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{'+'.join(a[:5] for a in c[2])}-{c[3]}" for c in K2_CASES])
+def test_windowed_kernel_matches_plain(cuda_device, w, tri, attrs, width):
+    """K2 equals its plain version to the bit on the 3 x 3 instances (Riley and Wilson, with and
+    without rugosity, each attribute alone, a request out of the table's order, one that names
+    roughness twice) and on runtime windows over a shared tile, on the ragged width 389
+    (scalar stores) and on 388 (vector stores). The DEM holds a NaN hole, a NaN border, an
+    inf and a -inf pixel and a flat patch."""
     dem = _dem(cuda_device)
-    attrs = window.WINDOWED_ATTRS if w == 3 else window.WINDOWED_ATTRS[:3]
+    dem[170, 230] = -math.inf
+    dem[200:230, 20:60] = 512.0
+    dem = dem[:, :width].contiguous()
     ck.reset_launch_counts()
     got = ck.windowed_indexes(dem, 20.0, attrs, w, tri)
-    assert ck.LAUNCHES["windowed"] == 1
+    assert ck.LAUNCHES["windowed"] == 1 and got.is_cuda
     want = window.windowed_indexes(dem, 20.0, attrs, w, tri)
     for i, a in enumerate(attrs):
-        _close(got[i], want[i], a)
+        _bit_equal(got[i], want[i], a)
 
 
 @pytest.mark.parametrize("w", [5, 8, 13, 21, "last shared", "first global"])
@@ -125,11 +146,21 @@ def test_fractal_kernel_matches_plain(cuda_device, w):
     assert torch.equal(got[num], want[num]), float((got[num] - want[num]).abs().max())
 
 
-def test_large_windows_take_the_global_memory_path(cuda_device):
-    """A window whose tile exceeds shared memory reads the raster directly; same results."""
-    dem = _dem(cuda_device, shape=(260, 270), holes=False)
-    _close(ck.windowed_indexes(dem, 1.0, ("roughness",), 241)[0],
-           window.windowed_indexes(dem, 1.0, ("roughness",), 241)[0], "roughness")
+@pytest.mark.parametrize("route", ["last shared", "first global"])
+def test_large_windows_take_the_global_memory_path(cuda_device, route):
+    """The last window whose tile fits in shared memory, and the next, which reads the raster
+    directly: both equal the plain version to the bit."""
+    top = _build.load().windowed_max_shared_window()
+    w = top + (route == "first global")
+    dem = _dem(cuda_device, shape=(300, 310), holes=False)
+    dem[3, 4], dem[295, 300] = math.nan, math.inf
+    attrs = window.WINDOWED_ATTRS[:3]
+    ck.reset_launch_counts()
+    got = ck.windowed_indexes(dem, 1.0, attrs, w, "Riley")
+    assert ck.LAUNCHES["windowed"] == 1
+    want = window.windowed_indexes(dem, 1.0, attrs, w, "Riley")
+    for i, a in enumerate(attrs):
+        _bit_equal(got[i], want[i], a)
 
 
 def test_large_fractal_windows_take_the_global_memory_path(cuda_device):

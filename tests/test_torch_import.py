@@ -179,6 +179,21 @@ def test_kernel_exports_match_launch_signatures():
         assert len(params) == len(argtypes), name
 
 
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_kernel_signature_types_match_declarations(name):
+    """Each ctypes argument type is its `extern "C"` parameter's: a pointer (the stream too) as
+    c_void_p, an int as c_int, a float as c_float, in the declaration's order."""
+    import ctypes
+
+    text = "".join(p.read_text() for p in PKG.glob("csrc/*.cu"))
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1).split(",")
+    want = []
+    for param in (p.strip() for p in params if p.strip() not in ("", "void")):
+        kind = param.rsplit(None, 1)[0]
+        want.append(ctypes.c_void_p if "*" in kind else {"int": ctypes.c_int, "float": ctypes.c_float}[kind])
+    assert list(_build.SIGNATURES[name]) == want
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for a CPU tensor: any other device raises."""
     dem = torch.zeros((8, 8), device="meta")

@@ -5,13 +5,17 @@ Tolerance: identical NaN masks; max deviation <= 1e-4 of each plane's mean magni
 (measured <= 3e-5: TPI differs from XLA in the last bit of the window mean).
 """
 
+import math
+import re
+
 import numpy as np
 import pytest
 import torch
 from torch_port_helpers import assert_plane_close, assert_same_nan, example_dem, to_np
 
 from xdem_tpu.terrain import window as jwin
-from xdem_tpu_torch.terrain import window
+from xdem_tpu_torch import _build
+from xdem_tpu_torch.terrain import cuda_kernels, window
 
 W4 = window.WINDOWED_ATTRS
 
@@ -148,3 +152,142 @@ def test_normalize_engine(engine, want):
 def test_normalize_engine_refuses_typos():
     with pytest.raises(ValueError, match="Unknown engine"):
         window.normalize_engine("cuda")
+
+
+# ---------------------------------------------------------------------- what K2 is built from
+# The generated header names each of the 16 half-lengths of the Jenness geometry as an entry of
+# one of four planes over the raster: HH joins a pixel to its right neighbour, HV to the lower
+# one, D1 to the lower right one, and D2 joins the right neighbour to the lower one.
+
+_PLANE_ENDS = {"HH": ((0, 0), (0, 1)), "HV": ((0, 0), (1, 0)), "D1": ((0, 0), (1, 1)), "D2": ((0, 1), (1, 0))}
+
+
+def _header_segments(text: str) -> list[tuple[str, int, int]]:
+    """(plane, du, dv) of each half-length, in the header's order."""
+    line = re.search(r"#define XDT_RUG_SEGMENTS\(S\) (.*)", text).group(1)
+    segs = re.findall(r"S\((\d+), (HH|HV|D1|D2), (\d+), (\d+)\)", line)
+    assert " ".join(f"S({i}, {p}, {u}, {v})" for i, p, u, v in segs) == line.strip()  # nothing else on the line
+    assert [int(i) for i, *_ in segs] == list(range(len(segs)))
+    return [(p, int(u), int(v)) for _, p, u, v in segs]
+
+
+def _header_triangles(text: str) -> tuple[tuple[int, int, int], ...]:
+    line = re.search(r"#define XDT_RUG_TRIANGLES\(T\) (.*)", text).group(1)
+    return tuple(tuple(int(x) for x in t) for t in re.findall(r"T\((\d+), (\d+), (\d+)\)", line))
+
+
+def _header_diag_factor(text: str) -> float:
+    return float(re.search(r"#define XDT_RUG_DIAG_FACTOR ([\d.]+)f\n", text).group(1))
+
+
+@pytest.mark.parametrize("i", range(16))
+def test_generated_header_holds_the_rugosity_segments(i):
+    """Segment i of the header, read back as the two window pixels it joins and its length
+    factor, is segment i of window.RUGOSITY_CENTER_SEGS + RUGOSITY_EDGE_SEGS."""
+    text = _build.windowed_header()
+    plane, du, dv = _header_segments(text)[i]
+    joins = {(du + r, dv + c) for r, c in _PLANE_ENDS[plane]}
+    factor = _header_diag_factor(text) if plane.startswith("D") else 1.0
+    if i < 8:
+        pos, want = window.RUGOSITY_CENTER_SEGS[i]
+        assert joins == {(1, 1), pos}
+        assert factor == float(np.float32(want))
+    else:
+        assert joins == set(window.RUGOSITY_EDGE_SEGS[i - 8]) and factor == 1.0
+
+
+def test_generated_header_triangles_and_codes():
+    text = _build.windowed_header()
+    assert _header_triangles(text) == window.RUGOSITY_TRIS
+    assert "#define XDT_RUG_N_SEGMENTS 16\n" in text and len(_header_segments(text)) == 16
+    for code, a in enumerate(window.WINDOWED_ATTRS):
+        assert f"#define XDT_WIN_{a.upper()} {code}\n" in text
+    assert f"#define XDT_WIN_N_ATTRS {len(window.WINDOWED_ATTRS)}\n" in text
+    assert _header_diag_factor(text) == float(np.float32(math.sqrt(2.0)))
+    # The source includes the header and types no table of its own; no table arrives at launch.
+    source = (_build.CSRC_DIR / "windowed.cu").read_text()
+    assert f'#include "{_build.WINDOWED_HEADER}"' in source
+    assert "XDT_RUG_SEGMENTS(" in source and "XDT_RUG_TRIANGLES(" in source
+    assert not re.search(r"seg_c|seg_e|seg_f|tri\[", source)
+    assert set(_build.generated_headers()) == {_build.TABLES_HEADER, _build.WINDOWED_HEADER}
+
+
+@pytest.mark.parametrize("name,value", [
+    ("RUGOSITY_TRIS", ((3, 0, 12),) * 8),
+    ("RUGOSITY_EDGE_SEGS", (((0, 1), (0, 0)),) * 8),
+    ("WINDOWED_ATTRS", window.WINDOWED_ATTRS[::-1]),
+])
+def test_build_key_follows_the_windowed_tables(monkeypatch, name, value):
+    path = _build.library_path()
+    monkeypatch.setattr(window, name, value)
+    assert _build.library_path() != path
+
+
+@pytest.mark.parametrize("name,value,match", [
+    ("RUGOSITY_EDGE_SEGS", (((0, 0), (0, 2)),) * 8, "neighbouring"),
+    ("RUGOSITY_EDGE_SEGS", (((0, 0), (0, 3)),) * 8, "neighbouring"),
+    ("RUGOSITY_CENTER_SEGS", (((0, 1), 2.0),) * 8, "factor"),
+    ("RUGOSITY_CENTER_SEGS", (((0, 0), 1.0), ((2, 2), 2.0)) * 4, "one length factor"),
+    ("RUGOSITY_TRIS", ((3, 0, 16),) * 8, "triangle"),
+])
+def test_generated_header_refuses_another_geometry(monkeypatch, name, value, match):
+    """The kernel's four planes hold the Jenness geometry only: segments between neighbouring
+    pixels, factor 1 along the grid and one factor on the diagonals."""
+    monkeypatch.setattr(window, name, value)
+    with pytest.raises(ValueError, match=match):
+        _build.windowed_header()
+
+
+def _holed_dem(shape=(301, 317), seed=5) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=shape).cumsum(0).cumsum(1)
+    z = (z - z.min()) / (z.max() - z.min()) * 1000.0
+    for _ in range(6):
+        r, c = int(rng.integers(0, shape[0] - 20)), int(rng.integers(0, shape[1] - 20))
+        z[r:r + int(rng.integers(1, 20)), c:c + int(rng.integers(1, 20))] = np.nan
+    z[:, -3:] = np.nan
+    z[100, 100], z[200, 50] = np.inf, -np.inf
+    z[250:260, 200:230] = 512.0
+    return torch.from_numpy(z.astype(np.float32))
+
+
+@pytest.mark.parametrize("resolution", [20.0, 1.0, 0.3])
+def test_rugosity_from_four_half_length_planes_is_bit_equal(resolution):
+    """What K2's 3 x 3 instance rests on: the 16 half-lengths of a pixel are entries of four
+    planes over the raster (a half-length squares its height difference, so either end may be
+    the centre, and a centre segment of factor 1 equals the edge segment there). Assembled
+    from the planes by the generated header's offsets, rugosity equals window._rugosity to
+    the bit, NaN masks included, on a DEM with NaN holes, a NaN strip, an inf and a -inf."""
+    text = _build.windowed_header()
+    dem = _holed_dem()
+    h, w = dem.shape
+    t = window._nan_pad(dem, 1)
+    L = torch.tensor(resolution, dtype=torch.float32)
+    lf = _header_diag_factor(text) * L
+
+    def half(dz, len2):
+        return torch.sqrt(dz * dz + len2) / 2
+
+    planes = {"HH": half(t[:, :-1] - t[:, 1:], L * L), "HV": half(t[:-1] - t[1:], L * L),
+              "D1": half(t[:-1, :-1] - t[1:, 1:], lf * lf), "D2": half(t[:-1, 1:] - t[1:, :-1], lf * lf)}
+    hsl = [planes[p][du:du + h, dv:dv + w] for p, du, dv in _header_segments(text)]
+    area = torch.zeros_like(dem)
+    for ia, ib, ic in _header_triangles(text):
+        a, b, c = hsl[ia], hsl[ib], hsl[ic]
+        s = (a + b + c) / 2
+        area = area + torch.sqrt(torch.clamp(s * (s - a) * (s - b) * (s - c), min=0.0))
+    got = area / (L * L)
+    want = window._rugosity(t, h, w, resolution)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    num = ~torch.isnan(want)
+    assert int(torch.isfinite(want).sum()) > 80000
+    assert torch.equal(got[num], want[num])
+
+
+def test_windowed_plan_of_an_out_of_order_request():
+    attrs = ("rugosity", "roughness", "topographic_position_index", "roughness")
+    mask, plane_of = cuda_kernels.windowed_plan(attrs)
+    assert mask == 0b1101 and plane_of.dtype == np.int32
+    assert list(plane_of) == [2, -1, 1, 0]  # the first mention of each; TRI is not requested
+    with pytest.raises(ValueError, match="Unknown attribute"):
+        cuda_kernels.windowed_plan(("roughness", "slope"))

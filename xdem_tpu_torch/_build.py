@@ -3,14 +3,18 @@
 ``nvcc`` compiles every ``csrc/*.cu`` file of the package, one process per file, all started
 together (so a build takes its slowest file's time, not the sum), and links the objects into
 one shared library with a plain C interface (no PyTorch headers, so it builds in seconds),
-under ``xdem_tpu_torch/_build/<hash of sources, generated header and flags>/``; ``ctypes``
+under ``xdem_tpu_torch/_build/<hash of sources, generated headers and flags>/``; ``ctypes``
 loads it. The build runs at first use, never at import: the package imports on machines
 without ``nvcc``.
 
-The stencil tables of K1 are typed once, in ``terrain/surfit.py``: ``surface_fit_header()``
-writes them into the build directory as ``surface_fit_tables.h`` (flipped taps, non-zero
-ones only, as preprocessor lists) before ``nvcc`` runs, and ``csrc/surface_fit.cu`` includes
-that file.
+The kernels' tables are typed once, in Python, and reach the sources through two headers
+that are written into the build directory before ``nvcc`` runs. ``surface_fit_header()``
+writes the stencil tables of K1 from ``terrain/surfit.py`` as ``surface_fit_tables.h``
+(flipped taps, non-zero ones only, as preprocessor lists), which ``csrc/surface_fit.cu``
+includes. ``windowed_header()`` writes the attribute codes and the Jenness rugosity geometry
+of K2 from ``terrain/window.py`` as ``windowed_tables.h`` (each of the 16 half-lengths as one
+of four segment planes at an offset, and the eight triangles), which ``csrc/windowed.cu``
+includes.
 
 Each exported ``launch_*`` function takes device pointers, host pointers to small parameter
 tables and a CUDA stream, launches on that stream, allocates nothing and returns
@@ -55,13 +59,15 @@ _F = ctypes.c_float
 # cut a 64-bit pointer), scalars as c_int / c_float.
 SIGNATURES = {
     "launch_surface_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _F, _P),
-    "launch_windowed": (_P, _P, _I, _I, _I, _I, _I, _P, _F, _P, _P, _P, _P, _P),
+    "launch_windowed": (_P, _P, _I, _I, _I, _I, _I, _P, _F, _P),
     "launch_fractal": (_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P),
     "fractal_max_shared_window": (),
+    "windowed_max_shared_window": (),
 }
 
 
 TABLES_HEADER = "surface_fit_tables.h"
+WINDOWED_HEADER = "windowed_tables.h"
 
 
 def sources() -> list[Path]:
@@ -105,6 +111,59 @@ def surface_fit_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def windowed_header() -> str:
+    """Text of ``windowed_tables.h``, generated from the tables of ``terrain/window.py``.
+
+    Per attribute ``XDT_WIN_<NAME>`` is its code (its place in ``WINDOWED_ATTRS``).
+    ``XDT_RUG_SEGMENTS(S)`` lists ``S(i, plane, du, dv)`` for the 16 half-lengths of the
+    Jenness geometry in the order of ``RUGOSITY_CENTER_SEGS`` then ``RUGOSITY_EDGE_SEGS``:
+    half-length i is the entry of `plane` at offset (du, dv) from the window's top-left
+    corner, where an entry (r, c) of plane HH joins pixel (r, c) to (r, c + 1), of HV to
+    (r + 1, c), of D1 to (r + 1, c + 1), and of D2 joins (r, c + 1) to (r + 1, c). Segments
+    along a row or a column have the length factor 1; the diagonals share
+    ``XDT_RUG_DIAG_FACTOR``, the table's factor rounded to float32.
+    ``XDT_RUG_TRIANGLES(T)`` lists ``T(ia, ib, ic)``, the triangles of ``RUGOSITY_TRIS``.
+    Raises ValueError for a table that does not join neighbouring pixels of a 3 x 3 window
+    with these factors.
+    """
+    from xdem_tpu_torch.terrain import window
+
+    lines = ["// Generated from xdem_tpu_torch/terrain/window.py by xdem_tpu_torch/_build.py: do not edit.",
+             "#pragma once"]
+    lines += [f"#define XDT_WIN_{a.upper()} {code}" for code, a in enumerate(window.WINDOWED_ATTRS)]
+    lines.append(f"#define XDT_WIN_N_ATTRS {len(window.WINDOWED_ATTRS)}")
+    ends = [((1, 1), pos, f) for pos, f in window.RUGOSITY_CENTER_SEGS]
+    ends += [(p0, p1, 1.0) for p0, p1 in window.RUGOSITY_EDGE_SEGS]
+    planes = {(0, 1): "HH", (1, 0): "HV", (1, 1): "D1", (1, -1): "D2"}
+    segs, diag = [], set()
+    for i, (p, q, factor) in enumerate(ends):
+        (r0, c0), (r1, c1) = sorted((p, q))  # the upper end first
+        plane = planes.get((r1 - r0, c1 - c0))
+        if plane is None or not all(0 <= x <= 2 for x in (r0, c0, r1, c1)):
+            raise ValueError(f"Rugosity segment {i} ({p} to {q}) does not join neighbouring pixels of a 3 x 3 window.")
+        if plane.startswith("D"):
+            diag.add(factor)
+        elif factor != 1.0:
+            raise ValueError(f"Rugosity segment {i} ({p} to {q}) runs along the grid with a length factor of {factor}, not 1.")
+        segs.append(f"S({i}, {plane}, {r0}, {min(c0, c1)})")
+    if len(diag) != 1:
+        raise ValueError(f"The diagonal rugosity segments need one length factor, got {sorted(diag)}.")
+    n = len(ends)
+    for tri in window.RUGOSITY_TRIS:
+        if len(tri) != 3 or not all(0 <= t < n for t in tri):
+            raise ValueError(f"Rugosity triangle {tri} does not name three of the {n} half-lengths.")
+    lines.append(f"#define XDT_RUG_N_SEGMENTS {n}")
+    lines.append(f"#define XDT_RUG_DIAG_FACTOR {float(np.float32(diag.pop()))!r}f")
+    lines.append("#define XDT_RUG_SEGMENTS(S) " + " ".join(segs))
+    lines.append("#define XDT_RUG_TRIANGLES(T) " + " ".join(f"T({a}, {b}, {c})" for a, b, c in window.RUGOSITY_TRIS))
+    return "\n".join(lines) + "\n"
+
+
+def generated_headers() -> dict[str, str]:
+    """File name -> text of every header that is written into the build directory."""
+    return {TABLES_HEADER: surface_fit_header(), WINDOWED_HEADER: windowed_header()}
+
+
 def find_nvcc() -> str | None:
     """nvcc from $CUDA_HOME, /usr/local/cuda, or the PATH; None when there is none."""
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
@@ -118,7 +177,9 @@ def library_path() -> Path:
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(surface_fit_header().encode())
+    for name, text in generated_headers().items():
+        digest.update(name.encode())
+        digest.update(text.encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / digest.hexdigest()[:16] / LIB_NAME
 
@@ -146,9 +207,10 @@ def build() -> tuple[Path, float, str]:
         )
     lib.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
-    header = lib.with_name(f"{TABLES_HEADER}.{tag}")
-    header.write_text(surface_fit_header())
-    os.replace(header, lib.with_name(TABLES_HEADER))  # the same text from every process that builds this hash
+    for name, text in generated_headers().items():
+        header = lib.with_name(f"{name}.{tag}")
+        header.write_text(text)
+        os.replace(header, lib.with_name(name))  # the same text from every process that builds this hash
     tmp = lib.with_name(f"{LIB_NAME}.{tag}")
     cus = [s for s in sources() if s.suffix == ".cu"]
     objs = [lib.with_name(f"{s.stem}.{tag}.o") for s in cus]

@@ -23,8 +23,18 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
 }
 
-__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
-  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+// The same in one instruction each: PTX max.NaN and min.NaN (sm_80+) propagate NaN as
+// torch.maximum, torch.minimum and torch.clamp do.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // Stage the (sh, sw) patch whose top-left corner is raster pixel (r0 - halo, c0 - halo)
@@ -40,15 +50,7 @@ __device__ __forceinline__ void load_tile(float* tile, int sh, int sw,
   }
 }
 
-// Window accessors: z(u, v) is the value at offset (u, v) from a window's top-left corner.
-struct SharedView {
-  const float* tile;
-  int sw, ty, tx;
-  __device__ __forceinline__ float operator()(int u, int v) const {
-    return tile[(ty + u) * sw + tx + v];
-  }
-};
-
+// Window accessor: z(u, v) is the value at offset (u, v) from a window's top-left corner.
 // Used when a window's tile does not fit in shared memory: bounds-checked global reads.
 struct GlobalView {
   const float* __restrict__ src;

@@ -143,21 +143,8 @@ Plan make_plan(int w, int ty, int tx) {
   return p;
 }
 
-// torch.maximum and torch.clamp propagate NaN; so do PTX max.NaN and min.NaN, in one
-// instruction each (fmaxf and fminf return the non-NaN operand).
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float fmin_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// clip(x, 0, hi) with NaN kept: torch.clamp(x, 0.0, hi).
+// clip(x, 0, hi) with NaN kept: torch.clamp(x, 0.0, hi), by common.cuh's one-instruction
+// NaN-propagating max and min (fmaxf and fminf return the non-NaN operand).
 __device__ __forceinline__ float clamp_nan(float x, float hi) {
   return fmin_nan(fmax_nan(x, 0.f), hi);
 }

@@ -60,17 +60,36 @@ def _codes(attrs: tuple[str, ...], table: tuple[str, ...]) -> np.ndarray:
     return np.array([table.index(a) for a in attrs], dtype=np.int32)
 
 
-def surface_fit_plan(attrs: tuple[str, ...]) -> tuple[int, np.ndarray]:
-    """(mask, plane_of) of a request, as K1 takes them: bit ``a`` of ``mask`` is set where the
-    attribute with code ``a`` (its place in ``surfit.SURFACE_FIT_ATTRS``) is requested, and
+def _plan(attrs: tuple[str, ...], table: tuple[str, ...]) -> tuple[int, np.ndarray]:
+    """(mask, plane_of) of a request against a kernel's attribute table: bit ``a`` of ``mask`` is
+    set where the attribute with code ``a`` (its place in ``table``) is requested, and
     ``plane_of[a]`` is the index in ``attrs`` of the plane it is written to (its first mention;
     -1 where it is not requested)."""
-    plane_of = np.full(len(surfit.SURFACE_FIT_ATTRS), -1, dtype=np.int32)
-    for i, code in enumerate(_codes(tuple(attrs), surfit.SURFACE_FIT_ATTRS)):
+    plane_of = np.full(len(table), -1, dtype=np.int32)
+    for i, code in enumerate(_codes(tuple(attrs), table)):
         if plane_of[code] < 0:
             plane_of[code] = i
     mask = sum(1 << a for a in np.flatnonzero(plane_of >= 0))
     return int(mask), plane_of
+
+
+def surface_fit_plan(attrs: tuple[str, ...]) -> tuple[int, np.ndarray]:
+    """(mask, plane_of) of a request as K1 takes them, codes from ``surfit.SURFACE_FIT_ATTRS``."""
+    return _plan(attrs, surfit.SURFACE_FIT_ATTRS)
+
+
+def windowed_plan(attrs: tuple[str, ...]) -> tuple[int, np.ndarray]:
+    """(mask, plane_of) of a request as K2 takes them, codes from ``window.WINDOWED_ATTRS``."""
+    return _plan(attrs, window.WINDOWED_ATTRS)
+
+
+def _copy_repeats(out: torch.Tensor, attrs: tuple[str, ...]) -> torch.Tensor:
+    """An attribute named twice: the kernel wrote its first plane, the others are copies."""
+    for i, a in enumerate(attrs):
+        first = attrs.index(a)
+        if first != i:
+            out[i].copy_(out[first])
+    return out
 
 
 def surface_attributes(
@@ -115,17 +134,7 @@ def surface_attributes(
         len(roles), divisors.ctypes.data, mask, plane_of.ctypes.data, center.data_ptr(),
         sin_alt, cos_alt, azimuth, float(hillshade_z_factor),
     )
-    for i, a in enumerate(attrs):  # an attribute named twice: the kernel wrote its first plane
-        first = attrs.index(a)
-        if first != i:
-            out[i].copy_(out[first])
-    return out
-
-
-_RUG_SEG_C = np.array([pos for pos, _ in window.RUGOSITY_CENTER_SEGS], dtype=np.int32).ravel()
-_RUG_SEG_F = np.array([f for _, f in window.RUGOSITY_CENTER_SEGS], dtype=np.float32)
-_RUG_SEG_E = np.array([(*p0, *p1) for p0, p1 in window.RUGOSITY_EDGE_SEGS], dtype=np.int32).ravel()
-_RUG_TRI = np.array(window.RUGOSITY_TRIS, dtype=np.int32).ravel()
+    return _copy_repeats(out, attrs)
 
 
 def windowed_indexes(
@@ -135,7 +144,19 @@ def windowed_indexes(
     window_size: int = 3,
     tri_method: str = "Riley",
 ) -> torch.Tensor:
-    """K2: windowed indexes as a (len(attrs), H, W) stack; see window.windowed_indexes."""
+    """K2: windowed indexes as a (len(attrs), H, W) stack; see window.windowed_indexes.
+
+    The kernel takes any window_size >= 1, by one of three routes, all bit-equal to the plain
+    version (NaN masks included): the 3 x 3 window (the default, and the only one with
+    rugosity) as compile-time instances that compute the half-lengths of the Jenness geometry
+    once per tile in shared memory; any other window up to the last one whose tile fits in
+    shared memory (``_build.load().windowed_max_shared_window()``), four pixels per thread; larger
+    windows by bounds-checked global reads, one pixel per thread. The request reaches the kernel
+    as a bit mask and a plane per attribute (``windowed_plan``), in any order; an attribute named
+    twice is computed once and copied. The rugosity geometry and the attribute codes reach the
+    kernel through ``windowed_tables.h``, which ``_build.windowed_header()`` writes from
+    ``window.py``. The source note of ``csrc/windowed.cu`` gives the design.
+    """
     if not _on_card(dem):
         return window.windowed_indexes(dem, resolution, attrs, window_size, tri_method)
     w = int(window_size)
@@ -143,15 +164,16 @@ def windowed_indexes(
         raise ValueError(f"window_size must be positive, got {window_size}.")
     if "rugosity" in attrs and w != 3:
         raise ValueError("Rugosity is only defined on a 3x3 window.")
-    codes = _codes(tuple(attrs), window.WINDOWED_ATTRS)
+    attrs = tuple(attrs)
+    mask, plane_of = windowed_plan(attrs)
     out = torch.empty((len(attrs), *dem.shape), dtype=torch.float32, device=dem.device)
     if dem.numel() == 0:
         return out
-    return _launch(
+    _launch(
         "windowed", _build.load().launch_windowed, dem, out,
-        w, int(tri_method.lower() == "riley"), len(codes), codes.ctypes.data, float(resolution),
-        _RUG_SEG_C.ctypes.data, _RUG_SEG_F.ctypes.data, _RUG_SEG_E.ctypes.data, _RUG_TRI.ctypes.data,
+        w, int(tri_method.lower() == "riley"), mask, plane_of.ctypes.data, float(resolution),
     )
+    return _copy_repeats(out, attrs)
 
 
 def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
