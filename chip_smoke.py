@@ -47,6 +47,22 @@ Phases:
      and a saved and loaded copy applies to the same bits. On a 1024^2 crop each method fits
      on the card and the CPU from one draw: matrices within 1e-4, tier-3 applies within 1e-3 m
      with identical NaN masks. Fit, apply and host-draw times are printed.
+  7. volume change and the rest of the statistics at 10 000 x 10 000 on phase 4's DEM, a dDEM
+     that is VOLUME_LAW of elevation plus 0.5 m of noise with 10 % voids, and 36 labelled
+     glacier blocks: hypsometric_binning (fixed, count and quantile bins) must recover the law
+     and count every valid pixel, the regional signal must count every valid glacier pixel, and
+     the volume change from the interpolated bins and their areas must equal the law summed
+     over the raster within 1 %. get_terrain_attribute(slope, texture_shading) must launch K1
+     once and answer both; texture shading also runs at a padded size (4000 x 5003 -> 4000 x
+     5040) against a float64 transform. patches_method over three areas (kernels of 10, 32
+     and 100 pixels) must give the noise's standard error sigma / sqrt(valid pixels per
+     patch) within 10 %; the Genton variogram on the raster and the four point, disk and ring
+     subsamples on a 2048^2 crop must give the noise's variance within 15 % over the bins' median. On a 1024^2 crop
+     the card is held against the CPU (hypsometric and regional counts identical, values 1e-4
+     of their mean magnitude, medians 1e-5, std 1e-4; texture shading 1e-3 with identical NaN
+     masks; patches 1e-4; Genton counts identical, gamma 1e-5) and the convolutions against
+     scipy.ndimage in float64 (1e-5 of the mean magnitude, counts exact), with cuDNN's
+     float32 precision flags read before and after. Times are printed.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -71,6 +87,11 @@ SUITE = ("slope", "aspect", "hillshade", "profile_curvature", "tangential_curvat
          "fractal_roughness")
 UNC_CROP = 1024  # side of the card-against-CPU crop of phase 5
 COREG_CROP = 1024  # side of the card-against-CPU crop of phase 6
+VOLUME_CROP = 1024  # side of the card-against-CPU crop of phase 7
+VOLUME_LAW = (-12.0, 0.01)  # phase 7's dDEM: dh = a + b * elevation (m), plus noise
+VOLUME_NOISE = 0.5  # standard deviation of that noise (m)
+VOLUME_VOIDS = 0.1  # share of the dDEM's pixels that are NaN
+PATCH_KERNELS = (10, 32, 100)  # diameters in pixels of phase 7's circular patches
 RIGID_TRUTH = (20, 5, 0.1, 0.1, 0.05, 0.01)  # tx, ty, tz (m), rotations about x, y, z (deg) of phase 6
 UNC_HETERO_PICKS = 5_000_000  # estimate_uncertainty's heteroscedasticity sample
 UNC_PAIRS = 100 * 224 * (11 * 224)  # runs x samples x (nb_rings + 1) * samples at subsample 10 000
@@ -883,6 +904,250 @@ def phase_coreg(dev, n: int) -> dict:
     return out
 
 
+def _cudnn_flags() -> dict:
+    """cuDNN's float32 precision switches as this torch build names them."""
+    import torch
+
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        flags["cudnn.conv.fp32_precision"] = conv.fp32_precision
+    return flags
+
+
+def volume_inputs(dev, n: int, seed: int = 0):
+    """Phase 7's rasters on `dev`: the main path's DEM, the noise field with its voids (NaN), the
+    dDEM (VOLUME_LAW of elevation plus that noise) and the glacier index map: a 6 x 6 grid of
+    labelled blocks, each 90 % of a cell wide, 0 between them."""
+    import torch
+
+    dem = spectral_dem(n, seed, device=dev)[0].float().contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    noise = VOLUME_NOISE * torch.randn((n, n), generator=gen, device=dev)
+    noise = torch.where(torch.rand((n, n), generator=gen, device=dev) < VOLUME_VOIDS, torch.nan, noise)
+    dh = VOLUME_LAW[0] + VOLUME_LAW[1] * dem + noise
+    cell = n // 6
+    idx = torch.arange(n, device=dev)
+    block = torch.div(idx, cell, rounding_mode="floor")
+    inside = (idx % cell >= cell // 20) & (idx % cell < cell - cell // 20) & (block < 6)
+    gid = torch.where(inside[:, None] & inside[None, :], block[:, None] * 6 + block[None, :] + 1, 0)
+    return dem, noise, dh, gid
+
+
+def phase_volume(dev, n: int) -> dict:
+    """Volume change, texture shading, the patches method, the Genton estimator and the point
+    subsamples at n x n, their checks, and the card against the CPU on a crop."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import terrain, volume
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import freq
+
+    out: dict = {}
+    (dem, noise, dh, gid), t_make = _synced(lambda: volume_inputs(dev, n))
+    print(f"  DEM, dDEM and index map {n}x{n} made on the card in {t_make:.2f} s")
+    a, b = VOLUME_LAW
+    valid = torch.isfinite(dh)
+    n_valid = int(valid.sum())
+    ck.reset_launch_counts()
+
+    # 1. Hypsometric bins, the regional signal, and a volume change from the tables.
+    bins, t_first = _synced(lambda: volume.hypsometric_binning(dh, dem, bins=50.0))
+    bins, t_steady = _synced(lambda: volume.hypsometric_binning(dh, dem, bins=50.0))
+    mids = 0.5 * (bins["bin_left"] + bins["bin_right"])
+    full = bins["count"] >= n * n // 1000
+    full[[0, -1]] = False
+    dev_law = float(np.abs(bins["value"] - (a + b * mids))[full].max())
+    print(f"  hypsometric_binning, {len(mids)} bins of 50 m: first {t_first:.3f} s, steady {t_steady:.3f} s; "
+          f"{int(bins['count'].sum())} of {n_valid} valid pixels binned; {int(full.sum())} populated interior bins follow "
+          f"dh = {a} + {b} z to {dev_law:.4f} m")
+    check(int(bins["count"].sum()) == n_valid, f"the fixed bins hold {int(bins['count'].sum())} pixels, not {n_valid}")
+    check(int(full.sum()) >= 10 and dev_law <= 0.15, f"bin medians depart from the law by {dev_law:.4f} m")
+    by_count, t_count = _synced(lambda: volume.hypsometric_binning(dh, dem, bins=20, kind="count"))
+    by_quant, t_quant = _synced(lambda: volume.hypsometric_binning(dh, dem, bins=20, kind="quantile"))
+    spread = float(by_quant["count"].max() / by_quant["count"].min())
+    print(f"  kind='count' (20 bins) {t_count:.3f} s, {int(by_count['count'].sum())} pixels; kind='quantile' (20 bins) "
+          f"{t_quant:.3f} s, {int(by_quant['count'].sum())} pixels, largest over smallest bin {spread:.4f}")
+    # Both kinds close their last bin 1e-6 or less above the highest pixel, which float32 edges
+    # round away (as in xdem_tpu): the pixels at the maximum elevation fall outside.
+    check(all(0 <= n_valid - int(t["count"].sum()) <= 2 for t in (by_count, by_quant)),
+          "the count or quantile bins lose more than the pixels at the maximum elevation")
+    check(len(by_quant["count"]) == 20 and spread <= 1.05, f"quantile bins are uneven: {spread:.4f}")
+    signal, t_sig_first = _synced(lambda: volume.get_regional_hypsometric_signal(dh, dem, gid))
+    signal, t_sig = _synced(lambda: volume.get_regional_hypsometric_signal(dh, dem, gid))
+    in_glaciers = int((valid & (gid > 0)).sum())
+    med = signal["median"]
+    print(f"  get_regional_hypsometric_signal, 36 glaciers, 20 bins: first {t_sig_first:.3f} s, steady {t_sig:.3f} s; "
+          f"{int(signal['count'].sum())} of {in_glaciers} valid glacier pixels; median from {med[0]:.4f} (top) to "
+          f"{med[-1]:.4f} (bottom), std {np.nanmean(signal['std']):.4f}")
+    check(int(signal["count"].sum()) == in_glaciers, "the regional signal does not count every valid glacier pixel")
+    check(bool(np.isfinite(med).all()) and med[0] > med[-1] and bool(np.all(np.abs(med) <= 1)),
+          "the regional signal is not a finite normalized curve that rises with elevation")
+    (filled, area), t_tables = _synced(lambda: (volume.interpolate_hypsometric_bins(bins),
+                                               volume.calculate_hypsometry_area(bins, dem, pixel_size=RES)))
+    dv = float(np.nansum(filled["value"] * area["area"]))
+    dv_law = float((a + b * dem.double()).sum()) * RES * RES
+    print(f"  interpolate_hypsometric_bins + calculate_hypsometry_area (host) {t_tables:.3f} s; area {area['area'].sum():.6g} m2; "
+          f"volume change {dv:.6g} m3 against the law's {dv_law:.6g} m3 ({abs(dv / dv_law - 1):.3e} relative)")
+    check(float(area["area"].sum()) == n * n * RES * RES, "the bins' areas do not sum to the raster's area")
+    check(bool(np.isfinite(filled["value"][bins["count"] > 0]).all()) and abs(dv / dv_law - 1) <= 1e-2,
+          f"volume change {dv:.6g} m3 departs from {dv_law:.6g} m3")
+    out["hypsometric"] = {"first_s": t_first, "steady_s": t_steady, "count_s": t_count, "quantile_s": t_quant,
+                          "law_dev_m": dev_law, "regional_first_s": t_sig_first, "regional_s": t_sig,
+                          "tables_s": t_tables, "dv_m3": dv, "dv_rel": abs(dv / dv_law - 1)}
+    del by_count, by_quant, valid
+    torch.cuda.empty_cache()
+
+    # 2. Slope (K1) and texture shading from one call, and texture shading at a padded size.
+    before = ck.LAUNCHES["surface_fit"]
+    (slope, tex), t_attr_first = _synced(lambda: terrain.get_terrain_attribute(dem, ["slope", "texture_shading"], resolution=RES))
+    k1_launches = ck.LAUNCHES["surface_fit"] - before
+    out["launches"] = dict(ck.LAUNCHES)  # of the path's first pass, up to and including this call
+    _, t_attr = _synced(lambda: terrain.get_terrain_attribute(dem, ["slope", "texture_shading"], resolution=RES))
+    _, t_tex = _synced(lambda: terrain.texture_shading(dem))
+    check(k1_launches == 1, f"K1 launched {k1_launches} times for the slope of phase 7, not once")
+    check(tuple(tex.shape) == (n, n) and tex.is_cuda and bool(torch.isfinite(tex).all()), "texture shading is not finite over the DEM")
+    check(float(torch.isfinite(slope[8:-8, 8:-8]).float().mean()) > 0.999, "slope is not finite over the interior")
+    print(f"  get_terrain_attribute(slope, texture_shading) {n}x{n}: first {t_attr_first:.3f} s, steady {t_attr * 1e3:.2f} ms "
+          f"(K1 launches {k1_launches}); texture shading alone {t_tex * 1e3:.2f} ms, mean |t| {float(tex.abs().mean()):.5f}")
+    del slope, tex
+    ph, pw = (4000, 5003) if n >= 5003 else (n // 2, n // 2 + 3)
+    padded = dem[:ph, :pw].contiguous()
+    fr, fc = freq.next_fast_fft_size(ph), freq.next_fast_fft_size(pw)
+    tex_p, t_pad_first = _synced(lambda: terrain.texture_shading(padded))
+    tex_p, t_pad = _synced(lambda: terrain.texture_shading(padded))
+    rel64, _, same = scaled_dev(tex_p, freq._texture_core(padded.double(), 0.8, fr, fc).float())
+    print(f"  texture shading {ph} x {pw} padded to {fr} x {fc}: first {t_pad_first * 1e3:.2f} ms, steady {t_pad * 1e3:.2f} ms; against the float64 transform "
+          f"{rel64:.3e} of the mean magnitude")
+    check((fr, fc) != (ph, pw) and same and tuple(tex_p.shape) == (ph, pw) and rel64 <= TOL,
+          f"padded texture shading departs from float64 by {rel64:.3e}")
+    out["texture"] = {"attr_first_s": t_attr_first, "attr_ms": t_attr * 1e3, "alone_ms": t_tex * 1e3,
+                      "padded_first_ms": t_pad_first * 1e3, "padded_ms": t_pad * 1e3, "padded_vs_f64": rel64, "k1_launches": k1_launches}
+    del tex_p, padded
+    torch.cuda.empty_cache()
+
+    # 3. The patches method on the noise, and the mean filter alone at the largest kernel.
+    areas = [math.pi * (k * RES / 2) ** 2 for k in PATCH_KERNELS]
+    patches, t_patch_first = _synced(lambda: ss.patches_method(noise, areas=areas, gsd=RES))
+    patches, t_patch = _synced(lambda: ss.patches_method(noise, areas=areas, gsd=RES))
+    expect = VOLUME_NOISE / np.sqrt((1 - VOLUME_VOIDS) * patches["exact_areas"] / RES**2)
+    ratio = patches["nmad"] / expect
+    print(f"  patches_method, kernels {PATCH_KERNELS} px: first {t_patch_first:.3f} s, steady {t_patch:.3f} s; NMAD of patch "
+          f"means {[round(float(v), 6) for v in patches['nmad']]} m, {[round(float(v), 4) for v in ratio]} of "
+          f"sigma / sqrt(valid pixels); independent patches {[round(float(v), 1) for v in patches['nb_indep_patches']]}")
+    check(bool(np.all(np.abs(ratio - 1) <= 0.1)), f"patch spreads are {ratio} of the noise's standard error")
+    (mean, cnts, nb), t_filter = _synced(lambda: ss.mean_filter_nan(noise, PATCH_KERNELS[-1]))
+    print(f"  mean_filter_nan, {PATCH_KERNELS[-1]} px circular kernel ({nb} pixels): {t_filter:.3f} s")
+    check(mean.is_cuda and float(cnts.max()) <= nb and float(cnts[n // 2, n // 2]) > 0.8 * nb, "mean filter counts are off")
+    out["patches"] = {"first_s": t_patch_first, "steady_s": t_patch, "mean_filter_s": t_filter,
+                      "nmad": [float(v) for v in patches["nmad"]], "ratio": [float(v) for v in ratio]}
+    del mean, cnts
+    torch.cuda.empty_cache()
+
+    # 4. Genton on the raster, and the point, disk and ring subsamples on a crop.
+    var = VOLUME_NOISE**2
+
+    def flat_variogram(label, table, min_count, tol_median, tol_worst):
+        """White noise has a flat variogram at its variance: the relative departure of the bins
+        with at least `min_count` pairs, as (of their median, of the worst bin), each held."""
+        ok = table["count"] >= min_count
+        ratio = table["exp"][ok] / var
+        mid, worst = (abs(float(np.median(ratio)) - 1), float(np.abs(ratio - 1).max())) if ok.any() else (math.inf,) * 2
+        check(int(ok.sum()) >= 3 and mid <= tol_median and worst <= tol_worst,
+              f"{label}: gamma over the noise's variance departs from 1 by {mid:.3f} (median) and {worst:.3f} (worst bin)")
+        return mid, worst
+
+    emp, t_genton = _synced(lambda: ss.sample_empirical_variogram(noise, gsd=RES, estimator="genton", random_state=42))
+    # A thousand-odd sampled points carry the variance to about 5 %, and every bin shares them;
+    # the Qn of at most 400 pairs that share points spreads by about a tenth a bin besides.
+    mid, worst = flat_variogram("Genton", emp, 400, 0.15, 0.5)
+    print(f"  sample_empirical_variogram(estimator='genton') {n}x{n}: {t_genton:.3f} s, {int(emp['count'].sum())} pairs in "
+          f"{len(emp['count'])} bins, gamma / {var}: median within {mid:.3f} of 1, worst bin {worst:.3f}")
+    out["variogram"] = {"genton_s": t_genton}
+    sub = noise[:min(n, 2048), :min(n, 2048)].contiguous()
+    for method in ("cdist_point", "pdist_point", "pdist_disk", "pdist_ring"):
+        emp, secs = _synced(lambda: ss.sample_empirical_variogram(sub, gsd=RES, subsample_method=method, random_state=42))
+        mid, worst = flat_variogram(method, emp, 5000, 0.15, 0.3)
+        print(f"  subsample_method='{method}' on {sub.shape[0]}^2: {secs:.3f} s, {int(emp['count'].sum())} pairs, Dowd gamma "
+              f"/ {var}: median within {mid:.3f} of 1, worst bin {worst:.3f}")
+        out["variogram"][method + "_s"] = secs
+    check(ck.LAUNCHES["windowed"] == 0 and ck.LAUNCHES["fractal"] == 0, f"phase 7 launched {dict(ck.LAUNCHES)}")
+
+    # 5. Card against CPU on a crop, and the convolutions against scipy.ndimage in float64.
+    k, c0 = min(VOLUME_CROP, n // 2), (n - min(VOLUME_CROP, n // 2)) // 2
+    crops = [x[c0:c0 + k, c0:c0 + k].contiguous() for x in (dem, noise, dh)]
+    crops[0][100:110, 200:230] = float("nan")
+    cell = k // 3
+    gid_c = (torch.arange(k, device=dev)[:, None] // cell * 3 + torch.arange(k, device=dev)[None, :] // cell + 1)
+    gid_c[:, ::cell] = 0
+    flags = _cudnn_flags()
+    on = []
+    undo = _replay(ss, "_draw_rings_from_arr")
+    try:
+        for d in (dev, torch.device("cpu")):
+            dem_d, noise_d, dh_d = (x.to(d) for x in crops)
+            on.append({
+                "bins": volume.hypsometric_binning(dh_d, dem_d, bins=50.0),
+                "signal": volume.get_regional_hypsometric_signal(dh_d, dem_d, gid_c.to(d)),
+                "texture": terrain.texture_shading(dem_d).cpu(),
+                "patches": ss.patches_method(noise_d, areas=areas[:2], gsd=RES),
+                "genton": ss.sample_empirical_variogram(noise_d, gsd=RES, estimator="genton", random_state=42),
+                "mean": [x.cpu() for x in ss.mean_filter_nan(noise_d, 32)[:2]],
+                "conv": ss.convolution(dem_d[None], np.random.default_rng(3).normal(size=(2, 5, 4))).cpu(),
+            })
+    finally:
+        undo()
+    gpu, cpu = on
+
+    def rel(got, want):
+        ok = np.isfinite(want)
+        return float(np.abs(np.asarray(got, np.float64) - want)[ok].max() / np.abs(want[ok]).mean())
+
+    same_nan = np.array_equal(np.isnan(gpu["bins"]["value"]), np.isnan(cpu["bins"]["value"]))
+    d_bins = rel(gpu["bins"]["value"], cpu["bins"]["value"])
+    check(np.array_equal(gpu["bins"]["count"], cpu["bins"]["count"]) and same_nan and d_bins <= 1e-4,
+          f"hypsometric bins card vs CPU: {d_bins:.3e}")
+    d_med = float(np.nanmax(np.abs(gpu["signal"]["median"] - cpu["signal"]["median"])))
+    d_std = float(np.nanmax(np.abs(gpu["signal"]["std"] - cpu["signal"]["std"])))
+    check(np.array_equal(gpu["signal"]["count"], cpu["signal"]["count"]) and d_med <= 1e-5 and d_std <= 1e-4,
+          f"regional signal card vs CPU: median {d_med:.3e}, std {d_std:.3e}")
+    d_tex, _, same_tex = scaled_dev(gpu["texture"], cpu["texture"])
+    fk = freq.next_fast_fft_size(k)
+    d_tex64, _, _ = scaled_dev(gpu["texture"], freq._texture_core(crops[0].double(), 0.8, fk, fk).float().cpu())
+    check(same_tex and d_tex <= TOL and int(torch.isnan(gpu["texture"]).sum()) == 300, f"texture shading card vs CPU: {d_tex:.3e}")
+    d_patch = float(np.abs(gpu["patches"]["nmad"] / cpu["patches"]["nmad"] - 1).max())
+    check(d_patch <= 1e-4 and all(np.array_equal(gpu["patches"][c], cpu["patches"][c]) for c in ("nb_indep_patches", "exact_areas")),
+          f"patches card vs CPU: {d_patch:.3e}")
+    d_gen = rel(gpu["genton"]["exp"], cpu["genton"]["exp"])
+    check(np.array_equal(gpu["genton"]["count"], cpu["genton"]["count"]) and d_gen <= 1e-5, f"Genton card vs CPU: {d_gen:.3e}")
+    noise_h = crops[1].cpu().numpy().astype(np.float64)
+    ok_h = np.isfinite(noise_h)
+    kernel = ss._mean_filter_kernel(32, "circular").astype(np.float64)
+    cnt64 = ndimage.convolve(ok_h.astype(np.float64), kernel, mode="constant", cval=0.0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean64 = ndimage.convolve(np.where(ok_h, noise_h, 0.0), kernel, mode="constant", cval=0.0) / cnt64
+    d_mean = rel(gpu["mean"][0].numpy(), mean64)
+    check(np.array_equal(gpu["mean"][1].numpy(), cnt64) and d_mean <= 1e-5, f"mean_filter_nan against scipy in float64: {d_mean:.3e}")
+    dem_h = crops[0].cpu().numpy().astype(np.float64)
+    conv64 = np.stack([ndimage.convolve(dem_h, kern, mode="constant", cval=0.0)
+                       for kern in np.random.default_rng(3).normal(size=(2, 5, 4))])
+    d_conv = rel(gpu["conv"][0].numpy(), conv64)
+    check(np.array_equal(np.isnan(gpu["conv"][0].numpy()), np.isnan(conv64)) and d_conv <= 1e-5,
+          f"convolution against scipy in float64: {d_conv:.3e}")
+    check(_cudnn_flags() == flags, f"cuDNN's precision flags changed: {flags} -> {_cudnn_flags()}")
+    print(f"  card vs CPU on {k}^2: hypsometric counts identical, values {d_bins:.3e} of their mean; regional counts identical, "
+          f"median {d_med:.3e}, std {d_std:.3e}; texture shading {d_tex:.3e} of its mean (NaN masks identical; {d_tex64:.3e} "
+          f"against float64); patches {d_patch:.3e}; Genton counts identical, gamma {d_gen:.3e}")
+    print(f"  against scipy.ndimage in float64 on {k}^2: mean_filter_nan {d_mean:.3e} of the mean magnitude with exact counts, "
+          f"convolution (5 x 4 kernels) {d_conv:.3e}; cuDNN flags before and after: {flags}")
+    out["crop"] = {"bins": d_bins, "median": d_med, "std": d_std, "texture": d_tex, "texture_vs_f64": d_tex64,
+                   "patches": d_patch, "genton": d_gen, "mean_filter_vs_scipy": d_mean, "convolution_vs_scipy": d_conv}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -895,7 +1160,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/6] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/7] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
     print(card)
@@ -904,7 +1169,7 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/6] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/7] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -916,19 +1181,23 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/6] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/7] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/6] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/7] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/6] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/7] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/6] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/7] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
+    torch.cuda.empty_cache()
+
+    print(f"[7/7] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    vol = phase_volume(dev, MAIN_SIZE)
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
@@ -938,7 +1207,7 @@ def main() -> int:
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
-        "uncertainty": unc, "coreg": cor}
+        "uncertainty": unc, "coreg": cor, "volume": vol}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -114,6 +114,23 @@ def test_interp_rowcol_matches_jax(method):
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("method", ["nearest", "linear", "cubic"])
+def test_interp_points_matches_jax(method):
+    """World coordinates through the inverse transform, then interp_rowcol: float32, 1e-5 of
+    the data's magnitude; points outside the grid are NaN in both."""
+    rng = np.random.default_rng(2)
+    data = rng.normal(100.0, 10.0, (30, 40)).astype(np.float32)
+    transform = (20.0, 0.0, 5e5, 0.0, -20.0, 8e6)
+    x = (5e5 + rng.uniform(-30, 830, 200)).astype(np.float32)
+    y = (8e6 - rng.uniform(-30, 630, 200)).astype(np.float32)
+    want = np.asarray(jinterp.interp_points(jnp.asarray(data), transform, jnp.asarray(x), jnp.asarray(y), method=method))
+    got = to_np(interp.interp_points(torch.from_numpy(data), transform, torch.from_numpy(x), torch.from_numpy(y), method))
+    assert np.array_equal(np.isnan(got), np.isnan(want)) and np.isnan(got).any() and np.isfinite(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * 100.0, equal_nan=True)
+    from xdem_tpu_torch import ops
+    assert ops.interp_points is interp.interp_points
+
+
 def test_grid_coords_match_jax():
     t = JAX_TRANSFORM
     want = jinterp.grid_coords((7, 9), t)

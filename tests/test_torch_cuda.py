@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card,
-and the uncertainty path's device functions on the card against the CPU.
+the uncertainty path's device functions on the card against the CPU, and the volume, texture
+shading, convolution, patches and Genton paths on the card against the CPU at 512^2.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -407,3 +408,137 @@ def test_bias_pipeline_on_the_card_launches_k1(cuda_device):
     out, _ = pipe.fit_and_apply(dem, tba, transform=Affine.from_origin(0, 0, 20, 20), random_state=2)
     assert out.is_cuda and ck.LAUNCHES["surface_fit"] >= 2
     assert float(torch.nanmean((dem - out) ** 2)) < 0.1 * float(torch.nanmean((dem - tba) ** 2))
+
+
+# ---------------------------------------------------------------------- volume, texture, patches, Genton
+
+
+def _volume_rasters(device, n=512, seed=0):
+    """An elevation field, white noise with 10 % voids, and dh = -12 + 0.01 z + noise."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, n)).cumsum(0).cumsum(1)
+    z = ((z - z.min()) / (z.max() - z.min()) * 1000.0).astype(np.float32)
+    noise = rng.normal(0.0, 0.5, (n, n)).astype(np.float32)
+    noise[rng.random((n, n)) < 0.1] = np.nan
+    dh = (-12.0 + 0.01 * z + noise).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (z, noise, dh))
+
+
+@pytest.mark.parametrize("kind,bins", [("fixed", 50.0), ("count", 20), ("quantile", 20)])
+def test_hypsometric_binning_on_the_card_matches_the_cpu(cuda_device, kind, bins):
+    """Counts and NaN pattern identical, values within 1e-4 of their mean magnitude."""
+    from xdem_tpu_torch import volume
+
+    z, _noise, dh = _volume_rasters(cuda_device)
+    z[40:50, 60:90] = float("nan")
+    got = volume.hypsometric_binning(dh, z, bins=bins, kind=kind)
+    want = volume.hypsometric_binning(dh.cpu(), z.cpu(), bins=bins, kind=kind)
+    np.testing.assert_array_equal(got["count"], want["count"])
+    np.testing.assert_array_equal(got["bin_left"], want["bin_left"])
+    assert np.array_equal(np.isnan(got["value"]), np.isnan(want["value"]))
+    ok = np.isfinite(want["value"])
+    assert np.abs(got["value"] - want["value"])[ok].max() <= 1e-4 * np.abs(want["value"][ok]).mean()
+
+
+def test_regional_signal_on_the_card_matches_the_cpu(cuda_device):
+    """Counts identical, median 1e-5, std 1e-4 (absolute, on a normalized signal)."""
+    from xdem_tpu_torch import volume
+
+    z, _noise, dh = _volume_rasters(cuda_device)
+    idx = torch.arange(512, device=cuda_device)
+    gid = (idx[:, None] // 128) * 4 + idx[None, :] // 128 + 1
+    gid[:, ::128] = 0
+    got = volume.get_regional_hypsometric_signal(dh, z, gid)
+    want = volume.get_regional_hypsometric_signal(dh.cpu(), z.cpu(), gid.cpu())
+    np.testing.assert_array_equal(got["count"], want["count"])
+    np.testing.assert_allclose(got["median"], want["median"], atol=1e-5, equal_nan=True)
+    np.testing.assert_allclose(got["std"], want["std"], atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (300, 1100)], ids=["no-pad", "padded"])
+def test_texture_shading_on_the_card_matches_the_cpu(cuda_device, shape):
+    """Within 1e-3 of the mean magnitude with an identical NaN mask, and K1 once for the slope
+    asked for beside it."""
+    z = _dem(cuda_device, shape=shape, holes=False)
+    z[40:47, 60:75] = float("nan")
+    ck.reset_launch_counts()
+    slope, tex = terrain.get_terrain_attribute(z, ["slope", "texture_shading"], resolution=20.0)
+    assert ck.LAUNCHES["surface_fit"] == 1 and tex.is_cuda and slope.is_cuda
+    want = terrain.texture_shading(z.cpu())
+    assert_same_nan(tex.cpu(), want, "texture_shading")
+    assert scaled_dev(tex.cpu(), want) <= 1e-3
+
+
+def _cudnn_flags():
+    flags = {"allow_tf32": torch.backends.cudnn.allow_tf32}
+    conv = getattr(torch.backends.cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        flags["conv.fp32_precision"] = conv.fp32_precision
+    return flags
+
+
+def test_convolutions_on_the_card_match_scipy_in_float64(cuda_device):
+    """convolution and mean_filter_nan on the card against scipy.ndimage.convolve in float64:
+    1e-5 of the mean magnitude, NaN footprints and counts exact, whatever cuDNN's float32
+    precision flags say (they are left as found: the port calls no library convolution)."""
+    from scipy import ndimage
+
+    import xdem_tpu_torch.spatialstats as ss
+
+    z, noise, _dh = _volume_rasters(cuda_device)
+    z[40:44, 60:65] = float("nan")
+    flags = _cudnn_flags()
+    kernels = np.random.default_rng(3).normal(size=(2, 5, 4))
+    got = ss.convolution(z[None], kernels)[0].cpu().numpy()
+    mean, cnts, nb = ss.mean_filter_nan(noise, 32)
+    assert _cudnn_flags() == flags
+    z64 = z.cpu().numpy().astype(np.float64)
+    for g, kern in zip(got, kernels):
+        want = ndimage.convolve(z64, kern, mode="constant", cval=0.0)
+        assert np.array_equal(np.isnan(g), np.isnan(want))
+        ok = np.isfinite(want)
+        assert np.abs(g - want)[ok].max() <= 1e-5 * np.abs(want[ok]).mean()
+    n64 = noise.cpu().numpy().astype(np.float64)
+    ok = np.isfinite(n64)
+    kernel = ss._mean_filter_kernel(32, "circular").astype(np.float64)
+    assert nb == int(kernel.sum())
+    cnt64 = ndimage.convolve(ok.astype(np.float64), kernel, mode="constant", cval=0.0)
+    mean64 = ndimage.convolve(np.where(ok, n64, 0.0), kernel, mode="constant", cval=0.0) / np.maximum(cnt64, 1)
+    np.testing.assert_array_equal(cnts.cpu().numpy(), cnt64)
+    has = cnt64 > 0
+    assert np.abs(mean.cpu().numpy() - mean64)[has].max() <= 1e-5 * np.abs(mean64[has]).mean()
+
+
+def test_patches_method_on_the_card_matches_the_cpu(cuda_device):
+    """Statistic within 1e-4 relative; nb_indep_patches and exact_areas identical."""
+    import xdem_tpu_torch.spatialstats as ss
+
+    _z, noise, _dh = _volume_rasters(cuda_device)
+    areas = [math.pi * (k * 10.0) ** 2 for k in (6, 20)]
+    got = ss.patches_method(noise, areas=areas, gsd=20.0)
+    want = ss.patches_method(noise.cpu(), areas=areas, gsd=20.0)
+    np.testing.assert_allclose(got["nmad"], want["nmad"], rtol=1e-4)
+    np.testing.assert_array_equal(got["nb_indep_patches"], want["nb_indep_patches"])
+    np.testing.assert_array_equal(got["exact_areas"], want["exact_areas"])
+
+
+@pytest.mark.parametrize("method", ["cdist_equidistant", "cdist_point", "pdist_point", "pdist_disk", "pdist_ring"])
+def test_genton_on_the_card_matches_the_cpu(cuda_device, monkeypatch, method):
+    """From one ring draw (the point methods draw with numpy): counts identical, gamma 1e-5."""
+    import xdem_tpu_torch.spatialstats as ss
+
+    _z, noise, _dh = _volume_rasters(cuda_device)
+    drawn = []
+    orig = ss._draw_rings_from_arr
+
+    def replay(seed, arr, *args):
+        if not drawn:
+            drawn.append(orig(seed, arr, *args))
+        return tuple(t.to(arr.device) for t in drawn[0])
+
+    monkeypatch.setattr(ss, "_draw_rings_from_arr", replay)
+    kw = dict(gsd=20.0, subsample=400, estimator="genton", subsample_method=method, random_state=7)
+    got = ss.sample_empirical_variogram(noise, **kw)
+    want = ss.sample_empirical_variogram(noise.cpu(), **kw)
+    np.testing.assert_array_equal(got["count"], want["count"])
+    np.testing.assert_allclose(got["exp"], want["exp"], rtol=1e-5, equal_nan=True)

@@ -33,7 +33,8 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
         "import sys; import xdem_tpu_torch, xdem_tpu_torch.terrain, xdem_tpu_torch.coreg, "
         "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels, xdem_tpu_torch.spatialstats, "
         "xdem_tpu_torch.uncertainty, xdem_tpu_torch.fit, xdem_tpu_torch.coreg.biascorr, "
-        "xdem_tpu_torch.coreg.filters, xdem_tpu_torch.coreg.blockwise; "
+        "xdem_tpu_torch.coreg.filters, xdem_tpu_torch.coreg.blockwise, xdem_tpu_torch.volume, "
+        "xdem_tpu_torch.terrain.freq; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -47,6 +48,15 @@ def test_sources_never_import_jax_or_xdem_tpu():
     # _build/ holds build outputs (git-ignored), not sources.
     files = [f for f in PKG.rglob("*.py") if "_build" not in f.relative_to(PKG).parts]
     files.append(PKG.parent / "chip_smoke.py")
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_sources_call_no_library_convolution():
+    """On an H100 cuDNN's float32 convolutions run in TF32 unless told otherwise: the port's
+    convolutions sum shifted slices of float64 prefix sums and call none (nor torch.compile)."""
+    pattern = re.compile(r"\b(conv[123]d|conv_transpose[123]d|torch\.compile)\s*\(")
+    files = [f for f in PKG.rglob("*.py") if "_build" not in f.relative_to(PKG).parts]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 
@@ -99,6 +109,76 @@ def test_coreg_path_runs_without_pandas_or_sklearn():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(PKG.parent), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_volume_texture_and_patches_run_without_pandas():
+    """The volume functions, texture shading, the convolutions, the patches method, the Genton
+    estimator and a point subsample import and run with pandas unavailable and without JAX or
+    xdem_tpu in the process, as on the card's machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import spatialstats as ss, terrain, volume\n"
+        "rng = np.random.default_rng(0)\n"
+        "ref = rng.uniform(100, 1100, (60, 70)).astype(np.float32)\n"
+        "dh = (-(ref - 100) / 100 + rng.normal(0, 0.3, ref.shape)).astype(np.float32)\n"
+        "dh[rng.random(ref.shape) < 0.1] = np.nan\n"
+        "gid = np.zeros(ref.shape, int); gid[5:30, 5:60] = 1; gid[35:55, 10:65] = 2\n"
+        "for args in ((dh, ref), (torch.from_numpy(dh), torch.from_numpy(ref))):\n"
+        "    bins = volume.hypsometric_binning(*args, bins=100.0)\n"
+        "    assert bins['count'].sum() == np.isfinite(dh).sum() and abs(bins['value'][5] + 5.5) < 0.3\n"
+        "    sig = volume.get_regional_hypsometric_signal(*args, gid)\n"
+        "    assert sig['count'].sum() > 1000 and np.isfinite(sig['median']).sum() > 10\n"
+        "bins['value'][3] = np.nan\n"
+        "filled = volume.interpolate_hypsometric_bins(bins)\n"
+        "fitted = volume.fit_hypsometric_bins_poly(bins, degree=1)\n"
+        "area = volume.calculate_hypsometry_area(filled, ref, 20.0)\n"
+        "assert np.isfinite(filled['value']).all() and area['area'].sum() == ref.size * 400.0\n"
+        "assert abs(fitted['value'][5] + 5.5) < 0.3\n"
+        "out = volume.hypsometric_interpolation(dh, ref, gid > 0)\n"
+        "assert np.isfinite(out.filled(np.nan)[gid > 0]).all()\n"
+        "out = volume.norm_regional_hypsometric_interpolation(dh, ref, gid, regional_signal=sig)\n"
+        "assert np.isfinite(out.filled(np.nan)[gid > 0]).mean() > 0.9\n"
+        "assert np.isfinite(volume.idw_interpolation(dh)).mean() > 0.99\n"
+        "slope, tex = terrain.get_terrain_attribute(ref, ['slope', 'texture_shading'], resolution=20.0)\n"
+        "assert tex.shape == slope.shape and bool(torch.isfinite(tex).all())\n"
+        "table = ss.patches_method(dh, areas=[3600.0, 14400.0], gsd=20.0)\n"
+        "assert np.isfinite(table['nmad']).all() and table['nb_indep_patches'][0] > table['nb_indep_patches'][1]\n"
+        "assert ss.convolution(dh[None], np.ones((1, 3, 3)))[0, 0].shape == dh.shape\n"
+        "for method in ('cdist_equidistant', 'pdist_ring'):\n"
+        "    emp = ss.sample_empirical_variogram(torch.from_numpy(dh), gsd=20.0, subsample=200, estimator='genton',\n"
+        "                                        subsample_method=method, random_state=1)\n"
+        "    assert np.isfinite(emp['exp']).sum() >= 3\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad and sys.modules['pandas'] is None, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_copied_genton_constants_and_fft_sizes_equal_originals():
+    """The port keeps its own copy of the Genton reservoir's cap and pair keys (the rest of
+    xdem_tpu/parallel stays unported) and of next_fast_fft_size."""
+    import jax.numpy as jnp
+
+    from xdem_tpu.parallel import variogram as jvario
+    from xdem_tpu.terrain import freq as jfreq
+    from xdem_tpu_torch import spatialstats as tss
+    from xdem_tpu_torch.terrain import freq as tfreq
+
+    assert tss._GENTON_CAP == jvario._GENTON_CAP == 400
+    parked = np.random.default_rng(0).integers(0, 4, 5 * 7 * 11)
+    for run0 in (0, 3, 40_000):
+        want = np.asarray(jvario._genton_pair_keys(jnp.uint32(run0), 5, 7, 11, jnp.asarray(parked), 3))
+        got = tss._genton_pair_keys(run0, 5, 7, 11, torch.from_numpy(parked), 3).numpy()
+        np.testing.assert_array_equal(got, want.astype(np.int64))
+    assert [tfreq.next_fast_fft_size(n) for n in range(1, 3000, 7)] == \
+        [jfreq.next_fast_fft_size(n) for n in range(1, 3000, 7)]
+    assert set(xdem_tpu_torch.volume.__dict__) >= {
+        n for n, v in vars(xdem_tpu.volume).items() if callable(v) and not n.startswith("_")
+        and getattr(v, "__module__", "") == "xdem_tpu.volume"}
 
 
 @pytest.mark.parametrize("name", ["ALL_STENCILS", "DIV_CONST", "DIV_POW", "_FIT_DERIVS",

@@ -486,12 +486,13 @@ class _VectorLike:
 @pytest.mark.parametrize("call,exc,match", [
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, n_jobs=2), NotImplementedError, "n_jobs"),
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, mesh=object()), NotImplementedError, "mesh"),
-    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="cdist_point"),
-     NotImplementedError, "not ported"),
-    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="pdist_ring"),
-     NotImplementedError, "not ported"),
+    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="cdist_point", mesh=object()),
+     NotImplementedError, "mesh"),
+    (lambda f: tss.sample_empirical_variogram(torch.where(torch.arange(f.numel()).reshape(f.shape) == 0, f, torch.nan),
+                                              gsd=10.0, subsample_method="pdist_ring"),
+     ValueError, "Not enough valid points"),
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="nope"), TypeError, "must be one of"),
-    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, estimator="genton"), NotImplementedError, "Genton"),
+    (lambda f: tss._binned_pair_core(f, f, torch.tensor([0.0, 1.0]), "genton", 1), ValueError, "not supported"),
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, estimator="median"), ValueError, "not supported"),
     (lambda f: tss.sample_empirical_variogram(f), ValueError, "ground sampling distance"),
     (lambda f: tss.infer_spatial_correlation_from_stable(f, ["gaussian"], stable_mask=_VectorLike(), gsd=10.0),
@@ -514,3 +515,208 @@ def test_pair_count_limit_refuses():
         tss._check_pair_count(2**31)
     tss._check_pair_count(55_193_600)
     assert math.isclose(tss._PAIR_CHUNK_BUDGET, jss._PAIR_CHUNK_BUDGET)
+
+
+# ---------------------------------------------------------------------- Genton
+
+
+def test_genton_flat_path_matches_xdem_tpu(monkeypatch):
+    """The Qn of at most 400 pairs per bin, drawn with np.random.default_rng(0) on both
+    sides: counts identical, gamma within 1e-6 relative (observed equal), for the host grid,
+    the device grid (with xdem_tpu's ring draw) and explicit coordinates."""
+    f = _field()
+    kw = dict(gsd=10.0, subsample=400, random_state=42, estimator="genton")
+    monkeypatch.setattr(tss, "_draw_rings_from_arr", _jax_draw)
+    for ours, theirs in ((f, f), (torch.from_numpy(f), jnp.asarray(f))):
+        got = tss.sample_empirical_variogram(ours, **kw)
+        want = jss.sample_empirical_variogram(theirs, **kw)
+        np.testing.assert_array_equal(got["count"], want["count"].values)
+        assert (got["count"] > 400).any()
+        np.testing.assert_allclose(got["exp"], want["exp"].values, rtol=1e-6, equal_nan=True)
+    ii, jj = np.meshgrid(np.arange(40) * 10.0, np.arange(45) * 10.0, indexing="ij")
+    coords = np.column_stack([ii.ravel(), jj.ravel()])
+    vals = f[:40, :45].ravel().astype(np.float64)
+    kw1 = dict(coords=coords, subsample=100, random_state=1, estimator="genton")
+    got, want = tss.sample_empirical_variogram(vals, **kw1), jss.sample_empirical_variogram(vals, **kw1)
+    np.testing.assert_array_equal(got["count"], want["count"].values)
+    np.testing.assert_allclose(got["exp"], want["exp"].values, rtol=1e-6, equal_nan=True)
+
+
+def test_genton_reservoir_is_chunk_invariant_and_matches_xdem_tpu():
+    """The chunked reservoir keeps the same 400 values per bin for any chunk size
+    (tests/test_spatialstats.py's case), and they are xdem_tpu's: counts and reservoir
+    contents identical, gamma within 1e-6 relative."""
+    rng = np.random.default_rng(3)
+    R, N, M = 8, 20, 60
+    za = rng.normal(0, 2, (R, N)).astype(np.float32)
+    zb = rng.normal(0, 2, (R, M)).astype(np.float32)
+    ca = rng.uniform(0, 800, (R, N, 2)).astype(np.float32)
+    cb = rng.uniform(0, 800, (R, M, 2)).astype(np.float32)
+    za[2, 10:] = np.nan
+    edges = np.array([0.0, 100.0, 300.0, 700.0, 1500.0], np.float32)
+    results = []
+    for chunk in (2, 8, 3):
+        pad = (-R) % chunk
+
+        def pn(a):
+            return np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1), constant_values=np.nan)
+
+        res, cnt = tss._pairs_genton_reservoir_chunked(*(torch.from_numpy(pn(a)) for a in (za, zb, ca, cb)),
+                                                       torch.from_numpy(edges), 4, chunk)
+        jres, jcnt = jss._pairs_genton_reservoir_chunked(*(jnp.asarray(pn(a)) for a in (za, zb, ca, cb)),
+                                                         jnp.asarray(edges), 4, chunk)
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+        np.testing.assert_array_equal(np.sort(res.numpy(), axis=1), np.sort(np.asarray(jres), axis=1))
+        gamma = tss._genton_qn_from_reservoir(res.numpy().astype(np.float64), cnt.numpy())
+        want = jss._genton_qn_from_reservoir(np.asarray(jres, np.float64), np.asarray(jcnt))
+        np.testing.assert_allclose(gamma, want, rtol=1e-6, equal_nan=True)
+        results.append(gamma)
+    np.testing.assert_array_equal(results[0], results[1])
+    np.testing.assert_array_equal(results[0], results[2])
+
+
+def test_genton_global_pair_zero_kept():
+    """With fewer pairs than the cap the reservoir holds every valid pair, the pair at global
+    index 0 included (its key is not the padding's 0): gamma is the full-sample Qn."""
+    rng = np.random.default_rng(7)
+    za, zb = rng.normal(0, 1, (2, 3)).astype(np.float32), rng.normal(0, 1, (2, 3)).astype(np.float32)
+    ca, cb = rng.uniform(0, 50, (2, 3, 2)).astype(np.float32), rng.uniform(0, 50, (2, 3, 2)).astype(np.float32)
+    d = (za[:, :, None] - zb[:, None, :]).ravel().astype(np.float64)
+    res, cnt = tss._pairs_genton_reservoir_chunked(*(torch.from_numpy(a) for a in (za, zb, ca, cb)),
+                                                   torch.tensor([0.0, 100.0]), 1, 1)
+    assert int(cnt[0]) == len(d) and int(torch.isfinite(res[0]).sum()) == len(d)
+    assert float(za[0, 0] - zb[0, 0]) in res[0].tolist()
+    gamma = tss._genton_qn_from_reservoir(res.numpy().astype(np.float64), cnt.numpy())
+    assert gamma[0] == pytest.approx(tss._genton_qn_gamma(d), rel=1e-6)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+def test_genton_chunked_variogram_matches_xdem_tpu(monkeypatch, as_tensor):
+    """Past the pair budget the variogram goes through the reservoir: counts identical to the
+    flat path's and to xdem_tpu's, gamma within 1e-6 relative of xdem_tpu's chunked result."""
+    f = _field()
+    kw = dict(gsd=10.0, subsample=300, random_state=42, estimator="genton")
+    flat = tss.sample_empirical_variogram(f, **kw)
+    monkeypatch.setattr(tss, "_PAIR_CHUNK_BUDGET", 5_000)
+    monkeypatch.setattr(jss, "_PAIR_CHUNK_BUDGET", 5_000)
+    if as_tensor:
+        monkeypatch.setattr(tss, "_draw_rings_from_arr", _jax_draw)
+        got = tss.sample_empirical_variogram(torch.from_numpy(f), **kw)
+        want = jss.sample_empirical_variogram(jnp.asarray(f), **kw)
+    else:
+        got = tss.sample_empirical_variogram(f, **kw)
+        want = jss.sample_empirical_variogram(f, **kw)
+        np.testing.assert_array_equal(got["count"], flat["count"])
+    np.testing.assert_array_equal(got["count"], want["count"].values)
+    np.testing.assert_allclose(got["exp"], want["exp"].values, rtol=1e-6, equal_nan=True)
+
+
+# ---------------------------------------------------------------------- point, disk and ring subsamples
+
+
+@pytest.mark.parametrize("estimator,tol", [("dowd", 1e-6), ("matheron", 5e-5), ("cressie", 5e-5), ("genton", 1e-6)])
+@pytest.mark.parametrize("method", ["cdist_point", "pdist_point", "pdist_disk", "pdist_ring"])
+def test_point_subsamples_match_xdem_tpu(method, estimator, tol):
+    """numpy draws on both sides, so the samples are the same ones: counts identical; Dowd
+    and Genton (order statistics) 1e-6, Matheron and Cressie (float64 sums here, float32
+    there) 5e-5. A tensor grid gives what the numpy grid gives."""
+    f = _field()
+    kw = dict(gsd=10.0, subsample=250, subsample_method=method, estimator=estimator, random_state=4)
+    want = jss.sample_empirical_variogram(f, **kw)
+    got = tss.sample_empirical_variogram(f, **kw)
+    np.testing.assert_array_equal(got["count"], want["count"].values)
+    np.testing.assert_array_equal(got["lags"], want["lags"].values)
+    np.testing.assert_allclose(got["exp"], want["exp"].values, rtol=tol, equal_nan=True)
+    from_tensor = tss.sample_empirical_variogram(torch.from_numpy(f), **kw)
+    np.testing.assert_array_equal(from_tensor["count"], got["count"])
+    np.testing.assert_array_equal(from_tensor["exp"], got["exp"])
+
+
+@pytest.mark.parametrize("method", ["cdist_point", "pdist_disk"])
+def test_point_subsamples_on_explicit_coordinates(method):
+    """1-D values with coordinates, two variograms: counts identical, Dowd 1e-6, and the
+    spread between the runs (err_exp) 1e-5."""
+    f = _field()
+    ii, jj = np.meshgrid(np.arange(60) * 10.0, np.arange(70) * 10.0, indexing="ij")
+    coords = np.column_stack([ii.ravel(), jj.ravel()])
+    vals = f[:60, :70].ravel().astype(np.float64)
+    kw = dict(coords=coords, subsample=150, subsample_method=method, n_variograms=2, random_state=9)
+    want = jss.sample_empirical_variogram(vals, **kw)
+    got = tss.sample_empirical_variogram(vals, **kw)
+    np.testing.assert_array_equal(got["count"], want["count"].values)
+    np.testing.assert_allclose(got["exp"], want["exp"].values, rtol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(got["err_exp"], want["err_exp"].values, rtol=1e-5, equal_nan=True)
+
+
+def test_valid_points_map_positions_without_a_coordinate_array():
+    """Positions among the valid pixels map to (row * gsd, col * gsd) and to the values, as
+    the flattened coordinate array of xdem_tpu's host path would give them."""
+    f = _field(shape=(30, 40))
+    pts = tss._ValidPoints(torch.from_numpy(f), gsd=10.0)
+    valid = np.isfinite(f.ravel())
+    x, y = np.meshgrid(np.arange(30) * 10.0, np.arange(40) * 10.0, indexing="ij")
+    coords_v = np.column_stack([x.ravel(), y.ravel()])[valid]
+    assert len(pts) == valid.sum()
+    pos = np.array([0, 5, len(pts) - 1, 123])
+    np.testing.assert_array_equal(pts.coords_at(pos).numpy(), coords_v[pos])
+    np.testing.assert_array_equal(pts.values_at(pos).numpy(), f.ravel()[valid][pos])
+    np.testing.assert_array_equal(pts.coords_at().numpy(), coords_v)
+
+
+# ---------------------------------------------------------------------- plots
+
+
+@pytest.fixture
+def agg():
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    yield plt
+    plt.close("all")
+
+
+@pytest.mark.parametrize("as_frame", [False, True], ids=["dict", "frame"])
+@pytest.mark.parametrize("split", [None, [0.0, 100.0, 500.0]], ids=["one-panel", "split"])
+def test_plot_variogram_writes_a_file(tmp_path, agg, as_frame, split):
+    f = _field()
+    emp = tss.sample_empirical_variogram(f, gsd=10.0, subsample=200, n_variograms=2, random_state=1)
+    fun, _params = tss.fit_sum_model_variogram(["gaussian"], emp)
+    table = pd.DataFrame(emp) if as_frame else emp
+    out = tmp_path / "variogram.png"
+    axes = tss.plot_variogram(table, list_fit_fun=[fun], list_fit_fun_label=["fit"], xscale_range_split=split,
+                              xlabel="lag (m)", ylabel="var", out_fname=str(out))
+    assert out.stat().st_size > 1000
+    assert len(axes) == 3 if split else axes is not None
+    single = {k: v for k, v in emp.items() if k != "err_exp"}
+    assert tss.plot_variogram(single, xscale="log", xlim=(10, 2000), ylim=(0, 10)) is not None
+
+
+@pytest.mark.parametrize("as_frame", [False, True], ids=["dict", "frame"])
+def test_plot_binning_writes_files(tmp_path, agg, as_frame):
+    """1-D and 2-D binning plots from the port's table (edge columns) and from xdem_tpu's
+    frame (a column of intervals)."""
+    vals, slope, curv = _binning_inputs()
+    if as_frame:
+        table = jss.nd_binning(vals, [slope, curv], ["slope", "curv"], list_var_bins=6)
+    else:
+        table = tss.nd_binning(vals, [slope, curv], ["slope", "curv"], list_var_bins=6)
+    out1, out2 = tmp_path / "b1.png", tmp_path / "b2.png"
+    ax = tss.plot_1d_binning(table, "slope", "nmad", label_var="slope (deg)", label_statistic="NMAD",
+                             out_fname=str(out1))
+    line = ax.get_lines()[0]
+    assert len(line.get_xdata()) == 6 and np.isfinite(line.get_ydata()).all()
+    tss.plot_2d_binning(table, "slope", "curv", "nmad", min_count=5, vmin=0.0, vmax=5.0, out_fname=str(out2))
+    assert out1.stat().st_size > 1000 and out2.stat().st_size > 1000
+    fig, own = agg.subplots()
+    assert tss.plot_1d_binning(table, "curv", "nanmedian", ax=own) is own
+    with pytest.raises(ValueError, match="No 2-D binning"):
+        tss.plot_2d_binning({k: v[table["nd"] == 1] for k, v in table.items()} if not as_frame
+                            else table[table["nd"] == 1], "slope", "curv", "nmad")
+
+
+def test_interval_mids_parses_interval_strings():
+    """A frame read back from CSV holds '[a, b)' strings: the mids are parsed from them."""
+    frame = {"slope": np.array(["[0.0, 10.0)", "[10.0, 30.0)", "nan"], dtype=object)}
+    np.testing.assert_array_equal(tss._interval_mids(frame, "slope"), [5.0, 20.0, np.nan])

@@ -125,12 +125,10 @@ def test_validation_errors_match_jax(kwargs):
 
 
 @pytest.mark.parametrize("call", [
-    lambda d: terrain.texture_shading(d),
-    lambda d: terrain.get_terrain_attribute(d, ["slope", "texture_shading"], resolution=1.0),
     lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mesh=object()),
     lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, tiled=object()),
     lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mp_config=object()),
-], ids=["texture_shading", "texture_in_list", "mesh", "tiled", "mp_config"])
+], ids=["mesh", "tiled", "mp_config"])
 def test_not_ported_paths_raise(call):
     with pytest.raises(NotImplementedError, match="not ported"):
         call(np.zeros((6, 6), np.float32))

@@ -127,7 +127,7 @@ class _VectorLike:
     (dict(transform=None), ValueError, "transform="),
     (dict(crs="+proj=utm +zone=33"), NotImplementedError, "EPSG"),
     (dict(approach="H2023"), ValueError, "Unknown uncertainty approach"),
-    (dict(variogram_estimator="genton"), NotImplementedError, "Genton"),
+    (dict(variogram_estimator="median"), ValueError, "not supported"),
 ])
 def test_refusals(change, exc, match):
     rng = np.random.default_rng(0)

@@ -78,3 +78,15 @@ def interp_rowcol(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         return torch.where(inside, vals, torch.nan)
 
     raise ValueError(f"Unknown interpolation method: {method}")
+
+
+def interp_points(data: torch.Tensor, transform, x: torch.Tensor, y: torch.Tensor,
+                  method: Method = "linear") -> torch.Tensor:
+    """Interpolate a georeferenced grid at world coordinates (x, y)."""
+    a, b, c, d, e, f = (float(v) for v in tuple(transform))
+    det = a * e - b * d
+    ia, ib, ic = e / det, -b / det, -(e * c - b * f) / det
+    id_, ie, if_ = -d / det, a / det, -(-d * c + a * f) / det
+    cols = ia * x + ib * y + ic - 0.5
+    rows = id_ * x + ie * y + if_ - 0.5
+    return interp_rowcol(data, rows, cols, method=method)

@@ -1,4 +1,4 @@
-"""Host-to-device helpers: masked arrays to NaN, masks to bool tensors."""
+"""Host and device helpers: masked arrays to NaN, tensors to numpy, masks to bool tensors."""
 
 from __future__ import annotations
 
@@ -15,6 +15,13 @@ def unmask(a: Any) -> Any:
         return a.filled(np.nan) if np.issubdtype(a.dtype, np.floating) \
             else a.astype(np.float32).filled(np.nan)
     return a
+
+
+def host_array(x: Any, dtype: Any = None) -> np.ndarray:
+    """A numpy array of `x` (tensors are copied to the host; masked arrays become NaN)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(unmask(x), dtype=dtype)
 
 
 def device_mask(mask: Any, shape: tuple[int, ...], device: torch.device | str) -> torch.Tensor:

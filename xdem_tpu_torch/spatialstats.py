@@ -1,5 +1,5 @@
-"""Spatial statistics of the uncertainty path: N-D binning, heteroscedasticity, variograms
-and the number of effective samples.
+"""Spatial statistics of the uncertainty path: N-D binning, heteroscedasticity, convolutions,
+variograms, the number of effective samples, the patches method and the plots.
 
 Port of xdem_tpu/spatialstats.py for arrays and tensors. The per-pixel work (the seeded
 subsample, the binned medians and NMADs, the sigma evaluation over the raster, the ring draw
@@ -22,6 +22,7 @@ other bits than the ``jax.random`` draws of xdem_tpu. The host draws (numpy) are
 from __future__ import annotations
 
 import itertools
+import logging
 import math
 import warnings
 from typing import Any, Callable, Sequence
@@ -33,7 +34,8 @@ from xdem_tpu_torch._device import as_tensor, default_device
 from xdem_tpu_torch.ops.reductions import _NMAD_FACTOR, binned_median
 from xdem_tpu_torch.ops.reductions import nmad as _nmad_tensor
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
-from xdem_tpu_torch.ops.transfer import device_mask, unmask
+from xdem_tpu_torch.ops.transfer import device_mask
+from xdem_tpu_torch.ops.transfer import host_array as _host
 
 Table = dict  # column name -> 1-D numpy array
 
@@ -58,13 +60,6 @@ def _stat_nmad(x: np.ndarray) -> float:
 
 # Binned-statistic tables name their columns after the statistic's __name__.
 _stat_nmad.__name__ = "nmad"
-
-
-def _host(x: Any, dtype: Any = None) -> np.ndarray:
-    """A numpy array of `x` (tensors are copied to the host; masked arrays become NaN)."""
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(unmask(x), dtype=dtype)
 
 
 # ---------------------------------------------------------------------- N-D binning
@@ -684,6 +679,117 @@ def infer_heteroscedasticity_from_stable(
     return error, df, error_fun
 
 
+# ---------------------------------------------------------------------- convolutions
+
+
+def _kernel_runs(row: np.ndarray) -> list[tuple[int, int, float]]:
+    """The runs [b0, b1) of equal non-zero weight in one kernel row."""
+    runs = []
+    b = 0
+    while b < len(row):
+        if row[b] == 0:
+            b += 1
+            continue
+        e = b
+        while e < len(row) and row[e] == row[b]:
+            e += 1
+        runs.append((b, e, float(row[b])))
+        b = e
+    return runs
+
+
+def _conv2d_runs(imgs: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """True convolution (the kernel flipped) of (N, H, W) images with one (k1, k2) kernel,
+    zero padding ((k - 1) // 2, k // 2) per axis, as a float64 (N, H, W) tensor.
+
+    No library convolution: on an H100 cuDNN's float32 convolutions run in TF32 unless they
+    are told otherwise. Each image row is summed once into a float64 prefix sum; a run of
+    equal weights in a kernel row is then one difference of two shifted slices of it. A 0/1
+    kernel of side k (the mean filter's disk or square) takes k such passes, a general
+    kernel at most one per tap. The sums are float64, so their order does not matter at
+    float32 precision. `imgs` must be finite."""
+    n, h, w = imgs.shape
+    k1, k2 = kernel.shape
+    flipped = np.asarray(kernel, np.float64)[::-1, ::-1]
+    p1, p2 = (k1 - 1) // 2, (k2 - 1) // 2
+    cs = torch.cumsum(imgs.to(torch.float64), dim=2)
+    # column c of `csp` is the sum of the image columns before c - p2, for c in [0, w + k2)
+    csp = torch.cat([torch.zeros((n, h, p2 + 1), dtype=torch.float64, device=imgs.device), cs,
+                     cs[:, :, -1:].expand(n, h, k2 - 1 - p2)], dim=2)
+    out = torch.zeros((n, h, w), dtype=torch.float64, device=imgs.device)
+    for a in range(k1):
+        # output row y reads image row y + a - p1
+        y0, y1 = max(0, p1 - a), min(h, h + p1 - a)
+        if y1 <= y0:
+            continue
+        src = slice(y0 + a - p1, y1 + a - p1)
+        for b0, b1, weight in _kernel_runs(flipped[a]):
+            run = csp[:, src, b1:b1 + w] - csp[:, src, b0:b0 + w]
+            out[:, y0:y1] += run if weight == 1.0 else weight * run
+    return out
+
+
+def _check_conv_method(method: str) -> None:
+    if method not in ("scipy", "numba"):
+        raise ValueError(f"Convolution method must be 'scipy' or 'numba', got {method!r}.")
+
+
+def convolution(imgs: Any, filters: Any, method: str = "scipy") -> Any:
+    """Multi-image x multi-kernel convolution: (N, H, W) images and (M, k1, k2) kernels give
+    (N, M, H, W) in float32, on the images' device (numpy goes to the default device and
+    comes back as numpy).
+
+    NaN handling matches scipy.ndimage.convolve on NaN inputs (a NaN poisons its footprint);
+    edges use zero padding; even kernels pad ((k - 1) // 2, k // 2) like scipy's same-shape
+    output. ``method`` is kept for signature parity with the scipy/numba backend switch of
+    xdem: both names run the same sums here and any other value raises.
+    """
+    _check_conv_method(method)
+    t = as_tensor(imgs)
+    filt = _host(filters, np.float64)
+    if t.dim() != 3 or filt.ndim != 3:
+        raise ValueError("convolution takes (N, H, W) images and (M, k1, k2) kernels.")
+    nanmask = ~torch.isfinite(t)
+    imgs0 = torch.where(nanmask, 0.0, t)
+    # any output whose footprint touched a NaN is poisoned
+    touched = _conv2d_runs(nanmask.to(torch.float32), np.ones(filt.shape[1:])) > 0
+    out = torch.stack([torch.where(touched, torch.nan, _conv2d_runs(imgs0, k).to(torch.float32)) for k in filt], dim=1)
+    return out if isinstance(imgs, torch.Tensor) else out.cpu().numpy()
+
+
+def _mean_filter_kernel(kernel_size: int, kernel_shape: str) -> np.ndarray:
+    if kernel_shape == "circular":
+        # integer centre at size // 2, radius = distance to the nearest wall, strict
+        # inequality: 9 pixels for a 5 x 5 kernel, not 13
+        c = int(kernel_size / 2)
+        radius = min(c, kernel_size - c)
+        yy, xx = np.mgrid[:kernel_size, :kernel_size]
+        return (np.hypot(xx - c, yy - c) < radius).astype(np.float32)
+    return np.ones((kernel_size, kernel_size), dtype=np.float32)
+
+
+def _mean_filter_nan_device(img: torch.Tensor, kernel: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, valid count) float32 tensors of the NaN-aware mean filter of one image."""
+    valid = torch.isfinite(img)
+    sums = _conv2d_runs(torch.where(valid, img, 0.0)[None], kernel)[0]
+    cnts = _conv2d_runs(valid.to(torch.float32)[None], kernel)[0]
+    return (sums / cnts).to(torch.float32), cnts.to(torch.float32)
+
+
+def mean_filter_nan(img: Any, kernel_size: int, kernel_shape: str = "circular",
+                    method: str = "scipy") -> tuple[Any, Any, int]:
+    """NaN-aware mean filter from two convolutions (sum and valid count): returns (mean,
+    valid count per footprint, pixels per kernel). The mean is NaN where no pixel of the
+    footprint is valid. Tensors stay on their device; numpy comes back as numpy. ``method``
+    is kept for signature parity (see :func:`convolution`)."""
+    _check_conv_method(method)
+    kernel = _mean_filter_kernel(kernel_size, kernel_shape)
+    mean, cnts = _mean_filter_nan_device(as_tensor(img), kernel)
+    if not isinstance(img, torch.Tensor):
+        mean, cnts = mean.cpu().numpy(), cnts.cpu().numpy()
+    return mean, cnts, int(kernel.sum())
+
+
 # ---------------------------------------------------------------------- variogram models
 
 _VARIOGRAM_MODELS = ("spherical", "gaussian", "exponential", "cubic", "stable", "matern")
@@ -814,15 +920,12 @@ def correlation_from_variogram(params_variogram_model: Any) -> Callable[[np.ndar
 
 # ---------------------------------------------------------------------- empirical variogram
 
-_ESTIMATORS = ("matheron", "cressie", "dowd")
+_ESTIMATORS = ("matheron", "cressie", "dowd")  # reduced per lag bin on the device
+_GENTON = "genton"  # reduced on the host from a per-bin sample of at most _GENTON_CAP pairs
 
 
-def _check_estimator(estimator: str) -> None:
-    if estimator == "genton":
-        raise NotImplementedError(
-            "The Genton variogram estimator is not ported to xdem_tpu_torch yet; use 'dowd', "
-            "'matheron' or 'cressie'.")
-    if estimator not in _ESTIMATORS:
+def _check_estimator(estimator: str, allowed: Sequence[str] = _ESTIMATORS + (_GENTON,)) -> None:
+    if estimator not in allowed:
         raise ValueError(f"Estimator '{estimator}' not supported; use 'matheron', 'dowd', 'cressie' or 'genton'.")
 
 
@@ -859,7 +962,7 @@ def _binned_pair_core(diffs: torch.Tensor, dists: torch.Tensor, edges: torch.Ten
     device. Dowd's median comes from the (bin, |d|) ordering (exact order statistics);
     Matheron and Cressie sum in float64, so they agree with xdem_tpu's float32 sums to
     rounding, not bitwise."""
-    _check_estimator(estimator)
+    _check_estimator(estimator, _ESTIMATORS)
     d = torch.abs(diffs.reshape(-1))
     parked = _lag_bins(dists.reshape(-1), edges, n_bins, torch.isfinite(d))
     counts = torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
@@ -872,7 +975,13 @@ def _binned_pair_core(diffs: torch.Tensor, dists: torch.Tensor, edges: torch.Ten
 
 def _binned_pair_estimator(diffs: torch.Tensor, dists: torch.Tensor, bin_edges: np.ndarray,
                            estimator: str) -> tuple[np.ndarray, np.ndarray]:
-    """Per-lag-bin (gamma, count) as numpy, with float32 edges (see _gather_grid)."""
+    """Per-lag-bin (gamma, count) as numpy, with float32 edges (see _gather_grid).
+
+    Estimators: matheron sum(d^2) / (2 n); dowd 2.198 * median(|d|)^2 / 2; cressie
+    mean(sqrt|d|)^4 / (0.457 + 0.494/n + 0.045/n^2) / 2; genton (2.2191 * Qn)^2 / 2 (see
+    :func:`_binned_genton`)."""
+    if estimator == _GENTON:
+        return _binned_genton(diffs, dists, bin_edges)
     edges = torch.from_numpy(np.asarray(bin_edges, dtype=np.float32)).to(diffs.device)
     gamma, counts = _binned_pair_core(diffs, dists, edges, estimator, len(bin_edges) - 1)
     return gamma.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
@@ -950,7 +1059,7 @@ def _chunked_pair_reduce(pair_block: Callable, xs: tuple[torch.Tensor, ...], est
     float32 |d|: the first finds the high half of each middle order statistic, the
     second its low half. Counts are int64.
     """
-    _check_estimator(estimator)
+    _check_estimator(estimator, _ESTIMATORS)
     blocks = [tuple(x[k] for x in xs) for k in range(xs[0].shape[0])]
     dev = xs[0].device
     counts = torch.zeros(n_bins, dtype=torch.int64, device=dev)
@@ -1025,6 +1134,130 @@ def _check_pair_count(total_pairs: int, chunked_available: bool = True) -> None:
             f"the per-bin count limit ({_PAIR_COUNT_LIMIT:.2e}). Reduce `subsample` "
             f"(pairs grow ~subsample^2/2) or split into several `n_variograms` runs."
         )
+
+
+# ---------------------------------------------------------------------- Genton estimator
+
+_GENTON_CAP = 400  # values per lag bin that feed the O(n^2) Qn
+
+
+def _genton_qn_gamma(x: np.ndarray) -> float:
+    """Genton's gamma (2.2191 * Qn)^2 / 2 of one bin's signed differences `x` (n >= 2): Qn is
+    the k-th order statistic, k = C(n // 2 + 1, 2), of the pairwise |x_i - x_j|."""
+    n = len(x)
+    pair_diffs = np.abs(x[:, None] - x[None, :])[np.triu_indices(n, k=1)]
+    k = int((n // 2 + 1) * (n // 2) / 2)
+    k = min(max(k, 1), len(pair_diffs))
+    qn = np.partition(pair_diffs, k - 1)[k - 1]
+    return float((2.2191 * qn) ** 2 / 2)
+
+
+def _binned_genton(diffs: torch.Tensor, dists: torch.Tensor, bin_edges: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Genton (1998) highly robust variogram per lag bin, over the signed pairwise
+    differences (their spread is what Qn estimates).
+
+    Lags are binned in float32 like every estimator here. A bin with more than 400 pairs is
+    subsampled to 400 with ``np.random.default_rng(0)``, bin after bin, as xdem_tpu does on
+    the host: numpy's ``choice(x, k, replace=False)`` draws the same positions as
+    ``choice(len(x), k, replace=False)``, so only each bin's count goes to the host before
+    the draw and only the drawn values after it. The pairs are binned on their device."""
+    edges = torch.from_numpy(np.asarray(bin_edges, dtype=np.float32)).to(diffs.device)
+    n_bins = len(bin_edges) - 1
+    d = diffs.reshape(-1)
+    parked = _lag_bins(dists.reshape(-1).to(torch.float32), edges, n_bins, torch.isfinite(d))
+    counts_t = torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
+    order = torch.argsort(parked, stable=True)  # each bin's pairs in their original order
+    counts = counts_t.cpu().numpy().astype(np.int64)
+    starts = np.cumsum(counts) - counts
+    gamma = np.full(n_bins, np.nan)
+    rng = np.random.default_rng(0)
+    for b in range(n_bins):
+        n = int(counts[b])
+        if n < 2:
+            continue
+        pos = rng.choice(n, _GENTON_CAP, replace=False) if n > _GENTON_CAP else np.arange(n)
+        picks = order[torch.from_numpy(starts[b] + pos).to(d.device)]
+        gamma[b] = _genton_qn_gamma(d[picks].cpu().numpy().astype(np.float64))
+    return gamma, counts
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _genton_pair_keys(run0: int, n_local_runs: int, n: int, m: int, parked: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """A ranking key per pair for the Genton reservoir: the 32-bit Knuth multiplicative hash
+    of the global pair index plus one (int64 holding uint32 values).
+
+    The multiplier is odd, so the map is a bijection modulo 2^32: unique pair indices give
+    unique keys and the top-CAP selection has no ties, whatever the chunking. The +1 keeps
+    every valid key non-zero: key 0 marks invalid pairs and unfilled reservoir slots (last
+    in descending order), so the valid pair at global index 0 is never taken for padding."""
+    dev = parked.device
+    local_run = torch.arange(n_local_runs, dtype=torch.int64, device=dev)[:, None, None]
+    ii = torch.arange(n, dtype=torch.int64, device=dev)[None, :, None]
+    jj = torch.arange(m, dtype=torch.int64, device=dev)[None, None, :]
+    gidx = (((int(run0) + local_run) * (n * m) + ii * m + jj).reshape(-1) + 1) & _U32
+    # (gidx * 2654435769) mod 2^32 from 16-bit halves of the multiplier (2^32 / phi): the
+    # whole product would pass 2^63
+    golden_hi, golden_lo = 2654435769 >> 16, 2654435769 & 0xFFFF
+    key = (gidx * golden_lo + (((gidx * golden_hi) & 0xFFFF) << 16)) & _U32
+    return torch.where(parked < n_bins, key, 0)
+
+
+def _genton_local_topcap(d: torch.Tensor, parked: torch.Tensor, key: torch.Tensor, n_bins: int):
+    """Per-bin top-CAP (values, keys) by descending key: an ordering by (bin, -key), then the
+    head of each bin's segment. Unfilled slots carry NaN values and key 0."""
+    by_key = torch.argsort(_U32 - key, stable=True)
+    order = by_key[torch.argsort(parked[by_key], stable=True)]
+    d_s = d[order]
+    key_s = key[order]
+    counts_local = torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
+    starts = torch.cumsum(counts_local, 0) - counts_local
+    take = torch.clamp(counts_local, max=_GENTON_CAP)
+    offs = torch.arange(_GENTON_CAP, device=d.device)[None, :]
+    pos = torch.clamp(starts[:, None] + offs, 0, max(d.numel() - 1, 0))
+    filled = offs < take[:, None]
+    return torch.where(filled, d_s[pos], torch.nan), torch.where(filled, key_s[pos], 0)
+
+
+def _genton_merge_topcap(merged_v: torch.Tensor, merged_k: torch.Tensor):
+    """Global top-CAP per bin from concatenated (n_bins, K) candidate values and keys."""
+    top = torch.argsort(_U32 - merged_k, dim=1, stable=True)[:, :_GENTON_CAP]
+    return torch.gather(merged_v, 1, top), torch.gather(merged_k, 1, top)
+
+
+def _pairs_genton_reservoir_chunked(za: torch.Tensor, zb: torch.Tensor, ca: torch.Tensor, cb: torch.Tensor,
+                                    edges: torch.Tensor, n_bins: int, chunk: int):
+    """Memory-bounded Genton reservoir: over run chunks, keep the global top-CAP signed pair
+    differences per lag bin, ranked by the pair keys, so that the chunk size never changes
+    which 400 values feed the Qn. Run counts must be padded to a multiple of `chunk` with NaN
+    rows. Returns ((n_bins, CAP) reservoir padded with NaN, per-bin int64 counts)."""
+    n_chunks = za.shape[0] // chunk
+    n, m = za.shape[1], zb.shape[1]
+    dev = za.device
+    res_v = torch.full((n_bins, _GENTON_CAP), torch.nan, dtype=torch.float32, device=dev)
+    res_k = torch.zeros((n_bins, _GENTON_CAP), dtype=torch.int64, device=dev)
+    counts = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    for c in range(n_chunks):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        d_signed = (za[rows, :, None] - zb[rows, None, :]).reshape(-1)
+        h = torch.sqrt(((ca[rows, :, None, :] - cb[rows, None, :, :]) ** 2).sum(-1)).reshape(-1)
+        parked = _lag_bins(h, edges, n_bins, torch.isfinite(d_signed) & (h > 0))
+        counts += torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
+        key = _genton_pair_keys(c * chunk, chunk, n, m, parked, n_bins)
+        loc_v, loc_k = _genton_local_topcap(d_signed, parked, key, n_bins)
+        res_v, res_k = _genton_merge_topcap(torch.cat([res_v, loc_v], dim=1), torch.cat([res_k, loc_k], dim=1))
+    return res_v, counts
+
+
+def _genton_qn_from_reservoir(reservoir: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Genton's gamma per bin from the (n_bins, CAP) NaN-padded reservoir."""
+    gamma = np.full(reservoir.shape[0], np.nan)
+    for b in range(reservoir.shape[0]):
+        x = reservoir[b][np.isfinite(reservoir[b])]
+        if len(x) >= 2:
+            gamma[b] = _genton_qn_gamma(x)
+    return gamma
 
 
 def _choose_cdist_equidistant_sampling_parameters(
@@ -1125,6 +1358,59 @@ def _pad_runs(a: torch.Tensor, pad: int, value: float) -> torch.Tensor:
     return torch.cat([a, torch.full((pad, *a.shape[1:]), value, dtype=a.dtype, device=a.device)]) if pad else a
 
 
+_POINT_METHODS = ("cdist_point", "pdist_point", "pdist_disk", "pdist_ring")
+
+
+class _ValidPoints:
+    """The valid samples of a variogram input on one device, addressed by their position
+    among the valid samples in raster (or input) order, as numpy draws them.
+
+    A grid keeps only the flat indexes of its finite pixels: coordinates are (row * gsd,
+    col * gsd) in float64, computed for the positions asked for, so no coordinate array of
+    the raster's size is ever held. Explicit points keep their float64 coordinates."""
+
+    def __init__(self, values: torch.Tensor, gsd: float | None = None, coords: torch.Tensor | None = None):
+        self.values = values.reshape(-1)
+        self.flat = torch.nonzero(torch.isfinite(self.values)).reshape(-1)
+        self.ny = values.shape[1] if coords is None else None
+        self.gsd = gsd
+        self.coords = coords
+
+    def __len__(self) -> int:
+        return int(self.flat.numel())
+
+    def _pick(self, pos: Any) -> torch.Tensor:
+        if isinstance(pos, np.ndarray):
+            pos = torch.from_numpy(np.asarray(pos, np.int64)).to(self.flat.device)
+        return self.flat if pos is None else self.flat[pos]
+
+    def coords_at(self, pos: Any = None) -> torch.Tensor:
+        """float64 (n, 2) coordinates of the valid samples at positions `pos` (None: all)."""
+        flat = self._pick(pos)
+        if self.coords is not None:
+            return self.coords[flat]
+        rows = torch.div(flat, self.ny, rounding_mode="floor")
+        cols = flat - rows * self.ny
+        return torch.stack([rows.to(torch.float64) * self.gsd, cols.to(torch.float64) * self.gsd], dim=-1)
+
+    def values_at(self, pos: Any) -> torch.Tensor:
+        return self.values[self._pick(pos)].to(torch.float32)
+
+
+def _point_pairs(points: _ValidPoints, pos1: np.ndarray, pos2: np.ndarray | None):
+    """Pairwise (signed differences, lags) of the samples at `pos1` against those at `pos2`,
+    in float32; with ``pos2=None`` each pair of `pos1` once (the upper triangle). Pairs at
+    zero distance and, for one set, the lower triangle have a NaN lag."""
+    z1, c1 = points.values_at(pos1), points.coords_at(pos1).to(torch.float32)
+    z2, c2 = (z1, c1) if pos2 is None else (points.values_at(pos2), points.coords_at(pos2).to(torch.float32))
+    diffs = z1[:, None] - z2[None, :]
+    dists = torch.sqrt(((c1[:, None, :] - c2[None, :, :]) ** 2).sum(-1))
+    dists = torch.where(dists <= 0, torch.nan, dists)
+    if pos2 is None:
+        dists = torch.where(torch.triu(torch.ones_like(dists, dtype=torch.bool), diagonal=1), dists, torch.nan)
+    return diffs, dists
+
+
 def sample_empirical_variogram(
     values: Any,
     gsd: float | None = None,
@@ -1143,16 +1429,26 @@ def sample_empirical_variogram(
     mesh: Any = None,
     **kwargs: Any,
 ) -> Table:
-    """Empirical variogram by Hugonnet et al. (2022) equidistant disk/ring sampling.
+    """Empirical variogram with spatial subsampling adapted to grids.
 
-    As xdem_tpu.spatialstats.sample_empirical_variogram with ``subsample_method=
-    "cdist_equidistant"``, in three modes: a 2-D tensor is sampled, gathered and reduced on
-    its device (only the gamma/count vectors come back); a 2-D numpy grid is sampled on the
-    host with numpy (xdem_tpu's identical draw) and reduced on the default device; 1-D
-    values with `coords` sample explicit coordinates. Lag bins are sqrt(2)-geometric from
-    sqrt(2) * gsd to maxlag and the last, undersampled bin is dropped. Estimators: dowd
-    (default), matheron, cressie. Returns a table with ``exp``, ``lags``, ``count`` and
-    ``err_exp``.
+    As xdem_tpu.spatialstats.sample_empirical_variogram. ``subsample_method``:
+
+    * "cdist_equidistant" (default): Hugonnet et al. (2022) equidistant disk/ring sampling,
+      in three modes: a 2-D tensor is sampled, gathered and reduced on its device (only the
+      gamma/count vectors come back); a 2-D numpy grid is sampled on the host with numpy
+      (xdem_tpu's identical draw) and reduced on the default device; 1-D values with
+      `coords` sample explicit coordinates.
+    * "cdist_point" / "pdist_point": two random point sets against each other, or one
+      against itself (each pair once).
+    * "pdist_disk" / "pdist_ring": one random point set within a disk (a quarter of the
+      extent's diagonal) or a ring (an eighth to a quarter) around a random centre.
+
+    The point methods draw with numpy exactly as xdem_tpu does and form their pairs on the
+    device of a tensor input (the default device otherwise). Lag bins are sqrt(2)-geometric
+    from sqrt(2) * gsd to maxlag and the last, undersampled bin is dropped. Estimators:
+    dowd (default), matheron, cressie and genton; Genton's Qn is reduced on the host from at
+    most 400 pairs per bin, so its device grid mode gathers the samples and goes through
+    the pair path. Returns a table with ``exp``, ``lags``, ``count`` and ``err_exp``.
     """
     if n_jobs != 1:
         raise NotImplementedError(
@@ -1160,17 +1456,14 @@ def sample_empirical_variogram(
             "all runs in a single pass).")
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
-    if subsample_method in ("cdist_point", "pdist_point", "pdist_disk", "pdist_ring"):
-        raise NotImplementedError(
-            f"subsample_method={subsample_method!r} is not ported to xdem_tpu_torch yet; use "
-            "'cdist_equidistant'.")
-    if subsample_method != "cdist_equidistant":
+    if subsample_method != "cdist_equidistant" and subsample_method not in _POINT_METHODS:
         raise TypeError(
             'The subsampling method must be one of "cdist_equidistant, "cdist_point", "pdist_point", '
             '"pdist_disk" or "pdist_ring".')
     _check_estimator(estimator)
+    equidistant = subsample_method == "cdist_equidistant"
 
-    arr_dev = arr = grid_valid = coords_v = vals_v = None
+    arr_dev = arr = grid_valid = coords_v = vals_v = points = None
     if isinstance(values, torch.Tensor) and values.dim() == 2:
         arr_dev = values.to(torch.float32)
         ndim = 2
@@ -1186,8 +1479,10 @@ def sample_empirical_variogram(
         nx, ny = arr_dev.shape if arr_dev is not None else arr.shape
         shape = (nx, ny)
         extent = (0.0, (nx - 1) * gsd, 0.0, (ny - 1) * gsd)
-        if arr is not None:
+        if arr is not None and equidistant:
             grid_valid = np.isfinite(arr)
+        if not equidistant:
+            points = _ValidPoints(arr_dev if arr_dev is not None else as_tensor(arr), gsd=float(gsd))
     else:
         coords_all = _host(coords, np.float64)
         if coords_all.shape[0] == 2 and coords_all.shape[1] != 2:
@@ -1199,6 +1494,10 @@ def sample_empirical_variogram(
         vals_v = arr[valid]
         if gsd is None:
             gsd = float(np.sqrt(np.median(np.diff(np.sort(np.unique(coords_v[:, 0]))) ** 2)))
+        if not equidistant:
+            dev = default_device()
+            points = _ValidPoints(torch.from_numpy(vals_v).to(dev),
+                                  coords=torch.from_numpy(np.ascontiguousarray(coords_v)).to(dev))
 
     if maxlag is None:
         maxlag = float(np.hypot(extent[1] - extent[0], extent[3] - extent[2]))
@@ -1214,7 +1513,35 @@ def sample_empirical_variogram(
     bin_edges = np.asarray(edges, dtype=np.float64)
     n_bins = len(bin_edges) - 1
 
+    def point_variogram(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+        if subsample_method in ("cdist_point", "pdist_point"):
+            n = min(subsample, len(points))
+            _check_pair_count(n * n, chunked_available=False)
+            pos1 = rng.choice(len(points), n, replace=False)
+            pos2 = rng.choice(len(points), n, replace=False) if subsample_method == "cdist_point" else None
+        else:
+            # a disk or ring footprint around a random centre; numpy's choice(sel, n) draws
+            # the positions choice(len(sel), n) does, so `sel` stays on the device
+            center = points.coords_at(np.array([rng.integers(0, len(points))]))[0]
+            all_c = points.coords_at()
+            dist_c = torch.hypot(all_c[:, 0] - center[0], all_c[:, 1] - center[1])
+            maxdist = np.hypot(extent[1] - extent[0], extent[3] - extent[2])
+            inside = dist_c <= maxdist / 4
+            if subsample_method == "pdist_ring":
+                inside &= dist_c > maxdist / 8
+            sel = torch.nonzero(inside).reshape(-1)
+            n = min(subsample, int(sel.numel()))
+            if n < 2:
+                raise ValueError("Not enough valid points in the disk/ring for subsampling.")
+            _check_pair_count(n * n, chunked_available=False)
+            pos1 = sel[torch.from_numpy(rng.choice(int(sel.numel()), n, replace=False)).to(sel.device)]
+            pos2 = None
+        diffs, dists = _point_pairs(points, pos1, pos2)
+        return _binned_pair_estimator(diffs, dists, bin_edges, estimator)
+
     def one_variogram(rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+        if not equidistant:
+            return point_variogram(rng)
         if runs is None or samples is None:
             runs_, samples_, _ratio = _choose_cdist_equidistant_sampling_parameters(extent, shape, subsample, nb_rings)
         else:
@@ -1227,58 +1554,75 @@ def sample_empirical_variogram(
                                             nx, ny, float(np.float32(radius0 / gsd)), 8 * samples_)
             total_pairs = ija.shape[0] * ija.shape[1] * ijb.shape[1]
             _check_pair_count(total_pairs)
-            edges_t = torch.from_numpy(bin_edges.astype(np.float32)).to(arr_dev.device)
-            if total_pairs > _PAIR_CHUNK_BUDGET:
-                chunk = max(1, _PAIR_CHUNK_BUDGET // (8 * ija.shape[1] * ijb.shape[1]))
-                pad = (-ija.shape[0]) % chunk
-                gamma, counts = _grid_variogram_device_chunked(
-                    arr_dev, _pad_runs(ija, pad, -1), _pad_runs(ijb, pad, -1), gsd, edges_t, estimator, n_bins, chunk)
-            else:
-                gamma, counts = _grid_variogram_device(arr_dev, ija, ijb, gsd, edges_t, estimator, n_bins)
-            return gamma.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
+            if estimator != _GENTON:
+                edges_t = torch.from_numpy(bin_edges.astype(np.float32)).to(arr_dev.device)
+                if total_pairs > _PAIR_CHUNK_BUDGET:
+                    chunk = max(1, _PAIR_CHUNK_BUDGET // (8 * ija.shape[1] * ijb.shape[1]))
+                    pad = (-ija.shape[0]) % chunk
+                    gamma, counts = _grid_variogram_device_chunked(
+                        arr_dev, _pad_runs(ija, pad, -1), _pad_runs(ijb, pad, -1), gsd, edges_t, estimator, n_bins,
+                        chunk)
+                else:
+                    gamma, counts = _grid_variogram_device(arr_dev, ija, ijb, gsd, edges_t, estimator, n_bins)
+                return gamma.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
 
-        if grid_valid is not None:
-            ija, ijb = _draw_equidistant_rings_host(rng, grid_valid, runs_, samples_, nb_rings, radius0, gsd)
-
-            def gather(ij):
+            def gather_dev(ij):
+                # float64 index * gsd, then float32, as the host modes (and xdem_tpu) form them
                 ok_ij = ij[..., 0] >= 0
-                ii = np.clip(ij[..., 0], 0, nx - 1)
-                jj = np.clip(ij[..., 1], 0, ny - 1)
-                z = np.where(ok_ij, arr[ii, jj], np.nan)
-                co = np.stack([np.where(ok_ij, ii * gsd, np.nan), np.where(ok_ij, jj * gsd, np.nan)], axis=-1)
-                return z, co
+                ii = torch.clamp(ij[..., 0], 0, nx - 1)
+                jj = torch.clamp(ij[..., 1], 0, ny - 1)
+                z = torch.where(ok_ij, arr_dev[ii, jj], torch.nan)
+                co = torch.stack([ii, jj], dim=-1).to(torch.float64) * gsd
+                return z, torch.where(ok_ij[..., None], co, torch.nan).to(torch.float32)
 
-            za, ca = gather(ija)
-            zb, cb = gather(ijb)
+            (za_t, ca_t), (zb_t, cb_t) = gather_dev(ija), gather_dev(ijb)
         else:
-            idx_a, idx_b = [], []  # centre-disk samples, and disk + ring samples, per run
-            for _r in range(runs_):
-                center = coords_v[rng.integers(0, len(coords_v))]
-                dist_c = np.hypot(coords_v[:, 0] - center[0], coords_v[:, 1] - center[1])
-                ia = _sample_with_pad(rng, np.flatnonzero(dist_c <= radius0), samples_)
-                ib = [ia]
-                for k in range(1, nb_rings + 1):
-                    ring = np.flatnonzero((dist_c > radius0 * np.sqrt(2) ** (k - 1))
-                                          & (dist_c <= radius0 * np.sqrt(2) ** k))
-                    ib.append(_sample_with_pad(rng, ring, samples_))
-                idx_a.append(ia)
-                idx_b.append(np.concatenate(ib))
-            ia, ib = np.asarray(idx_a), np.asarray(idx_b)
-            za = np.where(ia >= 0, vals_v[np.clip(ia, 0, None)], np.nan)
-            zb = np.where(ib >= 0, vals_v[np.clip(ib, 0, None)], np.nan)
-            ca = np.where(ia[..., None] >= 0, coords_v[np.clip(ia, 0, None)], np.nan)
-            cb = np.where(ib[..., None] >= 0, coords_v[np.clip(ib, 0, None)], np.nan)
+            if grid_valid is not None:
+                ija, ijb = _draw_equidistant_rings_host(rng, grid_valid, runs_, samples_, nb_rings, radius0, gsd)
 
-        total_pairs = za.shape[0] * za.shape[1] * zb.shape[1]
+                def gather(ij):
+                    ok_ij = ij[..., 0] >= 0
+                    ii = np.clip(ij[..., 0], 0, nx - 1)
+                    jj = np.clip(ij[..., 1], 0, ny - 1)
+                    z = np.where(ok_ij, arr[ii, jj], np.nan)
+                    co = np.stack([np.where(ok_ij, ii * gsd, np.nan), np.where(ok_ij, jj * gsd, np.nan)], axis=-1)
+                    return z, co
+
+                za, ca = gather(ija)
+                zb, cb = gather(ijb)
+            else:
+                idx_a, idx_b = [], []  # centre-disk samples, and disk + ring samples, per run
+                for _r in range(runs_):
+                    center = coords_v[rng.integers(0, len(coords_v))]
+                    dist_c = np.hypot(coords_v[:, 0] - center[0], coords_v[:, 1] - center[1])
+                    ia = _sample_with_pad(rng, np.flatnonzero(dist_c <= radius0), samples_)
+                    ib = [ia]
+                    for k in range(1, nb_rings + 1):
+                        ring = np.flatnonzero((dist_c > radius0 * np.sqrt(2) ** (k - 1))
+                                              & (dist_c <= radius0 * np.sqrt(2) ** k))
+                        ib.append(_sample_with_pad(rng, ring, samples_))
+                    idx_a.append(ia)
+                    idx_b.append(np.concatenate(ib))
+                ia, ib = np.asarray(idx_a), np.asarray(idx_b)
+                za = np.where(ia >= 0, vals_v[np.clip(ia, 0, None)], np.nan)
+                zb = np.where(ib >= 0, vals_v[np.clip(ib, 0, None)], np.nan)
+                ca = np.where(ia[..., None] >= 0, coords_v[np.clip(ia, 0, None)], np.nan)
+                cb = np.where(ib[..., None] >= 0, coords_v[np.clip(ib, 0, None)], np.nan)
+            dev = default_device()
+            za_t, zb_t, ca_t, cb_t = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (za, zb, ca, cb))
+
+        total_pairs = za_t.shape[0] * za_t.shape[1] * zb_t.shape[1]
         _check_pair_count(total_pairs)
-        dev = default_device()
-        za_t, zb_t, ca_t, cb_t = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (za, zb, ca, cb))
         if total_pairs > _PAIR_CHUNK_BUDGET:
-            chunk = max(1, _PAIR_CHUNK_BUDGET // (8 * za.shape[1] * zb.shape[1]))
-            pad = (-za.shape[0]) % chunk
-            edges_t = torch.from_numpy(bin_edges.astype(np.float32)).to(dev)
-            gamma, counts = _pairs_variogram_device_chunked(
-                *(_pad_runs(a, pad, np.nan) for a in (za_t, zb_t, ca_t, cb_t)), edges_t, estimator, n_bins, chunk)
+            chunk = max(1, _PAIR_CHUNK_BUDGET // (8 * za_t.shape[1] * zb_t.shape[1]))
+            pad = (-za_t.shape[0]) % chunk
+            edges_t = torch.from_numpy(bin_edges.astype(np.float32)).to(za_t.device)
+            padded = tuple(_pad_runs(a, pad, np.nan) for a in (za_t, zb_t, ca_t, cb_t))
+            if estimator == _GENTON:
+                res, counts = _pairs_genton_reservoir_chunked(*padded, edges_t, n_bins, chunk)
+                counts = counts.cpu().numpy().astype(np.int64)
+                return _genton_qn_from_reservoir(res.cpu().numpy().astype(np.float64), counts), counts
+            gamma, counts = _pairs_variogram_device_chunked(*padded, edges_t, estimator, n_bins, chunk)
             return gamma.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
         diffs = za_t[:, :, None] - zb_t[:, None, :]
         dists = torch.sqrt(((ca_t[:, :, None, :] - cb_t[:, None, :, :]) ** 2).sum(-1))
@@ -1597,3 +1941,512 @@ def spatial_error_propagation(areas: Sequence[Any], errors: Any, params_variogra
         neff = number_effective_samples(area, params_variogram_model, **kwargs)
         out.append(float(mean_err / np.sqrt(neff)))
     return out
+
+
+# ---------------------------------------------------------------------- patches method
+
+
+def _patches_kernel_size(area: float, gsd: float, patch_shape: str) -> int:
+    """Kernel pixels matching ``area``: diameter for circular patches, side for square."""
+    if patch_shape.lower() == "circular":
+        k = int(np.round(2 * np.sqrt(area / np.pi) / gsd, decimals=0))
+    elif patch_shape.lower() == "square":
+        k = int(np.round(np.sqrt(area) / gsd, decimals=0))
+    else:
+        raise ValueError('Patch shape should be "square" or "circular".')
+    return max(k, 1)
+
+
+def _patches_convolution(
+    values: torch.Tensor,
+    gsd: float,
+    area: float,
+    perc_min_valid: float = 80.0,
+    patch_shape: str = "circular",
+    method: str = "scipy",
+    statistic_between_patches: Callable[[np.ndarray], float] = _stat_nmad,
+    return_in_patch_statistics: bool = False,
+    verbose: bool = False,
+) -> tuple[float, float, float] | tuple[float, float, float, Table]:
+    """Patches method by convolution: a NaN-aware mean filter on the device of `values`, then
+    the spread statistic averaged over all kernel-strided offset grids (convolved patches
+    overlap, so only samples one kernel apart are independent; averaging the kernel^2 offset
+    estimates makes the result robust).
+
+    With the default NMAD, the kernel^2 medians come from one (offset, value) ordering on the
+    device, in float32; any other statistic runs on the host over the strided slices.
+    Returns (statistic between patches, mean independent-patch count, exact discretized patch
+    area[, per-patch table with ``nanmean`` and ``count``])."""
+    _check_conv_method(method)
+    kernel_size = _patches_kernel_size(area, gsd, patch_shape)
+    kernel = _mean_filter_kernel(kernel_size, patch_shape.lower())
+    nb_per_kernel = int(kernel.sum())
+    mean, counts = _mean_filter_nan_device(values, kernel)
+    mean = torch.where(counts < nb_per_kernel * perc_min_valid / 100, torch.nan, mean)
+    if statistic_between_patches is _stat_nmad:
+        h, w = mean.shape
+        offs = (torch.arange(h, device=mean.device) % kernel_size)[:, None] * kernel_size \
+            + (torch.arange(w, device=mean.device) % kernel_size)[None, :]
+        n_offs = kernel_size**2
+        ids = torch.where(torch.isfinite(mean), offs, n_offs).reshape(-1)
+        nbs_t, _med, nmads = _binned_count_med_nmad(mean.reshape(-1), ids, n_offs)
+        stats_arr = nmads.cpu().numpy().astype(np.float64)
+        nbs = nbs_t.cpu().numpy()
+    else:
+        mean_h = mean.cpu().numpy()
+        stats, nbs = [], []
+        for i in range(kernel_size):
+            for j in range(kernel_size):
+                sub = mean_h[i::kernel_size, j::kernel_size].ravel()
+                fin = np.isfinite(sub)
+                stats.append(float(statistic_between_patches(sub)) if fin.any() else np.nan)
+                nbs.append(int(fin.sum()))
+        stats_arr = np.asarray(stats)
+    stat = float(np.mean(stats_arr[np.isfinite(stats_arr)])) if np.isfinite(stats_arr).any() else np.nan
+    nb_indep = float(np.mean(nbs))
+    exact_area = float(nb_per_kernel) * gsd**2
+    if return_in_patch_statistics:
+        table = {"nanmean": mean[::kernel_size, ::kernel_size].reshape(-1).cpu().numpy(),
+                 "count": counts[::kernel_size, ::kernel_size].reshape(-1).cpu().numpy()}
+        return stat, nb_indep, exact_area, table
+    return stat, nb_indep, exact_area
+
+
+def _patches_loop_quadrants(
+    values: np.ndarray,
+    gsd: float,
+    area: float,
+    patch_shape: str = "circular",
+    n_patches: int = 1000,
+    perc_min_valid: float = 80.0,
+    statistics_in_patch: Sequence[Callable | str] = (np.nanmean,),
+    statistic_between_patches: Callable[[np.ndarray], float] = _stat_nmad,
+    random_state: int | None = None,
+    verbose: bool = False,
+) -> tuple[Table, float]:
+    """Patches method by quadrant sampling on the host: draw random non-overlapping quadrants
+    of the right area (numpy, the draws of xdem_tpu) and reduce each patch.
+
+    Returns (per-patch table with ``tile`` and one column per statistic, exact discretized
+    patch area: the footprint pixels actually reduced per patch)."""
+    rng = np.random.default_rng(random_state)
+    values = _host(values, np.float64)
+    side = max(int(np.round(np.sqrt(area) / gsd)), 1)
+    h, w = values.shape
+    nx = h // side
+    ny = w // side
+    if nx == 0 or ny == 0:
+        raise ValueError("Patch area larger than the array extent.")
+    all_quadrants = [(i, j) for i in range(nx) for j in range(ny)]
+    rng.shuffle(all_quadrants)
+
+    if patch_shape.lower() == "circular":
+        yy, xx = np.mgrid[0:side, 0:side] - (side - 1) / 2
+        footprint = (xx**2 + yy**2) <= ((side - 1) / 2) ** 2 if side > 1 else np.ones((1, 1), bool)
+    else:
+        footprint = np.ones((side, side), bool)
+
+    names = [s if isinstance(s, str) else getattr(s, "__name__", str(s)) for s in statistics_in_patch]
+    rows: dict[str, list] = {name: [] for name in ["tile"] + names}
+    for (i, j) in all_quadrants[:n_patches]:
+        vals = values[i * side:(i + 1) * side, j * side:(j + 1) * side][footprint]
+        frac_valid = np.isfinite(vals).mean() * 100
+        if verbose:
+            logging.info("Working on patch (%d, %d): %.0f%% valid", i, j, frac_valid)
+        if frac_valid < perc_min_valid:
+            continue
+        rows["tile"].append(f"{i}_{j}")
+        for stat, name in zip(statistics_in_patch, names):
+            fn = stat if callable(stat) else {"count": lambda v: np.isfinite(v).sum()}[stat]
+            rows[name].append(fn(vals))
+    return {name: np.asarray(col) for name, col in rows.items()}, float(footprint.sum()) * gsd**2
+
+
+def patches_method(
+    values: Any,
+    areas: Sequence[float] | float | None = None,
+    gsd: float | None = None,
+    stable_mask: Any = None,
+    unstable_mask: Any = None,
+    statistics_in_patch: Sequence[Any] = (np.nanmean,),
+    statistic_between_patches: Callable[[np.ndarray], float] = _stat_nmad,
+    perc_min_valid: float = 80.0,
+    patch_shape: str = "circular",
+    vectorized: bool = True,
+    convolution_method: str = "scipy",
+    n_patches: int = 1000,
+    return_in_patch_statistics: bool = False,
+    verbose: bool = False,
+    random_state: int | None = None,
+    area: float | None = None,
+) -> Any:
+    """Empirical estimation of the standard error in averaged areas.
+
+    Pass ``areas`` as a list for one row per area in a table with the columns
+    [<statistic name>, nb_indep_patches, exact_areas, areas];
+    ``return_in_patch_statistics=True`` additionally returns the concatenated per-patch
+    table. Passing a single number (``areas=1e4`` or the keyword ``area=``) gives the
+    compact returns: (spread between patches, independent-patch count) for the vectorized
+    variant, the per-patch table for the loop variant. ``convolution_method`` is validated
+    and otherwise ignored (see :func:`convolution`).
+
+    The vectorized variant filters on the device of a tensor `values` (numpy goes to the
+    default device); the loop variant draws and reduces its quadrants on the host.
+    """
+    if areas is None and area is not None:
+        areas = area
+    if areas is None:
+        areas = 10000.0
+    if gsd is None:
+        raise ValueError("A ground sampling distance is required (pass gsd).")
+
+    if isinstance(values, torch.Tensor) and vectorized:
+        arr = _standardize_masked_device(values, None, _device_mask_of(stable_mask, values.shape, values.device),
+                                         _device_mask_of(unstable_mask, values.shape, values.device))
+    else:
+        arr, _ = _preprocess_values_with_mask_to_array(values, include_mask=stable_mask,
+                                                       exclude_mask=unstable_mask, gsd=gsd)
+        if vectorized:
+            arr = as_tensor(arr)
+
+    def loop_variant(a: float) -> tuple[Table, float]:
+        return _patches_loop_quadrants(
+            arr, gsd, a, patch_shape=patch_shape, n_patches=n_patches, perc_min_valid=perc_min_valid,
+            statistics_in_patch=statistics_in_patch, statistic_between_patches=statistic_between_patches,
+            random_state=random_state, verbose=verbose)
+
+    def one_area(a: float) -> tuple[float, float, float, Table | None]:
+        """(statistic, nb independent patches, exact area, per-patch table or None)."""
+        if vectorized:
+            if verbose:
+                k = _patches_kernel_size(a, gsd, patch_shape)
+                logging.info("Patches (convolution variant): %d x %d px kernel over a %s grid",
+                             k, k, "x".join(map(str, arr.shape)))
+            out = _patches_convolution(
+                arr, gsd, a, perc_min_valid=perc_min_valid, patch_shape=patch_shape, method=convolution_method,
+                statistic_between_patches=statistic_between_patches,
+                return_in_patch_statistics=return_in_patch_statistics)
+            return out[0], out[1], out[2], (out[3] if return_in_patch_statistics else None)
+        table, exact = loop_variant(a)
+        first = statistics_in_patch[0]
+        first_name = first if isinstance(first, str) else getattr(first, "__name__", str(first))
+        if len(table["tile"]):
+            firsts = table[first_name].astype(np.float64)
+            stat = float(statistic_between_patches(firsts))
+            nb = int(np.isfinite(firsts).sum())
+        else:
+            stat, nb = np.nan, 0
+            warnings.warn("No valid patch found covering this area size, returning NaN "
+                          "for statistic.", UserWarning)
+        return stat, float(nb), exact, (table if return_in_patch_statistics else None)
+
+    # A single area: the compact returns
+    if np.ndim(areas) == 0:
+        if vectorized:
+            stat, nb, _exact, _table = one_area(float(areas))
+            return stat, nb
+        return loop_variant(float(areas))[0]
+
+    # A list of areas: one table row per area
+    stats, nbs, exacts, tables = [], [], [], []
+    for a in areas:
+        stat, nb, exact, table = one_area(float(a))
+        stats.append(stat)
+        nbs.append(nb)
+        exacts.append(exact)
+        if return_in_patch_statistics and table is not None:
+            n_rows = len(next(iter(table.values())))
+            tables.append({**table, "areas": np.full(n_rows, float(a)), "exact_areas": np.full(n_rows, exact)})
+    table_statistic = {
+        getattr(statistic_between_patches, "__name__", "statistic"): np.asarray(stats, np.float64),
+        "nb_indep_patches": np.asarray(nbs, np.float64),
+        "exact_areas": np.asarray(exacts, np.float64),
+        "areas": np.asarray(list(areas), np.float64),
+    }
+    if return_in_patch_statistics:
+        cols = list(tables[0]) if tables else []
+        return table_statistic, {c: np.concatenate([t[c] for t in tables]) for c in cols}
+    return table_statistic
+
+
+# ---------------------------------------------------------------------- plotting
+
+
+def _column(df: Any, name: str, dtype: Any = np.float64) -> np.ndarray:
+    """A column of a table of this module or of a pandas frame, as a numpy array."""
+    return np.asarray(df[name], dtype=dtype)
+
+
+def _pyplot(out_fname: str | None):
+    """matplotlib and its pyplot, imported at plot time; with `out_fname` the backend is Agg."""
+    import matplotlib
+
+    if out_fname is not None:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return matplotlib, plt
+
+
+def _interval_mids(df: Any, name: str) -> np.ndarray:
+    """Bin mid-points of variable `name`, NaN in rows that do not bin it: from the
+    ``<name>_left``/``<name>_right`` columns of this module's tables, or from a frame's column
+    of intervals (objects with ``.mid``, or their '[a, b)' strings)."""
+    if f"{name}_left" in df and f"{name}_right" in df:
+        return 0.5 * (_column(df, f"{name}_left") + _column(df, f"{name}_right"))
+    import re
+
+    mids = []
+    for v in np.asarray(df[name], dtype=object):
+        if hasattr(v, "mid"):
+            mids.append(float(v.mid))
+            continue
+        m = re.match(r"[\[\(]\s*([-\d.e+]+)\s*,\s*([-\d.e+]+)\s*[\]\)]", v) if isinstance(v, str) else None
+        mids.append(0.5 * (float(m.group(1)) + float(m.group(2))) if m else np.nan)
+    return np.asarray(mids, np.float64)
+
+
+def plot_variogram(
+    df: Any,
+    list_fit_fun: Sequence[Callable[[np.ndarray], np.ndarray]] | None = None,
+    list_fit_fun_label: Sequence[str] | None = None,
+    ax: Any = None,
+    xscale: str = "linear",
+    xscale_range_split: Sequence[float] | None = None,
+    xlabel: str | None = None,
+    ylabel: str | None = None,
+    xlim: Any = None,
+    ylim: Any = None,
+    out_fname: str | None = None,
+) -> Any:
+    """Plot an empirical variogram (pair counts as bars, variance as points) with optional
+    fitted models, from a table of :func:`sample_empirical_variogram` or a pandas frame.
+
+    ``xscale_range_split`` splits the lag axis into side-by-side panels at the given
+    distances, so that short-range structure stays readable next to the long-range lags;
+    each panel carries its own pair-count histogram on top.
+    """
+    _matplotlib, plt = _pyplot(out_fname)
+
+    if xscale_range_split is not None:
+        return _plot_variogram_split(
+            df, list_fit_fun=list_fit_fun, list_fit_fun_label=list_fit_fun_label, ax=ax,
+            xscale=xscale, xscale_range_split=list(xscale_range_split), xlabel=xlabel,
+            ylabel=ylabel, xlim=xlim, ylim=ylim, out_fname=out_fname,
+        )
+
+    if ax is None:
+        fig, ax = plt.subplots(figsize=(8, 5))
+    else:
+        fig = ax.figure
+
+    lags, exp, counts = _column(df, "lags"), _column(df, "exp"), _column(df, "count")
+    err = _column(df, "err_exp") if "err_exp" in df else np.full_like(exp, np.nan)
+
+    ax2 = ax.twinx() if hasattr(ax, "twinx") else None
+    if ax2 is not None:
+        ax2.bar(lags, counts, width=np.r_[lags[0], np.diff(lags)] * 0.9, alpha=0.2,
+                color="grey", label="pair count")
+        ax2.set_ylabel("pairwise sample count")
+    if np.isfinite(err).any():
+        ax.errorbar(lags, exp, yerr=err, fmt="o", ms=4, label="empirical")
+    else:
+        ax.plot(lags, exp, "o", ms=4, label="empirical")
+
+    if list_fit_fun is not None:
+        h = np.linspace(0, np.nanmax(lags), 500)
+        for i, fn in enumerate(list_fit_fun):
+            label = list_fit_fun_label[i] if list_fit_fun_label else f"model {i+1}"
+            ax.plot(h, fn(h), "-", label=label)
+
+    ax.set_xscale(xscale)
+    ax.set_xlabel(xlabel or "spatial lag")
+    ax.set_ylabel(ylabel or "variance")
+    if xlim is not None:
+        ax.set_xlim(xlim)
+    if ylim is not None:
+        ax.set_ylim(ylim)
+    ax.legend(loc="lower right")
+    if out_fname is not None:
+        fig.savefig(out_fname, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    return ax
+
+
+def _plot_variogram_split(
+    df: Any,
+    list_fit_fun: Sequence[Callable[[np.ndarray], np.ndarray]] | None,
+    list_fit_fun_label: Sequence[str] | None,
+    ax: Any,
+    xscale: str,
+    xscale_range_split: list[float],
+    xlabel: str | None,
+    ylabel: str | None,
+    xlim: Any,
+    ylim: Any,
+    out_fname: str | None,
+) -> Any:
+    """Multi-panel variogram: one sub-axis per lag range, pair-count histogram on top."""
+    import matplotlib.pyplot as plt
+
+    lags, exp, counts = _column(df, "lags"), _column(df, "exp"), _column(df, "count")
+    err = _column(df, "err_exp") if "err_exp" in df else np.full_like(exp, np.nan)
+    edges = np.r_[0.0, lags]
+    centers = 0.5 * (edges[:-1] + edges[1:])
+
+    # Panel boundaries: prepend the axis origin only when the first split is not it, append
+    # the largest lag when absent
+    first = float(np.min(lags)) / 2 if xscale == "log" else 0.0
+    splits = list(xscale_range_split)
+    if splits[0] == 0.0 and xscale == "log":
+        splits[0] = first  # a log axis cannot start at 0
+    elif splits[0] != 0.0 and splits[0] != first:
+        splits = [first] + splits
+    if splits[-1] < float(np.max(lags)):
+        splits.append(float(np.max(lags)))
+    n_panels = len(splits) - 1
+
+    if ax is None:
+        fig = plt.figure(figsize=(3.0 * n_panels + 2.0, 5.0))
+        make_axes = fig.add_axes
+    else:
+        fig = ax.figure
+        ax.axis("off")
+        make_axes = ax.inset_axes
+
+    no_err = bool(np.all(np.isnan(err)))
+    ymax = float(np.nanmax(exp)) * 1.05 if no_err else float(np.nanmax(exp) + np.nanmean(err[np.isfinite(err)]))
+    axes = []
+    for k in range(n_panels):
+        x0, x1 = splits[k], splits[k + 1]
+        left, width = 0.08 + 0.92 * k / n_panels, 0.92 / n_panels * 0.94
+        ax_hist = make_axes([left, 0.78, width, 0.20])
+        ax_stat = make_axes([left, 0.10, width, 0.64])
+        in_panel = (edges[1:] > x0) & (edges[:-1] < x1)
+        for i in np.flatnonzero(in_panel):
+            ax_hist.fill_between([edges[i], edges[i + 1]], 0, counts[i],
+                                 facecolor="grey", alpha=0.6, edgecolor="white", linewidth=0.5)
+        ax_hist.set_xscale(xscale)
+        ax_hist.set_xlim(x0, x1)
+        ax_hist.set_xticks([])
+        sel = (centers >= x0) & (centers <= x1)
+        if no_err:
+            ax_stat.plot(centers[sel], exp[sel], "x", color="tab:blue", label="empirical")
+        else:
+            ax_stat.errorbar(centers[sel], exp[sel], yerr=err[sel], fmt="x", label="empirical")
+        if list_fit_fun is not None:
+            h = np.linspace(max(x0, 1e-9), x1, 300)
+            for i, fn in enumerate(list_fit_fun):
+                label = list_fit_fun_label[i] if list_fit_fun_label else f"model {i + 1}"
+                ax_stat.plot(h, fn(h), "--", label=label)
+        ax_stat.set_xscale(xscale)
+        ax_stat.set_xlim(xlim if xlim is not None else (x0, x1))
+        ax_stat.set_ylim(ylim if ylim is not None else (0, ymax))
+        if k == 0:
+            ax_hist.set_ylabel("pair count")
+            ax_stat.set_ylabel(ylabel or "variance")
+        else:
+            ax_hist.set_yticks([])
+            ax_stat.set_yticks([])
+        if k == n_panels // 2:
+            ax_stat.set_xlabel(xlabel or "spatial lag")
+        if k == n_panels - 1:
+            ax_stat.legend(loc="lower right", fontsize=8)
+        axes.append(ax_stat)
+
+    if out_fname is not None:
+        fig.savefig(out_fname, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    return axes
+
+
+def plot_1d_binning(
+    df: Any,
+    var_name: str,
+    statistic_name: str,
+    label_var: str | None = None,
+    label_statistic: str | None = None,
+    min_count: int = 30,
+    ax: Any = None,
+    out_fname: str | None = None,
+) -> Any:
+    """Plot a 1-D binned statistic of an :func:`nd_binning` table (or xdem_tpu's frame)
+    against the bin mid-points of `var_name`, with the per-bin counts as bars on top."""
+    _matplotlib, plt = _pyplot(out_fname)
+
+    mids_all = _interval_mids(df, var_name)
+    keep = (_column(df, "nd", np.int64) == 1) & np.isfinite(mids_all)
+    mids = mids_all[keep]
+    counts = _column(df, "count")[keep]
+    vals = np.where(counts >= min_count, _column(df, statistic_name)[keep], np.nan)
+
+    if ax is None:
+        fig, (ax_hist, ax) = plt.subplots(
+            2, 1, figsize=(7, 6), sharex=True, gridspec_kw={"height_ratios": [1, 3]}
+        )
+        ax_hist.bar(mids, counts, width=np.median(np.diff(mids)) * 0.9, alpha=0.4, color="grey")
+        ax_hist.set_ylabel("count")
+    else:
+        fig = ax.figure
+    ax.plot(mids, vals, "o-", ms=4)
+    ax.set_xlabel(label_var or var_name)
+    ax.set_ylabel(label_statistic or statistic_name)
+    if out_fname is not None:
+        fig.savefig(out_fname, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    return ax
+
+
+def plot_2d_binning(
+    df: Any,
+    var_name_1: str,
+    var_name_2: str,
+    statistic_name: str,
+    label_var_name_1: str | None = None,
+    label_var_name_2: str | None = None,
+    label_statistic: str | None = None,
+    cmap: str = "Reds",
+    min_count: int = 30,
+    scale_var_1: str = "linear",
+    scale_var_2: str = "linear",
+    vmin: float | None = None,
+    vmax: float | None = None,
+    nodata_color: Any = "yellow",
+    ax: Any = None,
+    out_fname: str | None = None,
+) -> Any:
+    """Plot a 2-D binned statistic of an :func:`nd_binning` table (or xdem_tpu's frame) as a
+    coloured mesh.
+
+    ``scale_var_1/2`` set the axis scales ("linear"/"log"), ``vmin/vmax`` clamp the colour
+    range, and ``nodata_color`` paints the bins masked by ``min_count``."""
+    matplotlib, plt = _pyplot(out_fname)
+
+    mids_1, mids_2 = _interval_mids(df, var_name_1), _interval_mids(df, var_name_2)
+    keep = (_column(df, "nd", np.int64) == 2) & np.isfinite(mids_1) & np.isfinite(mids_2)
+    if not keep.any():
+        raise ValueError(f"No 2-D binning of ({var_name_1}, {var_name_2}) in the dataframe.")
+    m1 = sorted(set(mids_1[keep]))
+    m2 = sorted(set(mids_2[keep]))
+    counts, stat = _column(df, "count"), _column(df, statistic_name)
+    grid = np.full((len(m2), len(m1)), np.nan)
+    for r in np.flatnonzero(keep):
+        if counts[r] >= min_count:
+            grid[m2.index(mids_2[r]), m1.index(mids_1[r])] = stat[r]
+    if ax is None:
+        fig, ax = plt.subplots(figsize=(7, 5))
+    else:
+        fig = ax.figure
+    cmap_obj = matplotlib.colormaps[cmap].copy()
+    cmap_obj.set_bad(nodata_color)
+    im = ax.pcolormesh(m1, m2, np.ma.masked_invalid(grid), cmap=cmap_obj, shading="nearest",
+                       vmin=vmin, vmax=vmax)
+    fig.colorbar(im, ax=ax, label=label_statistic or statistic_name)
+    ax.set_xscale(scale_var_1)
+    ax.set_yscale(scale_var_2)
+    ax.set_xlabel(label_var_name_1 or var_name_1)
+    ax.set_ylabel(label_var_name_2 or var_name_2)
+    if out_fname is not None:
+        fig.savefig(out_fname, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    return ax

@@ -1,7 +1,8 @@
 """Terrain attribute dispatcher: validation, family split, kernel dispatch and epilog.
 
 Port of xdem_tpu/terrain/terrain.py for arrays and tensors. The requested attributes split
-into the surface-fit family (kernel K1), the windowed family (K2) and fractal roughness (K3);
+into the surface-fit family (kernel K1), the windowed family (K2), fractal roughness (K3)
+and texture shading (an FFT filter, terrain/freq.py);
 the input's device decides between each kernel and its plain version (see cuda_kernels.py),
 not ``engine=``. Slope and aspect are converted to degrees, hillshade is clipped to
 [0, 255], and the results come back in request order.
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch._device import as_tensor
-from xdem_tpu_torch.terrain import cuda_kernels
+from xdem_tpu_torch.terrain import cuda_kernels, freq
 from xdem_tpu_torch.terrain.surfit import SURFACE_FIT_ATTRS
 from xdem_tpu_torch.terrain.window import FRACTAL_ATTRS, WINDOWED_ATTRS, normalize_engine
 
@@ -122,8 +123,6 @@ def get_terrain_attribute(
             warnings.warn("Fractal roughness can only be computed on window sizes larger or equal to 5.", UserWarning)
         elif window_size_fractal < 13:
             warnings.warn("Fractal roughness results with window size of less than 13 can be inaccurate.", UserWarning)
-    if "texture_shading" in attrs:
-        raise NotImplementedError("texture_shading (frequency domain) is not ported to xdem_tpu_torch yet.")
 
     sf_attrs = [a for a in attrs if a in SURFACE_FIT_ATTRS]
     win_attrs = [a for a in attrs if a in WINDOWED_ATTRS]
@@ -169,6 +168,9 @@ def get_terrain_attribute(
 
     if "fractal_roughness" in attrs:
         planes["fractal_roughness"] = cuda_kernels.fractal_roughness(arr, window_size=window_size_fractal)
+
+    if "texture_shading" in attrs:
+        planes["texture_shading"] = freq.texture_shading(arr, alpha=texture_alpha)
 
     ordered = [_terrain_epilog(planes[a], a, degrees, out_dtype) for a in attrs]
     return ordered[0] if single else ordered
@@ -335,8 +337,8 @@ def fractal_roughness(dem: Any, window_size_fractal: int = 13, **kwargs: Any) ->
 
 
 def texture_shading(dem: Any, alpha: float = 0.8, **kwargs: Any) -> Any:
-    """Texture shading (Brown 2010): not ported to xdem_tpu_torch yet; raises
-    NotImplementedError. The signature matches xdem_tpu.terrain.texture_shading."""
+    """Texture shading (Brown 2010): a fractional-Laplacian |f|^alpha high-pass in the
+    frequency domain, alpha in [0, 2]."""
     return get_terrain_attribute(dem, attribute="texture_shading", texture_alpha=alpha, **kwargs)
 
 

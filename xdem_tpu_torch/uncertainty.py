@@ -68,7 +68,7 @@ def estimate_uncertainty(
         pair error by sqrt(2).
     :param spread_estimator: Dispersion estimator of numpy values (default: the NMAD, which
         runs on the device).
-    :param variogram_estimator: "dowd" (default), "matheron" or "cressie".
+    :param variogram_estimator: "dowd" (default), "matheron", "cressie" or "genton".
     :param z_name: Elevation column of a point-cloud input (not ported; kept for parity).
     :param transform: The grid's affine transform (its pixel size sets the terrain
         attributes and the variogram lags).
