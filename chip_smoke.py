@@ -63,6 +63,21 @@ Phases:
      masks; patches 1e-4; Genton counts identical, gamma 1e-5) and the convolutions against
      scipy.ndimage in float64 (1e-5 of the mean magnitude, counts exact), with cuDNN's
      float32 precision flags read before and after. Times are printed.
+  8. Raster and DEM from files at 10 000 x 10 000: phase 4's spectral DEM at 20 m in EPSG:32633
+     with vcrs EGM96, and the same terrain moved by (-9.2, 4.6, -2.35) m on a grid whose origin is
+     moved by (0.37, -0.61) px, with 0.4 m of white noise and 15 m lost inside six glacier outlines, are written as DEFLATE GeoTIFFs (in a temporary folder under the git-ignored
+     outputs/) and read back by DEM(path) to the bit. From there, with the kernels' counts set
+     to 0: tba.reproject(ref) and ref.reproject(crs=32632) at full size, each held to a float64
+     host oracle (the projections with numpy, scipy's order-1 map_coordinates) at 1e6 pixels
+     within 1e-5 of its mean magnitude; to_vcrs("Ellipsoid") on the card; the DEM's 14
+     attributes launch K1, K2 and K3 once each and equal the array path to the bit;
+     tba.coregister_3d(ref) with the outlines' complement as inlier mask recovers the shift
+     within 5 %; ref.estimate_uncertainty(aligned) passes phase 5's checks on sigma and rho. On a
+     1024^2 pair made the same way the card is held against the CPU: reprojections 1e-6 of the mean magnitude,
+     to_vcrs 1e-6 m, attributes 1e-3, the fitted shift 1e-4 (the fit's subsample drawn on the card
+     and replayed on the CPU: the two generators draw other points from one seed), and with one
+     aligned DEM on both sigma 5e-3 (p99.9) and 1e-2 (max), rho 5e-3. Times and the phase's peak
+     memory are printed.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -75,6 +90,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 TOL = 1e-3  # terrain parity: max deviation <= 1e-3 of the mean magnitude
@@ -99,6 +115,12 @@ UNC_PAIRS = 100 * 224 * (11 * 224)  # runs x samples x (nb_rings + 1) * samples 
 # multiply-add as two operations: unfused f32 instructions issue at half this rate.
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+RASTER_ORIGIN = (5e5, 8e6)  # upper-left corner (UTM 33N) of phase 4's and phase 8's DEMs
+GRID_OFFSET_PX = (0.37, -0.61)  # phase 8: the to-be-aligned DEM's grid origin moved by (x, y) pixels
+GLACIER_THINNING = 15.0  # metres lost inside phase 8's outlines by the to-be-aligned DEM
+RASTER_NOISE = 0.4  # standard deviation (m) of phase 8's white noise on the to-be-aligned DEM
+ORACLE_POINTS = 1_000_000  # pixels of each phase-8 reprojection held to the float64 oracle
+RASTER_CROP = 1024  # side of the card-against-CPU crop of phase 8
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -340,7 +362,7 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     print(f"  pair {n}x{n} made on the card in {time.perf_counter() - t0:.2f} s")
 
-    transform = Affine.from_origin(5e5, 8e6, RES, RES)
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     suite = terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
@@ -1148,6 +1170,285 @@ def phase_volume(dev, n: int) -> dict:
     return out
 
 
+def raster_outlines(n: int):
+    """Phase 8's glacier outlines: six ellipses over the n x n grid of RES pixels whose upper-left
+    corner is RASTER_ORIGIN (UTM 33N), 181 vertices each."""
+    import numpy as np
+
+    from xdem_tpu_torch import Vector
+
+    x0, y0 = RASTER_ORIGIN
+    ang = np.linspace(0.0, 2 * np.pi, 181)
+    polygons = [[np.column_stack([x0 + n * RES * (cx + rx * np.cos(ang)), y0 - n * RES * (cy + ry * np.sin(ang))])]
+                for cx, cy, rx, ry in ((0.2, 0.25, 0.08, 0.05), (0.55, 0.2, 0.06, 0.09), (0.8, 0.45, 0.07, 0.06),
+                                       (0.3, 0.65, 0.1, 0.06), (0.65, 0.75, 0.05, 0.08), (0.15, 0.85, 0.06, 0.05))]
+    return Vector(polygons, crs=32633)
+
+
+def raster_pair(dev, n: int, seed: int = 0):
+    """Phase 8's pair of DEMs on `dev`: phase 4's spectral DEM at RASTER_ORIGIN in EPSG:32633 with
+    vcrs EGM96, and the to-be-aligned DEM: the same terrain moved by TBA_SHIFT, sampled on a grid
+    whose origin is moved by GRID_OFFSET_PX, with RASTER_NOISE m of white noise (the examples'
+    instrument noise) and GLACIER_THINNING m lost inside raster_outlines(n)."""
+    import torch
+
+    from xdem_tpu_torch import DEM, Affine
+
+    dx, dy, dz = TBA_SHIFT
+    ox, oy = GRID_OFFSET_PX
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    # Pixel (r, c) of the moved grid reads the reference terrain at (r - oy + dy / RES,
+    # c + ox - dx / RES): spectral_dem's shift is minus that offset.
+    ref64, tba64 = spectral_dem(n, seed, shift_px=(oy - dy / RES, dx / RES - ox), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    tba64 += dz + RASTER_NOISE * torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64)
+    ref = DEM.from_array(ref64.float().contiguous(), transform, 32633, vcrs="EGM96")
+    del ref64
+    tba = DEM.from_array(tba64.float().contiguous(), transform.translation(ox * RES, oy * RES), 32633, vcrs="EGM96")
+    del tba64
+    glaciers = raster_outlines(n).create_mask(tba).to(dev)
+    tba.data = torch.where(glaciers, tba.data - GLACIER_THINNING, tba.data)
+    return ref, tba
+
+
+def reproject_oracle(src, dst_crs, dst_transform, rows, cols):
+    """Float64 host values of a bilinear reprojection of Raster `src` at destination pixels
+    (rows, cols): the port's projections with numpy, then scipy's order-1 map_coordinates,
+    NaN where a neighbour is NaN or the point is off the source grid."""
+    import numpy as np
+    from scipy import ndimage
+
+    from xdem_tpu_torch.georef import transform_points
+
+    x, y = dst_transform.xy(rows.astype(np.float64), cols.astype(np.float64))
+    sx, sy = transform_points(dst_crs, src.crs, x, y)
+    r, c = src.transform.rowcol(sx, sy)
+    data = src.get_nanarray()
+    h, w = data.shape
+    bad = np.isnan(data)
+    vals = ndimage.map_coordinates(np.where(bad, np.float32(0), data), [r, c], order=1, output=np.float64)
+    near_bad = ndimage.map_coordinates(bad.astype(np.float32), [r, c], order=1, output=np.float64)
+    inside = (r >= 0) & (r <= h - 1) & (c >= 0) & (c <= w - 1)
+    return np.where(inside & (near_bad == 0), vals, np.nan)
+
+
+def check_against_oracle(label: str, out, src, seed: int) -> dict:
+    """`out` (a reprojection of `src`) against reproject_oracle at ORACLE_POINTS seeded pixels:
+    within 1e-5 of the oracle's mean magnitude, NaN in the same places but for 1e-3 of them
+    (centres within float64 rounding of the source's edge)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, w = out.shape
+    k = min(ORACLE_POINTS, h * w)
+    flat = rng.choice(h * w, k, replace=False)
+    rows, cols = np.divmod(flat, w)
+    got = out.data.reshape(-1)[torch.from_numpy(flat).to(out.data.device)].double().cpu().numpy()
+    t0 = time.perf_counter()
+    want = reproject_oracle(src, out.crs, out.transform, rows, cols)
+    t_oracle = time.perf_counter() - t0
+    both = np.isfinite(got) & np.isfinite(want)
+    rel = float(np.abs(got[both] - want[both]).max() / np.abs(want[both]).mean())
+    nan_diff = float(np.mean(np.isnan(got) != np.isnan(want)))
+    print(f"  {label}: against the float64 oracle at {k} pixels ({int(both.sum())} finite, oracle {t_oracle:.2f} s on "
+          f"the host): {rel:.3e} of the mean magnitude, NaN masks differ at {nan_diff:.2e} of them")
+    check(both.mean() > 0.5 and rel <= 1e-5 and nan_diff <= 1e-3,
+          f"{label}: {rel:.3e} of the oracle's mean magnitude, NaN masks differ at {nan_diff:.2e}")
+    return {"rel": rel, "nan_diff": nan_diff, "points": k}
+
+
+def phase_raster(dev, n: int, folder: str) -> dict:
+    """Raster and DEM from files at n x n: GeoTIFF write and read, reprojection onto the reference
+    grid and to EPSG:32632 against a float64 oracle, the vertical CRS, the 14 attributes of a DEM
+    against the array path, coregister_3d with a Vector's mask, estimate_uncertainty of two DEMs,
+    and the card against the CPU on a RASTER_CROP^2 pair."""
+    import numpy as np
+    import torch
+
+    import xdem_tpu_torch.coreg.affine as coreg_affine
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import DEM, Raster, coreg, terrain
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+
+    dx, dy, dz = TBA_SHIFT
+    out: dict = {}
+    (ref_w, tba_w), t_make = _synced(lambda: raster_pair(dev, n))
+    paths = {name: os.path.join(folder, f"{name}.tif") for name in ("ref", "tba")}
+    out["write_s"] = {name: _synced(lambda: dem.save(paths[name]))[1] for name, dem in (("ref", ref_w), ("tba", tba_w))}
+    print(f"  two {n}x{n} DEMs made on the card in {t_make:.2f} s and written as DEFLATE GeoTIFFs on the host: ref "
+          f"{out['write_s']['ref']:.2f} s, tba {out['write_s']['tba']:.2f} s ({os.path.getsize(paths['ref']) / 1e6:.1f} and "
+          f"{os.path.getsize(paths['tba']) / 1e6:.1f} MB)")
+    outlines = raster_outlines(n)
+
+    # The path a user drives, once, with the kernels' counts set to 0 just before it and read
+    # just after; its checks and steady times follow.
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t_path = time.perf_counter()
+    ref, t_read_ref = _synced(lambda: DEM(paths["ref"]))
+    tba, t_read_tba = _synced(lambda: DEM(paths["tba"]))
+    on_ref, t_rep_first = _synced(lambda: tba.reproject(ref))
+    utm32, t_utm_first = _synced(lambda: ref.reproject(crs=32632))
+    ell, t_vcrs_first = _synced(lambda: ref.to_vcrs("Ellipsoid"))
+    attrs, t_attr_first = _synced(lambda: ref.get_terrain_attribute(list(SUITE)))
+    stable, t_mask = _synced(lambda: ~outlines.create_mask(ref))
+    nk = coreg.NuthKaab()
+    aligned, t_fit = _synced(lambda: tba.coregister_3d(ref, nk, inlier_mask=stable, random_state=42))
+    (sig, rho), t_unc = _synced(lambda: ref.estimate_uncertainty(aligned, stable_terrain=stable, subsample=10000,
+                                                                 random_state=42))
+    t_path = time.perf_counter() - t_path
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  the file-to-result path in {t_path:.2f} s: DEM(path) ref {t_read_ref:.2f} s, tba {t_read_tba:.2f} s; "
+          f"tba.reproject(ref) {t_rep_first:.3f} s; ref.reproject(crs=32632) {t_utm_first:.3f} s; to_vcrs('Ellipsoid') "
+          f"{t_vcrs_first:.3f} s (the built-in geoid's fit on the host); 14 attributes {t_attr_first * 1e3:.2f} ms; "
+          f"outlines.create_mask(ref) {t_mask:.3f} s (host); coregister_3d {t_fit:.3f} s; estimate_uncertainty {t_unc:.3f} s")
+    print(f"  launches on the file-to-result path: {launches}; peak memory {peak / 1e9:.2f} GB")
+    check(launches == {"surface_fit": 2, "windowed": 1, "fractal": 1},
+          f"the path launched {launches}, not K1 twice (attributes, uncertainty), K2 and K3 once")
+    out.update(read_s={"ref": t_read_ref, "tba": t_read_tba}, path_s=t_path, launches=launches, peak_gb=peak / 1e9)
+
+    for name, dem, want in (("ref", ref, ref_w), ("tba", tba, tba_w)):
+        same = bool(torch.equal(torch.isnan(dem.data), torch.isnan(want.data))) and bool(
+            torch.equal(torch.nan_to_num(dem.data), torch.nan_to_num(want.data)))
+        check(dem.data.device == want.data.device and same and dem.vcrs_name == "EGM96" and dem.crs == 32633
+              and tuple(dem.transform) == tuple(want.transform), f"DEM({name}.tif) does not read back what was written")
+    print("  DEM(path): bits, transform, CRS and vcrs EGM96 read back")
+    del ref_w, tba_w
+
+    # Reprojections: against the float64 oracle, steady times, and the byte bound.
+    check(on_ref.data.device == ref.data.device and on_ref.shape == ref.shape, "tba.reproject(ref) left the grid or the card")
+    out["reproject"] = {"first_s": t_rep_first, "oracle": check_against_oracle("tba.reproject(ref)", on_ref, tba, 1)}
+    out["reproject_32632"] = {"first_s": t_utm_first, "oracle": check_against_oracle("ref.reproject(crs=32632)", utm32, ref, 2)}
+    shape_32632, res_32632 = utm32.shape, utm32.res[0]
+    del on_ref, utm32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.max_memory_allocated()
+    _, t_rep = _synced(lambda: tba.reproject(ref))
+    rep_peak = torch.cuda.max_memory_allocated() - base
+    _, t_utm = _synced(lambda: ref.reproject(crs=32632))
+    bound_ms = 2 * 4 * n * n / HBM_BYTES_PER_S * 1e3
+    print(f"  tba.reproject(ref) {n}x{n}, bilinear, same CRS: steady {t_rep * 1e3:.2f} ms against a byte bound of "
+          f"{bound_ms:.3f} ms (the source read once and the result written once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{rep_peak / 1e9:.2f} GB above its inputs; ref.reproject(crs=32632) to {shape_32632[0]}x{shape_32632[1]} at "
+          f"{res_32632:.3f} m: steady {t_utm * 1e3:.2f} ms")
+    out["reproject"].update(steady_ms=t_rep * 1e3, bound_ms=bound_ms, peak_gb=rep_peak / 1e9)
+    out["reproject_32632"]["steady_ms"] = t_utm * 1e3
+
+    # The vertical CRS on the card: EGM96 to the ellipsoid (the built-in geoid, ~30 m here).
+    und = (ell.data.double() - ref.data.double())
+    lo, hi = float(und.min()), float(und.max())
+    check(ell.data.device == ref.data.device and ell.vcrs_name == "Ellipsoid" and 15 < lo <= hi < 50 and hi - lo < 10,
+          f"to_vcrs('Ellipsoid') moved the elevations by {lo:.3f} to {hi:.3f} m")
+    del ell, und
+    _, t_vcrs = _synced(lambda: ref.to_vcrs("Ellipsoid"))
+    print(f"  to_vcrs('Ellipsoid') on the card: undulation {lo:.3f} to {hi:.3f} m; steady {t_vcrs * 1e3:.2f} ms")
+    out["to_vcrs"] = {"first_s": t_vcrs_first, "steady_ms": t_vcrs * 1e3, "undulation_m": [lo, hi]}
+
+    # The 14 attributes of the DEM: the array path's bits, and its time beside the array path's.
+    plain = terrain.get_terrain_attribute(ref.data, list(SUITE), resolution=RES)
+    for a, r, p in zip(SUITE, attrs, plain):
+        check(isinstance(r, Raster) and r.nodata == -99999 and tuple(r.transform) == tuple(ref.transform)
+              and bool(torch.equal(torch.isnan(r.data), torch.isnan(p))) and bool(torch.equal(torch.nan_to_num(r.data), torch.nan_to_num(p))),
+              f"{a}: the DEM's attribute is not the array path's, bit for bit")
+    del attrs, plain
+    turns = {"dem": [], "array": []}
+    for which in ("array", "dem", "dem", "array", "array", "dem"):
+        fn = (lambda: ref.get_terrain_attribute(list(SUITE))) if which == "dem" else (
+            lambda: terrain.get_terrain_attribute(ref.data, list(SUITE), resolution=RES))
+        turns[which].append(_synced(fn)[1] * 1e3)
+    t_dem, t_arr = statistics.median(turns["dem"]), statistics.median(turns["array"])
+    print(f"  dem.get_terrain_attribute(14 attributes): equal to the array path to the bit; steady {t_dem:.2f} ms against "
+          f"the array path's {t_arr:.2f} ms (DEM {[round(t, 2) for t in turns['dem']]}, array {[round(t, 2) for t in turns['array']]})")
+    out["attributes"] = {"dem_ms": t_dem, "array_ms": t_arr, "first_ms": t_attr_first * 1e3}
+
+    # Coregistration and uncertainty.
+    tx, ty, tz = nk.to_translations()
+    mag = math.hypot(dx, dy)
+    print(f"  coregister_3d: {nk.meta['outputs']['iterative']['last_iteration']} iterations, ({tx:.4f}, {ty:.4f}, {tz:.4f}) m, "
+          f"truth ({-dx}, {-dy}, {-dz}) m; {float(stable.float().mean()):.4f} of the pixels outside the outlines")
+    check(isinstance(aligned, DEM) and aligned.shape == tba.shape and tuple(aligned.transform) == tuple(tba.transform),
+          "coregister_3d did not return a DEM on the to-be-aligned grid")
+    check(abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
+          f"horizontal shift ({tx:.3f}, {ty:.3f}) not within 5% of ({-dx}, {-dy})")
+    out["coreg"] = {"fit_apply_s": t_fit, "mask_s": t_mask, "translation": [tx, ty, tz]}
+    finite = float(torch.isfinite(sig.data).float().mean())
+    med = float(torch.nanmedian(sig.data))
+    lags = np.linspace(0.0, 3e5, 3001)
+    r0, r_far = float(rho(np.array([0.0]))[0]), float(rho(np.array([1e7]))[0])
+    monotone = bool(np.all(np.diff(rho(lags)) <= 1e-12))
+    print(f"  estimate_uncertainty: sigma {finite:.5f} finite, median {med:.6f} m; rho(0) = {r0}, rho(1e7 m) = {r_far:.3e}, "
+          f"rho(20, 200, 2000 m) = {[round(float(x), 6) for x in rho(np.array([20.0, 200.0, 2000.0]))]}")
+    check(isinstance(sig, Raster) and sig.data.device == ref.data.device and sig.shape == ref.shape and finite >= 0.99 and med > 0,
+          f"sigma: {finite:.4f} finite, median {med}")
+    check(abs(r0 - 1.0) < 1e-12 and monotone and abs(r_far) <= 0.05, f"rho(0) = {r0}, rho(1e7) = {r_far}, non-increasing: {monotone}")
+    out.update(uncertainty_s=t_unc, sigma_median_m=med)
+    del sig, aligned, ref, tba, stable
+    torch.cuda.empty_cache()
+
+    # The card against the CPU on a RASTER_CROP^2 pair made the same way (a crop of the pair above
+    # is 20 km of one hillside, where Nuth & Kaab has no aspects to fit). The card's and the CPU's
+    # generators draw other points from one seed, so the fit's draw and the uncertainty call's
+    # draws are the card's, replayed on the CPU as in phase 5.
+    k = min(RASTER_CROP, n)
+    pair_c = raster_pair(torch.device("cpu"), k, seed=3)
+    stable_c = ~raster_outlines(k).create_mask(pair_c[0])
+    on = []
+    undo = _replay(coreg_affine, "topk_subsample")
+    try:
+        for d in (dev, torch.device("cpu")):
+            r_c, t_c = (x.copy(new_array=x.data.to(d)) for x in pair_c)
+            nk_c = coreg.NuthKaab()
+            aligned_c = t_c.coregister_3d(r_c, nk_c, inlier_mask=stable_c.to(d), random_state=42)
+            on.append({"onto": t_c.reproject(r_c).data.cpu(), "utm32": r_c.reproject(crs=32632).data.cpu(),
+                       "vcrs": r_c.to_vcrs("Ellipsoid").data.cpu(),
+                       "attrs": [a.data.cpu() for a in r_c.get_terrain_attribute(list(SUITE))],
+                       "shift": np.array(nk_c.to_translations()), "pair": (r_c, aligned_c)})
+    finally:
+        undo()
+    # The uncertainty call on both devices takes one aligned DEM (the CPU's), so that it compares
+    # the uncertainty path alone.
+    aligned_c = on[1]["pair"][1]
+    undo = [_replay(terrain, "get_terrain_attribute"), _replay(ss, "_hetero_sample_indices"),
+            _replay(ss, "_draw_rings_from_arr")]
+    try:
+        for o in on:
+            r_c = o.pop("pair")[0]
+            other = aligned_c.copy(new_array=aligned_c.data.to(r_c.data.device))
+            sig_c, rho_c = r_c.estimate_uncertainty(other, stable_terrain=stable_c.to(r_c.data.device), subsample=2000,
+                                                    random_state=42)
+            o.update(sigma=sig_c.data.cpu().double(), rho=rho_c(np.array([20.0, 200.0, 2000.0])))
+    finally:
+        for u in undo:
+            u()
+    gpu, cpu = on
+    d_rep = {key: scaled_dev(gpu[key], cpu[key])[0] for key in ("onto", "utm32")}
+    nan_rep = {key: int((torch.isnan(gpu[key]) != torch.isnan(cpu[key])).sum()) for key in ("onto", "utm32")}
+    d_vcrs = float((gpu["vcrs"].double() - cpu["vcrs"].double()).abs().nan_to_num(0).max())
+    d_attr = max(scaled_dev(*((torch.deg2rad(g), torch.deg2rad(c)) if a == "aspect" else (g, c)), circular=a == "aspect")[0]
+                 for a, g, c in zip(SUITE, gpu["attrs"], cpu["attrs"]))
+    nan_attr = all(bool(torch.equal(torch.isnan(g), torch.isnan(c))) for g, c in zip(gpu["attrs"], cpu["attrs"]))
+    d_shift = float(np.max(np.abs(gpu["shift"] - cpu["shift"]) / np.abs(cpu["shift"])))
+    both = torch.isfinite(cpu["sigma"]) & torch.isfinite(gpu["sigma"])
+    dsig = torch.abs(gpu["sigma"][both] - cpu["sigma"][both]) / cpu["sigma"][both].abs().mean()
+    p999, dmax = float(torch.quantile(dsig, 0.999)), float(dsig.max())
+    d_rho = float(np.abs(gpu["rho"] - cpu["rho"]).max())
+    print(f"  card vs CPU on a {k}^2 pair: reproject onto the reference {d_rep['onto']:.3e}, to EPSG:32632 {d_rep['utm32']:.3e} "
+          f"of the mean magnitude (NaN masks differ at {nan_rep} pixels); to_vcrs {d_vcrs:.3e} m; 14 attributes {d_attr:.3e} of "
+          f"the mean magnitude (NaN masks identical {nan_attr}); Nuth & Kaab shift {d_shift:.3e} relative (card "
+          f"{[round(float(v), 4) for v in gpu['shift']]} m); sigma p99.9 {p999:.3e}, max {dmax:.3e} of its mean; rho {d_rho:.3e}")
+    check(max(d_rep.values()) <= 1e-6 and max(nan_rep.values()) <= 2, f"reprojection card vs CPU: {d_rep}, NaN {nan_rep}")
+    check(d_vcrs <= 1e-6, f"to_vcrs card vs CPU: {d_vcrs:.3e} m")
+    check(d_attr <= TOL and nan_attr, f"attributes card vs CPU: {d_attr:.3e}, NaN masks identical {nan_attr}")
+    check(d_shift <= 1e-4, f"Nuth & Kaab card vs CPU: {d_shift:.3e}")
+    check(p999 <= 5e-3 and dmax <= 1e-2 and d_rho <= 5e-3, f"uncertainty card vs CPU: sigma {p999:.3e} / {dmax:.3e}, rho {d_rho:.3e}")
+    out["crop"] = {"reproject": d_rep, "reproject_nan_px": nan_rep, "to_vcrs_m": d_vcrs, "attributes": d_attr,
+                   "shift_rel": d_shift, "sigma_p999": p999, "sigma_max": dmax, "rho": d_rho}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1160,7 +1461,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/7] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/8] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
     print(card)
@@ -1169,7 +1470,7 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/7] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/8] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -1181,23 +1482,30 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/7] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/8] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/7] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/8] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/7] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/8] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/7] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/8] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[7/7] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[7/8] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
     vol = phase_volume(dev, MAIN_SIZE)
+    torch.cuda.empty_cache()
+
+    print(f"[8/8] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs")  # git-ignored
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as folder:
+        ras = phase_raster(dev, MAIN_SIZE, folder)
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
@@ -1207,7 +1515,7 @@ def main() -> int:
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
-        "uncertainty": unc, "coreg": cor, "volume": vol}
+        "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -297,6 +297,8 @@ def test_binned_states_need_pandas_from_jax_and_round_trip_from_the_port(pair, t
 
 
 def test_blockwise_names_raise_naming_raster():
+    """The blockwise names raise, naming their module as not ported (Raster, which they
+    need, is ported)."""
     for name in ("BlockwiseCoreg", "BlockwiseNuthKaab", "MultiprocConfig"):
-        with pytest.raises(NotImplementedError, match="Raster"):
+        with pytest.raises(NotImplementedError, match=r"coreg/blockwise\.py\) is not ported"):
             getattr(coreg, name)()

@@ -240,8 +240,14 @@ def test_geographic_and_unported_crs_raise(pair):
     ref, tba = pair
     with pytest.raises(NotImplementedError, match="projected"):
         coreg.NuthKaab().fit(ref, tba, transform=TRANSFORM, crs=4326)
-    with pytest.raises(NotImplementedError, match="EPSG"):
+    # A PROJ string goes through the CRS engine: a geographic one meets the same guard, as in
+    # xdem_tpu; what is no CRS at all raises CRS's error.
+    with pytest.raises(NotImplementedError, match="projected"):
         coreg.NuthKaab().fit(ref, tba, transform=TRANSFORM, crs="+proj=longlat")
+    with pytest.raises(NotImplementedError, match="projected"):
+        jcoreg.NuthKaab().fit(ref, tba, transform=JAX_TRANSFORM, crs="+proj=longlat")
+    with pytest.raises(TypeError, match="Cannot build a CRS"):
+        coreg.NuthKaab().fit(ref, tba, transform=TRANSFORM, crs=3.5)
 
 
 @pytest.mark.parametrize("kwargs,err", [

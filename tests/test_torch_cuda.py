@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card,
 the uncertainty path's device functions on the card against the CPU, and the volume, texture
-shading, convolution, patches and Genton paths on the card against the CPU at 512^2.
+shading, convolution, patches and Genton paths on the card against the CPU at 512^2, and the
+DEM path (reprojection, the vertical CRS, a DEM's attributes) on the card against the CPU.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -542,3 +543,55 @@ def test_genton_on_the_card_matches_the_cpu(cuda_device, monkeypatch, method):
     want = ss.sample_empirical_variogram(noise.cpu(), **kw)
     np.testing.assert_array_equal(got["count"], want["count"])
     np.testing.assert_allclose(got["exp"], want["exp"], rtol=1e-5, equal_nan=True)
+
+
+# ---------------------------------------------------------------------- Raster and DEM
+
+
+def _card_dem(cuda_device):
+    """The examples' test DEM on the card and on the CPU."""
+    from xdem_tpu_torch import examples
+
+    dem = examples.get_ref_dem_test()
+    return dem.copy(new_array=dem.data.to(cuda_device)), dem.copy(new_array=dem.data.cpu())
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear", "cubic"])
+@pytest.mark.parametrize("target", ["sub_pixel", "utm32", "laea"])
+def test_reproject_on_the_card_matches_the_cpu(cuda_device, method, target):
+    """float64 coordinates on both devices: within 1e-6 of the mean magnitude, NaN masks equal
+    but for a pixel or two whose centre lies within float64 rounding of the source's edge."""
+    gpu, cpu = _card_dem(cuda_device)
+    if target == "sub_pixel":
+        got, want = (d.reproject(d.translate(7.4, -12.2), resampling=method) for d in (gpu, cpu))
+    else:
+        crs = 32632 if target == "utm32" else 3035
+        got, want = (d.reproject(crs=crs, resampling=method) for d in (gpu, cpu))
+    assert got.data.is_cuda and tuple(got.transform) == tuple(want.transform) and got.shape == want.shape
+    g, w = got.get_nanarray(), want.get_nanarray()
+    assert (np.isnan(g) != np.isnan(w)).sum() <= 2
+    assert scaled_dev(g, w) <= 1e-6
+
+
+def test_to_vcrs_on_the_card_matches_the_cpu(cuda_device):
+    gpu, cpu = _card_dem(cuda_device)
+    for d in (gpu, cpu):
+        d.set_vcrs("EGM96")
+    got, want = gpu.to_vcrs("Ellipsoid"), cpu.to_vcrs("Ellipsoid")
+    assert got.data.is_cuda and got.vcrs_name == want.vcrs_name == "Ellipsoid"
+    np.testing.assert_allclose(got.get_nanarray(), want.get_nanarray(), rtol=0, atol=1e-6)
+
+
+def test_dem_attributes_on_the_card_equal_the_array_path(cuda_device):
+    """A DEM's 14 attributes on the card launch K1, K2 and K3 and equal the array path's bits."""
+    gpu, _ = _card_dem(cuda_device)
+    suite = ["slope", "aspect", "hillshade", "profile_curvature", "tangential_curvature", "planform_curvature",
+             "flowline_curvature", "max_curvature", "min_curvature", "topographic_position_index",
+             "terrain_ruggedness_index", "roughness", "rugosity", "fractal_roughness"]
+    ck.reset_launch_counts()
+    got = gpu.get_terrain_attribute(suite)
+    assert ck.LAUNCHES == {"surface_fit": 1, "windowed": 1, "fractal": 1}
+    want = terrain.get_terrain_attribute(gpu.data, suite, resolution=gpu.res)
+    for a, g, w in zip(suite, got, want):
+        assert g.data.is_cuda and g.nodata == -99999 and tuple(g.transform) == tuple(gpu.transform)
+        _bit_equal(g.data, w, a)

@@ -34,7 +34,9 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
         "xdem_tpu_torch.ops, xdem_tpu_torch.terrain.cuda_kernels, xdem_tpu_torch.spatialstats, "
         "xdem_tpu_torch.uncertainty, xdem_tpu_torch.fit, xdem_tpu_torch.coreg.biascorr, "
         "xdem_tpu_torch.coreg.filters, xdem_tpu_torch.coreg.blockwise, xdem_tpu_torch.volume, "
-        "xdem_tpu_torch.terrain.freq; "
+        "xdem_tpu_torch.terrain.freq, xdem_tpu_torch.projections, xdem_tpu_torch.georef, xdem_tpu_torch.config, "
+        "xdem_tpu_torch.io, xdem_tpu_torch.geoid, xdem_tpu_torch.vcrs, xdem_tpu_torch.vector, xdem_tpu_torch._misc, "
+        "xdem_tpu_torch.raster, xdem_tpu_torch.dem, xdem_tpu_torch.examples; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -158,6 +160,96 @@ def test_volume_texture_and_patches_run_without_pandas():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_file_to_result_path_runs_without_pandas(tmp_path):
+    """Raster and DEM from files: GeoTIFF I/O, a cross-CRS reprojection, the vertical CRS, a
+    Vector mask, the terrain wrappers, coregister_3d and estimate_uncertainty import and run
+    with pandas unavailable and without JAX or xdem_tpu in the process, as on the card's
+    machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import DEM, examples\n"
+        f"d = {str(tmp_path)!r}\n"
+        "ref = DEM(examples.get_path_test('longyearbyen_ref_dem', output_dir=d))\n"
+        "tba = DEM(examples.get_path_test('longyearbyen_tba_dem', output_dir=d))\n"
+        "outlines = examples.get_glacier_outlines()\n"
+        "assert ref.reproject(crs=32632).shape[0] > 200 and ref.crs == 32633\n"
+        "ref.set_vcrs('EGM96'); ell = ref.to_vcrs('Ellipsoid')\n"
+        "assert 25 < float(np.nanmedian(ell.get_nanarray() - ref.get_nanarray())) < 40\n"
+        "slope = ref.slope(); assert np.isfinite(slope.get_nanarray()).mean() > 0.9\n"
+        "aligned = tba.coregister_3d(ref, inlier_mask=~outlines.create_mask(ref), random_state=42)\n"
+        "sig, rho = ref.estimate_uncertainty(aligned, stable_terrain=~outlines.create_mask(ref), subsample=500,\n"
+        "                                    random_state=1)\n"
+        "assert np.isfinite(sig.get_nanarray()).mean() > 0.9 and abs(rho(np.array([0.0]))[0] - 1) < 1e-9\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad and sys.modules['pandas'] is None, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _same(a, b) -> bool:
+    """Deep equality of copied tables: arrays by value and dtype (NaN equal to NaN)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (np.asarray(a).dtype == np.asarray(b).dtype
+                and np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float) and math.isnan(a) and math.isnan(b):
+        return True
+    return a == b
+
+
+# The substrate's copied modules, and the names in them that are not tables of the original:
+# the projection kernels by family (functions of each package, compared by their keys below),
+# the TPU-only config keys, a logger, a path, the codec once loaded (None until a first read or
+# write, so its value depends on the tests that ran before), the examples' cache directory, a TypeVar.
+_COPIED = {"projections": {"_logger", "_FORWARD", "_INVERSE"}, "geoid": set(), "vcrs": set(),
+           "config": {"_DEFAULTS", "config"}, "georef": {"_PROJ_DEFS"}, "io": {"_SRC", "_LIB"}, "dem": set(),
+           "examples": {"_CACHE_DIR"}, "_misc": {"T"}}
+
+
+@pytest.mark.parametrize("module", sorted(_COPIED))
+def test_substrate_tables_equal_originals(module):
+    """Every module-level table of xdem_tpu's substrate modules (the EPSG, ellipsoid and datum
+    tables of projections, the geoid coefficients and stations, the vertical CRS and product
+    tables, the examples' grid) is in the port's copy and equal to it."""
+    import importlib
+
+    theirs = importlib.import_module(f"xdem_tpu.{module}")
+    ours = importlib.import_module(f"xdem_tpu_torch.{module}")
+    for name, value in vars(theirs).items():
+        if name.startswith("__") or callable(value) or isinstance(value, type(math)) or name in _COPIED[module]:
+            continue
+        assert hasattr(ours, name), f"{module}.{name} is missing"
+        assert _same(value, getattr(ours, name)), f"{module}.{name} differs"
+    if module == "projections":
+        assert ours._FORWARD.keys() == theirs._FORWARD.keys() == ours._INVERSE.keys() == theirs._INVERSE.keys()
+    if module == "config":
+        assert ours._DEFAULTS == {k: theirs._DEFAULTS[k] for k in ("resampling", "warn_area_or_point",
+                                                                    "shift_area_or_point")}
+        assert {"shape_bucketing", "prefer_pallas"} == set(theirs._DEFAULTS) - set(ours._DEFAULTS)
+
+
+def test_geotiff_codec_is_a_byte_copy():
+    theirs = Path(xdem_tpu.__file__).resolve().parent / "native" / "geotiff.cpp"
+    assert (PKG / "native" / "geotiff.cpp").read_bytes() == theirs.read_bytes()
+
+
+def test_codec_build_names_what_is_missing(monkeypatch, tmp_path):
+    """No g++ or no zlib header is an error that says so; nothing else is tried."""
+    from xdem_tpu_torch import io as tio
+
+    monkeypatch.setattr(tio, "library_path", lambda: tmp_path / "geotiff" / "libxdemtiff.so")
+    monkeypatch.setattr(tio.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g..? was not found"):
+        tio.build_library()
+
+
 def test_copied_genton_constants_and_fft_sizes_equal_originals():
     """The port keeps its own copy of the Genton reservoir's cap and pair keys (the rest of
     xdem_tpu/parallel stays unported) and of next_fast_fft_size."""
@@ -209,12 +301,26 @@ def test_geographic_epsg_rule_matches_crs():
             continue
         assert georef.is_projected(code) == want, code
         assert georef.is_projected(f"EPSG:{code}") == want, code
+        assert (code in georef.GEOGRAPHIC_EPSG) == (not want), code
 
 
 @pytest.mark.parametrize("crs", ["+proj=utm +zone=33 +datum=WGS84", 'PROJCS["x"]', 3.5, None])
 def test_non_epsg_crs_not_ported(crs):
-    with pytest.raises(NotImplementedError, match="EPSG"):
-        georef.is_projected(crs)
+    """PROJ strings and WKT go through the CRS engine as in xdem_tpu (a WKT with neither
+    parameters nor a code is refused there too); what is no CRS at all raises CRS's error."""
+    if isinstance(crs, str):
+        try:
+            want = CRS(crs).is_projected
+        except ValueError as err:
+            with pytest.raises(ValueError, match="neither parameters nor an EPSG"):
+                georef.is_projected(crs)
+            assert "neither parameters" in str(err)
+        else:
+            assert georef.is_projected(crs) is want is True
+            assert georef.is_projected(CRS(crs).to_wkt()) is True
+    else:
+        with pytest.raises(TypeError, match="Cannot build a CRS"):
+            georef.is_projected(crs)
 
 
 def test_affine_copy_matches_original():

@@ -475,7 +475,8 @@ def test_circular_neff_and_error_propagation_match_xdem_tpu():
 
 
 class _VectorLike:
-    """Stands in for a Vector: it has bounds and create_mask."""
+    """Stands in for a Vector: it has bounds and create_mask (rasterized only on a Raster's
+    grid, so a bare tensor with one is refused as xdem_tpu refuses it)."""
 
     bounds = (0.0, 0.0, 100.0, 100.0)
 
@@ -496,12 +497,12 @@ class _VectorLike:
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, estimator="median"), ValueError, "not supported"),
     (lambda f: tss.sample_empirical_variogram(f), ValueError, "ground sampling distance"),
     (lambda f: tss.infer_spatial_correlation_from_stable(f, ["gaussian"], stable_mask=_VectorLike(), gsd=10.0),
-     NotImplementedError, "Raster/DEM"),
+     ValueError, "raster is needed"),
     (lambda f: tss.infer_heteroscedasticity_from_stable(f, [f], stable_mask=_VectorLike(), subsample=100),
-     NotImplementedError, "Raster/DEM"),
+     ValueError, "raster is needed"),
     (lambda f: tss.infer_heteroscedasticity_from_stable(f, [f], subsample=100, mesh=object()),
      NotImplementedError, "mesh"),
-    (lambda f: tss.spatial_error_propagation([_VectorLike()], f, PARAMS), NotImplementedError, "Vector area"),
+    (lambda f: tss.spatial_error_propagation(["1 km2"], f, PARAMS), ValueError, "Area must be"),
     (lambda f: tss.number_effective_samples("1 km2", PARAMS), ValueError, "Area must be"),
     (lambda f: tss.neff_exact(np.zeros((3, 2)), np.ones(3), PARAMS, mesh=object()), NotImplementedError, "mesh"),
 ])

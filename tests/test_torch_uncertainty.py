@@ -121,11 +121,11 @@ class _VectorLike:
 
 @pytest.mark.parametrize("change,exc,match", [
     (dict(other=pd.DataFrame({"x": [0.0], "y": [0.0], "z": [1.0]})), NotImplementedError, "point-cloud"),
-    (dict(stable_terrain=_VectorLike()), NotImplementedError, "Raster/DEM"),
+    (dict(stable_terrain=_VectorLike()), ValueError, "raster is needed"),
     (dict(mesh=object()), NotImplementedError, "mesh"),
-    (dict(other=np.zeros((10, 12), np.float32)), ValueError, "reprojection is not ported"),
+    (dict(other=np.zeros((10, 12), np.float32)), ValueError, "not on the grid"),
     (dict(transform=None), ValueError, "transform="),
-    (dict(crs="+proj=utm +zone=33"), NotImplementedError, "EPSG"),
+    (dict(crs=3.5), TypeError, "Cannot build a CRS"),
     (dict(approach="H2023"), ValueError, "Unknown uncertainty approach"),
     (dict(variogram_estimator="median"), ValueError, "not supported"),
 ])

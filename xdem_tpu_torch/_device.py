@@ -26,11 +26,13 @@ def default_device() -> torch.device:
 
 def as_tensor(x: Any, device: torch.device | str | None = None) -> torch.Tensor:
     """A float32 tensor of `x`: masked arrays become NaN-filled, numpy goes to `device`
-    (default :func:`default_device`), a tensor keeps its device unless `device` is given."""
+    (default :func:`default_device`), a tensor (or a Raster's data) keeps its device unless
+    `device` is given."""
+    x = unmask(x)
     if isinstance(x, torch.Tensor):
         t = x if device is None else x.to(device)
         return t.to(DTYPE) if t.dtype != DTYPE else t
-    arr = np.ascontiguousarray(unmask(x), dtype=np.float32)
+    arr = np.ascontiguousarray(x, dtype=np.float32)
     if not arr.flags.writeable:  # torch.from_numpy warns on read-only memory (a JAX array's view)
         arr = arr.copy()
     return torch.from_numpy(arr).to(device or default_device())

@@ -1,7 +1,7 @@
-"""3-D coregistration of raster pairs: affine methods, bias corrections and pipelines, with
-the matrix toolbox. Blockwise coregistration (BlockwiseCoreg, BlockwiseNuthKaab,
-MultiprocConfig) takes Raster inputs and is not ported yet: those names raise
-NotImplementedError."""
+"""3-D coregistration of raster pairs (Rasters/DEMs, or arrays and tensors with a transform):
+affine methods, bias corrections and pipelines, with the matrix toolbox. Blockwise
+coregistration (BlockwiseCoreg, BlockwiseNuthKaab, MultiprocConfig) is not ported yet: those
+names raise NotImplementedError."""
 
 from xdem_tpu_torch.coreg.base import (
     Coreg,

@@ -1,12 +1,15 @@
 """Coregistration framework: matrix toolbox, matrix application, the Coreg base class and
 CoregPipeline.
 
-Port of xdem_tpu/coreg/base.py for gridded elevation given as arrays or tensors with
-``transform=`` (and ``crs=``). A matrix is applied in four tiers: (1) a pure vertical shift,
+Port of xdem_tpu/coreg/base.py for gridded elevation given as Rasters/DEMs, or as arrays or
+tensors with ``transform=`` (and ``crs=``). A to-be-aligned Raster on another grid is
+reprojected onto the reference's; inlier masks may be arrays, tensors, Rasters (regridded by
+nearest neighbour) or Vectors. ``apply`` returns a Raster for a Raster and (tensor,
+transform) for an array. A matrix is applied in four tiers: (1) a pure vertical shift,
 (2) a translation applied by updating the georeferencing (resampled back onto the input grid
 by bilinear gathers), (3) small rotations by a fixed-point inverse regrid on the device of the
-DEM, (4) large rotations by a host Delaunay regrid (scipy). Raster and point-cloud inputs are
-not ported yet.
+DEM, (4) large rotations by a host Delaunay regrid (scipy). Point-cloud inputs are not
+ported yet.
 
 The fitted state is the ``meta`` dict. :meth:`Coreg.load` reads the pickle that
 ``xdem_tpu``'s ``Coreg.save`` writes (pipelines included), and :meth:`Coreg.from_meta` takes
@@ -30,6 +33,7 @@ import torch
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.georef import Affine
 from xdem_tpu_torch.ops.interp import interp_rowcol
+from xdem_tpu_torch.raster import Raster, mask_on
 
 
 class NotImplementedCoregFit(NotImplementedError):
@@ -318,31 +322,75 @@ def _as_affine(transform: Any) -> Affine | None:
 
 
 def _is_grid(elev: Any) -> bool:
-    return np.ndim(elev) == 2
+    return isinstance(elev, Raster) or np.ndim(elev) == 2
+
+
+def _cast_area_or_point(ref: Raster, tba: Raster) -> str | None:
+    """Equal pixel interpretations pass through; a mismatch warns (unless the config says not
+    to) and is cast to undefined, as xdem_tpu does."""
+    from xdem_tpu_torch.config import config
+
+    if ref.area_or_point == tba.area_or_point:
+        return ref.area_or_point
+    if config["warn_area_or_point"]:
+        warnings.warn(
+            f"The reference and to-be-aligned rasters have different pixel interpretations "
+            f"({ref.area_or_point!r} vs {tba.area_or_point!r}), which "
+            f"implies a half-pixel georeferencing offset between them; the interpretation "
+            f"is cast to undefined. Harmonize them before coregistering.",
+            UserWarning,
+        )
+    return None
 
 
 def _preprocess_coreg_fit(reference_elev: Any, to_be_aligned_elev: Any, inlier_mask: Any,
-                          transform: Any) -> tuple[torch.Tensor, torch.Tensor, Any, Affine]:
-    """Normalize a raster-raster pair given as arrays or tensors on one grid."""
+                          transform: Any, crs: Any = None, area_or_point: str | None = None,
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, Affine, Any, str | None]:
+    """Normalize a raster-raster pair onto one grid: two Rasters (the to-be-aligned one
+    reprojected onto the reference grid when they differ), a Raster and an array on its grid,
+    or two arrays or tensors with `transform`. Returns (ref, tba, inlier mask, transform, crs,
+    area_or_point)."""
     if not (_is_grid(reference_elev) and _is_grid(to_be_aligned_elev)):
         raise NotImplementedError(
-            "xdem_tpu_torch coregistration takes two 2-D arrays or tensors on one grid; "
-            "Raster, DEM and point-cloud inputs are not ported yet."
+            "xdem_tpu_torch coregistration takes two gridded elevations (Rasters/DEMs, or 2-D arrays "
+            "or tensors on one grid); point-cloud inputs are not ported yet."
         )
     transform = _as_affine(transform)
-    if transform is None:
+    ref_r = reference_elev if isinstance(reference_elev, Raster) else None
+    tba_r = to_be_aligned_elev if isinstance(to_be_aligned_elev, Raster) else None
+    if ref_r is not None and tba_r is not None:
+        if ref_r.shape != tba_r.shape or not ref_r.transform.almost_equals(tba_r.transform) or tba_r.crs != ref_r.crs:
+            tba_r = tba_r.reproject(ref_r)
+        transform, crs = ref_r.transform, ref_r.crs
+        area_or_point = _cast_area_or_point(ref_r, tba_r)
+    elif ref_r is not None or tba_r is not None:
+        # A Raster and a plain array: the raster's georeferencing applies to both grids.
+        one = ref_r if ref_r is not None else tba_r
+        arr_side = to_be_aligned_elev if ref_r is not None else reference_elev
+        if tuple(np.shape(arr_side)) != one.shape:
+            raise ValueError(
+                f"A plain-array elevation ({tuple(np.shape(arr_side))}) must already be on the "
+                f"raster input's grid ({one.shape}); reproject or pass two Rasters."
+            )
+        if transform is not None:
+            warnings.warn("A raster was passed alongside an explicit 'transform'; the raster's own "
+                          "transform is used.", UserWarning)
+        transform = one.transform
+        crs = one.crs if crs is None else crs
+        area_or_point = one.area_or_point if area_or_point is None else area_or_point
+    elif transform is None:
         raise ValueError("'transform' must be given if both inputs are plain arrays.")
     ref = as_tensor(reference_elev)
-    tba = as_tensor(to_be_aligned_elev, device=ref.device)
+    tba = as_tensor(tba_r if tba_r is not None else to_be_aligned_elev, device=ref.device)
     if ref.shape != tba.shape:
         raise ValueError(f"Both elevations must share one grid, got shapes {tuple(ref.shape)} and {tuple(tba.shape)}.")
-    if isinstance(inlier_mask, np.ma.MaskedArray):
-        inlier_mask = np.asarray(inlier_mask.filled(False), dtype=bool)
-    return ref, tba, inlier_mask, transform
+    mask = mask_on(inlier_mask, ref_r if ref_r is not None else tba_r, tuple(ref.shape), ref.device)
+    return ref, tba, mask, transform, crs, area_or_point
 
 
 def _bias_vars_on(bias_vars: dict[str, Any] | None, device: torch.device) -> dict[str, torch.Tensor] | None:
-    """Bias variables as float32 tensors on `device` (masked arrays NaN-filled)."""
+    """Bias variables as float32 tensors on `device` (masked arrays NaN-filled, Rasters by
+    their data)."""
     if bias_vars is None:
         return None
     return {k: as_tensor(v, device=device) for k, v in bias_vars.items()}
@@ -617,14 +665,15 @@ class Coreg:
         random_state: int | None = None,
         **kwargs: Any,
     ) -> "Coreg":
-        """Estimate the coregistration from a reference and a to-be-aligned DEM, both 2-D
-        arrays or tensors on the grid `transform` (and `crs`, an EPSG code)."""
+        """Estimate the coregistration from a reference and a to-be-aligned DEM: two Rasters
+        (the to-be-aligned one reprojected onto the reference grid when they differ), or 2-D
+        arrays or tensors on the grid `transform` (and `crs`)."""
         if weights is not None:
             raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
         if kwargs.pop("mesh", None) is not None:
             raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
-        ref, tba, mask, transform = _preprocess_coreg_fit(reference_elev, to_be_aligned_elev,
-                                                          inlier_mask, transform)
+        ref, tba, mask, transform, crs, area_or_point = _preprocess_coreg_fit(
+            reference_elev, to_be_aligned_elev, inlier_mask, transform, crs, area_or_point)
         if subsample is not None:
             self._meta["inputs"]["random"]["subsample"] = subsample
         if random_state is not None:
@@ -675,24 +724,40 @@ class Coreg:
         crs: Any = None,
         z_name: str = "z",
         **kwargs: Any,
-    ) -> tuple[torch.Tensor, Affine]:
-        """Apply the estimated transform to a gridded DEM; returns (tensor, transform)."""
+    ) -> Any:
+        """Apply the estimated transform to a gridded DEM: a Raster gives a Raster (on its grid
+        when `resample`), an array or tensor gives (tensor, transform). `resampling=None` uses
+        the package default (`xdem_tpu_torch.config["resampling"]`)."""
         if not self._fit_called and not (self.is_affine and "matrix" in self._meta["outputs"].get("affine", {})):
             raise AssertionError(".fit() does not seem to have been called yet")
-        resampling = {"bilinear": "linear", "cubic_spline": "cubic", None: "linear"}.get(resampling, resampling)
-        transform = _as_affine(transform)
+        if resampling is None:
+            from xdem_tpu_torch.config import config
+
+            resampling = config["resampling"]
+        resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
         if not _is_grid(elev):
-            raise NotImplementedError("xdem_tpu_torch applies a coregistration to 2-D arrays or tensors only.")
+            raise NotImplementedError("xdem_tpu_torch applies a coregistration to Rasters, 2-D arrays or tensors only.")
+        raster = elev if isinstance(elev, Raster) else None
+        if raster is not None:
+            transform, crs = raster.transform, raster.crs
+        else:
+            transform = _as_affine(transform)
         elev = as_tensor(elev)
         bias_vars = _bias_vars_on(bias_vars, elev.device)
         try:
-            return self._apply_func(elev=elev, bias_vars=bias_vars, transform=transform, crs=crs,
-                                    resample=resample, resampling=resampling, **kwargs)
+            data, new_transform = self._apply_func(elev=elev, bias_vars=bias_vars, transform=transform, crs=crs,
+                                                   resample=resample, resampling=resampling, **kwargs)
         except NotImplementedCoregApply:
             if not self.is_affine:
                 raise
-        return apply_matrix(elev, self.to_matrix(), centroid=self._meta["outputs"].get("affine", {}).get("centroid"),
-                            resample=resample, resampling=resampling, transform=transform)
+            data, new_transform = apply_matrix(elev, self.to_matrix(),
+                                               centroid=self._meta["outputs"].get("affine", {}).get("centroid"),
+                                               resample=resample, resampling=resampling, transform=transform)
+        if raster is None:
+            return data, new_transform
+        out = raster.copy(new_array=data)
+        out.transform = new_transform
+        return out
 
     def _apply_func(self, **kwargs: Any) -> Any:
         raise NotImplementedCoregApply(f"{type(self).__name__} has no custom apply.")
@@ -706,8 +771,9 @@ class Coreg:
         fit_kwargs: dict[str, Any] | None = None,
         apply_kwargs: dict[str, Any] | None = None,
         **kwargs: Any,
-    ) -> tuple[torch.Tensor, Affine]:
-        """Fit, then apply to the to-be-aligned DEM. Shared keywords (subsample, transform,
+    ) -> Any:
+        """Fit, then apply to the to-be-aligned DEM (a Raster gives a Raster, an array
+        (tensor, transform)). Shared keywords (subsample, transform,
         crs, random_state, ...) passed flat go to fit(), the rest to apply(); transform and
         crs reach both. The explicit fit_kwargs/apply_kwargs dicts take precedence."""
         fkw = {
@@ -846,16 +912,20 @@ class CoregPipeline(Coreg):
             logging.info("Running pipeline step: %d / %d", i + 1, len(self.pipeline))
             step_bias = self._parse_bias_vars(i, bias_vars)
             step.fit(reference_elev, tba, inlier_mask=inlier_mask, bias_vars=step_bias, **kwargs)
-            tba, apply_kw["transform"] = step.apply(tba, bias_vars=step_bias, **apply_kw)
+            tba = step.apply(tba, bias_vars=step_bias, **apply_kw)
+            if isinstance(tba, tuple):  # an array gives (tensor, transform)
+                tba, apply_kw["transform"] = tba
         self._fit_called = True
         return self
 
-    def apply(self, elev: Any, bias_vars: dict[str, Any] | None = None, **kwargs: Any) -> tuple[torch.Tensor, Affine]:
-        """Chain the apply of each step; returns (tensor, transform) like Coreg.apply."""
+    def apply(self, elev: Any, bias_vars: dict[str, Any] | None = None, **kwargs: Any) -> Any:
+        """Chain the apply of each step; returns what Coreg.apply returns for `elev`."""
         out = elev
         for i, step in enumerate(self.pipeline):
-            out, kwargs["transform"] = step.apply(out, bias_vars=self._parse_bias_vars(i, bias_vars), **kwargs)
-        return out, kwargs["transform"]
+            out = step.apply(out, bias_vars=self._parse_bias_vars(i, bias_vars), **kwargs)
+            if isinstance(out, tuple):
+                out, kwargs["transform"] = out
+        return out if isinstance(elev, Raster) else (out, kwargs["transform"])
 
     def _to_matrix_func(self) -> np.ndarray:
         """Product of the step matrices."""

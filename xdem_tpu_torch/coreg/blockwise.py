@@ -1,8 +1,9 @@
 """Blockwise coregistration: not ported yet.
 
-xdem_tpu's BlockwiseCoreg and BlockwiseNuthKaab take ``Raster`` inputs (their tiles carry
-their own georeferencing), and the port has no ``Raster`` yet. The names exist so that code
-written against xdem_tpu fails with a clear message instead of an AttributeError.
+xdem_tpu's BlockwiseCoreg, BlockwiseNuthKaab and MultiprocConfig (xdem_tpu/coreg/blockwise.py)
+have no counterpart in this package yet: ROADMAP.md lists them as the next coregistration
+module to port. The names exist so that code written against xdem_tpu fails with a clear
+message instead of an AttributeError.
 """
 
 from __future__ import annotations
@@ -10,21 +11,21 @@ from __future__ import annotations
 from typing import Any
 
 
-class _NeedsRaster:
+class _NotPorted:
     def __init__(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
-            f"{type(self).__name__} takes Raster inputs, and Raster is not ported to xdem_tpu_torch yet; "
+            f"{type(self).__name__} (xdem_tpu/coreg/blockwise.py) is not ported to xdem_tpu_torch yet; "
             "fit a single affine method (NuthKaab, DhMinimize, ICP, CPD, LZD) on the whole grid instead."
         )
 
 
-class BlockwiseCoreg(_NeedsRaster):
-    """Not ported: needs Raster."""
+class BlockwiseCoreg(_NotPorted):
+    """Not ported yet."""
 
 
-class BlockwiseNuthKaab(_NeedsRaster):
-    """Not ported: needs Raster."""
+class BlockwiseNuthKaab(_NotPorted):
+    """Not ported yet."""
 
 
-class MultiprocConfig(_NeedsRaster):
-    """Not ported: needs Raster."""
+class MultiprocConfig(_NotPorted):
+    """Not ported yet."""

@@ -10,18 +10,22 @@ import torch
 
 def unmask(a: Any) -> Any:
     """Normalize a numpy masked array to a NaN-filled float array (NaN is nodata everywhere
-    in the port); any other input passes through."""
+    in the port) and a Raster to its data tensor; any other input passes through."""
     if isinstance(a, np.ma.MaskedArray):
         return a.filled(np.nan) if np.issubdtype(a.dtype, np.floating) \
             else a.astype(np.float32).filled(np.nan)
+    if hasattr(a, "get_nanarray") and isinstance(getattr(a, "data", None), torch.Tensor):
+        return a.data
     return a
 
 
 def host_array(x: Any, dtype: Any = None) -> np.ndarray:
-    """A numpy array of `x` (tensors are copied to the host; masked arrays become NaN)."""
+    """A numpy array of `x` (tensors and Rasters are copied to the host; masked arrays become
+    NaN)."""
+    x = unmask(x)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
-    return np.asarray(unmask(x), dtype=dtype)
+    return np.asarray(x, dtype=dtype)
 
 
 def device_mask(mask: Any, shape: tuple[int, ...], device: torch.device | str) -> torch.Tensor:

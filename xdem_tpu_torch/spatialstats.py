@@ -34,12 +34,17 @@ from xdem_tpu_torch._device import as_tensor, default_device
 from xdem_tpu_torch.ops.reductions import _NMAD_FACTOR, binned_median
 from xdem_tpu_torch.ops.reductions import nmad as _nmad_tensor
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
-from xdem_tpu_torch.ops.transfer import device_mask
 from xdem_tpu_torch.ops.transfer import host_array as _host
+from xdem_tpu_torch.raster import Raster
+from xdem_tpu_torch.raster import mask_on as _mask_on
 
 Table = dict  # column name -> 1-D numpy array
 
-_RASTER_SLICE = "Raster/DEM (the next slice of the port in ROADMAP.md)"
+
+def _raster_data(x: Any) -> tuple[Any, Any]:
+    """(x's data tensor, x) for a Raster, (x, None) otherwise: a Raster's grid serves the
+    Vector masks and its pixel size the default gsd."""
+    return (x.data, x) if isinstance(x, Raster) else (x, None)
 
 
 def nmad(data: Any, nfact: float = _NMAD_FACTOR) -> float:
@@ -490,25 +495,6 @@ def two_step_standardization(
     return zscores, error_fun
 
 
-def _coerce_mask(m: Any) -> np.ndarray | torch.Tensor | None:
-    """A boolean array or tensor mask; Vector and Raster masks are not ported yet."""
-    if m is None or isinstance(m, torch.Tensor):
-        return m
-    if isinstance(m, np.ma.MaskedArray):
-        return np.asarray(m.filled(False), dtype=bool)  # masked slots are excluded
-    if hasattr(m, "create_mask") or hasattr(m, "transform"):
-        raise NotImplementedError(
-            f"A mask of type {type(m).__name__} (Vector or Raster) is not ported to xdem_tpu_torch yet: it "
-            f"comes with {_RASTER_SLICE}. Pass a boolean numpy array or tensor on the raster's grid.")
-    return np.asarray(m, dtype=bool)
-
-
-def _device_mask_of(m: Any, shape: tuple[int, ...], device: torch.device) -> torch.Tensor | None:
-    """Mask as a bool tensor of `shape` on `device`, or None for no mask."""
-    m = _coerce_mask(m)
-    return None if m is None else device_mask(m, tuple(shape), device)
-
-
 def _standardize_masked_device(d: torch.Tensor, e: torch.Tensor | None, inc: torch.Tensor | None,
                                exc: torch.Tensor | None) -> torch.Tensor:
     """dh / sigma (dh alone when `e` is None) with include/exclude masks applied."""
@@ -530,15 +516,19 @@ def _preprocess_values_with_mask_to_array(
     preserve_shape: bool = True,
 ) -> tuple[list[np.ndarray] | np.ndarray, float | None]:
     """Host arrays (float64) with the pixels outside include_mask, or inside exclude_mask,
-    set to NaN."""
+    set to NaN; Raster values give their data, their grid to Vector masks and their pixel
+    size as the default gsd."""
     single = not isinstance(values, (list, tuple))
-    arrays = [np.array(_host(v), dtype=np.float64) for v in ([values] if single else values)]
+    unwrapped = [_raster_data(v) for v in ([values] if single else values)]
+    ref = next((r for _, r in unwrapped if r is not None), None)
+    if gsd is None and ref is not None:
+        gsd = ref.res[0]
+    arrays = [np.array(_host(v), dtype=np.float64) for v, _ in unwrapped]
     stable = np.ones(arrays[0].shape, dtype=bool)
     for m, keep in ((include_mask, True), (exclude_mask, False)):
-        m = _coerce_mask(m)
+        m = _mask_on(m, ref, stable.shape, "cpu")
         if m is not None:
-            m = _host(m).astype(bool)
-            stable &= m if keep else ~m
+            stable &= m.numpy() if keep else ~m.numpy()
     out = [np.where(stable, a, np.nan) for a in arrays]
     return (out[0] if single else out), gsd
 
@@ -611,20 +601,33 @@ def infer_heteroscedasticity_from_stable(
     tensor `list_var` and an absolute `subsample`, the sample is drawn and binned on the
     tensors' device and the error is a tensor there; the default statistics (NMAD spread,
     integer bins, outlier clipping) never bring more than the per-bin tables to the host.
-    Otherwise the inputs are host arrays and the error is a numpy array.
+    Otherwise the inputs are host arrays and the error is a numpy array. Raster inputs give
+    their data (a Raster `dvalues` its grid to Vector masks), and then the error is a Raster
+    on the grid of `dvalues`.
     """
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
     if list_var_names is None:
         list_var_names = [f"var{i+1}" for i in range(len(list_var))]
+    dvalues, ref = _raster_data(dvalues)
+    list_var = [_raster_data(v)[0] for v in list_var]
+    if ref is not None:
+        error, df, error_fun = infer_heteroscedasticity_from_stable(
+            dvalues, list_var, stable_mask=_mask_on(stable_mask, ref, dvalues.shape, dvalues.device),
+            unstable_mask=_mask_on(unstable_mask, ref, dvalues.shape, dvalues.device),
+            list_var_names=list_var_names, spread_statistic=spread_statistic, list_var_bins=list_var_bins,
+            min_count=min_count, fac_spread_outliers=fac_spread_outliers, subsample=subsample,
+            random_state=random_state)
+        error = error if isinstance(error, torch.Tensor) else torch.from_numpy(np.asarray(error, np.float32))
+        return Raster(error.to(torch.float32), ref.transform, ref.crs), df, error_fun
 
     device_ok = (subsample is not None and isinstance(dvalues, torch.Tensor)
                  and all(isinstance(v, torch.Tensor) for v in list_var))
     if device_ok:
         d = dvalues.to(torch.float32)
         vars_t = [v.to(device=d.device, dtype=torch.float32) for v in list_var]
-        inc = _device_mask_of(stable_mask, d.shape, d.device)
-        exc = _device_mask_of(unstable_mask, d.shape, d.device)
+        inc = _mask_on(stable_mask, None, d.shape, d.device)
+        exc = _mask_on(unstable_mask, None, d.shape, d.device)
         count = int(min(subsample, d.numel()))
         gathered = _hetero_prepare_device(d, vars_t, inc, exc, seed_from(random_state), count)
 
@@ -1462,6 +1465,9 @@ def sample_empirical_variogram(
             '"pdist_disk" or "pdist_ring".')
     _check_estimator(estimator)
     equidistant = subsample_method == "cdist_equidistant"
+    values, ref = _raster_data(values)
+    if ref is not None:
+        gsd = ref.res[0]
 
     arr_dev = arr = grid_valid = coords_v = vals_v = points = None
     if isinstance(values, torch.Tensor) and values.dim() == 2:
@@ -1745,12 +1751,18 @@ def infer_spatial_correlation_from_stable(
 ) -> tuple[Table, Table, Callable[[np.ndarray], np.ndarray]]:
     """Infer the spatial correlation of dh errors from stable terrain: (empirical variogram,
     fitted parameters, correlation function). A tensor `dvalues` is standardized by
-    `errors` and masked on its device, and its variogram is sampled there."""
+    `errors` and masked on its device, and its variogram is sampled there. A Raster gives its
+    data, its grid to Vector masks and its pixel size as the default gsd."""
+    dvalues, ref = _raster_data(dvalues)
+    errors = _raster_data(errors)[0]
+    if ref is not None:
+        stable_mask, unstable_mask = (_mask_on(m, ref, dvalues.shape, dvalues.device) for m in (stable_mask, unstable_mask))
+        gsd = ref.res[0] if gsd is None else gsd
     if isinstance(dvalues, torch.Tensor):
         d = dvalues.to(torch.float32)
         e = None if errors is None else as_tensor(errors, device=d.device)
-        d_stable = _standardize_masked_device(d, e, _device_mask_of(stable_mask, d.shape, d.device),
-                                              _device_mask_of(unstable_mask, d.shape, d.device))
+        d_stable = _standardize_masked_device(d, e, _mask_on(stable_mask, None, d.shape, d.device),
+                                              _mask_on(unstable_mask, None, d.shape, d.device))
     else:
         d_stable, gsd = _preprocess_values_with_mask_to_array(
             values=dvalues, include_mask=stable_mask, exclude_mask=unstable_mask, gsd=gsd)
@@ -1910,34 +1922,59 @@ def neff_hugonnet_approx(
     return float(np.mean(errors)) ** 2 / (var / (n * subsample))
 
 
-def _is_vector(area: Any) -> bool:
-    return hasattr(area, "create_mask") or hasattr(area, "bounds")
-
-
 def number_effective_samples(area: Any, params_variogram_model: Any, rasterize_resolution: Any = None,
                              **kwargs: Any) -> float:
-    """n_eff of a numeric area (m^2) by the continuous disk integral. Vector areas are not
-    ported yet."""
+    """n_eff in an area: the continuous disk integral for a numeric area (m^2), the
+    discretized Hugonnet approximation over a Vector area rasterized at
+    `rasterize_resolution` (a pixel size in m, or a Raster whose grid is used; default one
+    fifth of the shortest correlation range)."""
+    from xdem_tpu_torch.georef import Affine
+
     _check_validity_params_variogram(params_variogram_model)
     if isinstance(area, (float, int, np.floating, np.integer)):
         return neff_circular_approx_numerical(area=float(area), params_variogram_model=params_variogram_model)
-    if _is_vector(area):
-        raise NotImplementedError(
-            f"A Vector area is not ported to xdem_tpu_torch yet: it comes with {_RASTER_SLICE}. "
-            "Pass the area in square metres.")
+    if hasattr(area, "create_mask"):
+        if rasterize_resolution is None:
+            rasterize_resolution = float(np.min(np.asarray(params_variogram_model["range"], np.float64)) / 5.0)
+            warnings.warn(
+                "No rasterization resolution given; defaulting to one fifth of the shortest "
+                "correlation range. Long-range models then produce very large grids — pass "
+                "rasterize_resolution to bound memory.",
+                UserWarning,
+            )
+        if isinstance(rasterize_resolution, (float, int, np.floating, np.integer)):
+            res = float(rasterize_resolution)
+            left, bottom, right, top = area.bounds
+            w = max(int(np.ceil((right - left) / res)), 1)
+            h = max(int(np.ceil((top - bottom) / res)), 1)
+            transform = Affine.from_origin(left, top, res, res)
+            mask = area.mask_array(transform=transform, shape=(h, w), crs=area.crs)
+        else:
+            transform = rasterize_resolution.transform
+            mask = area.mask_array(rasterize_resolution)
+        rr, cc = np.nonzero(mask)
+        xs, ys = transform.xy(rr, cc)
+        coords_on_mask = np.column_stack([xs, ys])
+        return neff_hugonnet_approx(coords=coords_on_mask, errors=np.ones(len(coords_on_mask)),
+                                    params_variogram_model=params_variogram_model, **kwargs)
     raise ValueError("Area must be a float, integer, or Vector subclass.")
 
 
 def spatial_error_propagation(areas: Sequence[Any], errors: Any, params_variogram_model: Any,
                               **kwargs: Any) -> list[float]:
-    """Areal standard errors SE = mean(sigma) / sqrt(n_eff) of numeric areas (m^2), with
-    mean(sigma) over the finite `errors` (a tensor is averaged on its device)."""
-    if isinstance(errors, torch.Tensor):
-        mean_err = float(torch.nanmean(errors.to(torch.float64)))
-    else:
-        mean_err = float(np.nanmean(_host(errors)))
+    """Areal standard errors SE = mean(sigma) / sqrt(n_eff) per area (m^2, or a Vector), with
+    mean(sigma) over the finite `errors` (a tensor or Raster is averaged on its device; a
+    Raster over the pixels inside a Vector area)."""
+    err, ref = _raster_data(errors)
     out = []
     for area in areas:
+        if isinstance(err, torch.Tensor):
+            e = err.to(torch.float64)
+            if ref is not None and hasattr(area, "create_mask"):
+                e = e[area.create_mask(ref).to(e.device)]
+            mean_err = float(torch.nanmean(e))
+        else:
+            mean_err = float(np.nanmean(_host(err)))
         neff = number_effective_samples(area, params_variogram_model, **kwargs)
         out.append(float(mean_err / np.sqrt(neff)))
     return out
@@ -2097,12 +2134,16 @@ def patches_method(
         areas = area
     if areas is None:
         areas = 10000.0
+    values, ref = _raster_data(values)
+    if ref is not None:
+        stable_mask, unstable_mask = (_mask_on(m, ref, values.shape, values.device) for m in (stable_mask, unstable_mask))
+        gsd = ref.res[0] if gsd is None else gsd
     if gsd is None:
-        raise ValueError("A ground sampling distance is required (pass gsd).")
+        raise ValueError("A ground sampling distance is required (pass gsd or a Raster).")
 
     if isinstance(values, torch.Tensor) and vectorized:
-        arr = _standardize_masked_device(values, None, _device_mask_of(stable_mask, values.shape, values.device),
-                                         _device_mask_of(unstable_mask, values.shape, values.device))
+        arr = _standardize_masked_device(values, None, _mask_on(stable_mask, None, values.shape, values.device),
+                                         _mask_on(unstable_mask, None, values.shape, values.device))
     else:
         arr, _ = _preprocess_values_with_mask_to_array(values, include_mask=stable_mask,
                                                        exclude_mask=unstable_mask, gsd=gsd)

@@ -5,7 +5,8 @@ into the surface-fit family (kernel K1), the windowed family (K2), fractal rough
 and texture shading (an FFT filter, terrain/freq.py);
 the input's device decides between each kernel and its plain version (see cuda_kernels.py),
 not ``engine=``. Slope and aspect are converted to degrees, hillshade is clipped to
-[0, 255], and the results come back in request order.
+[0, 255], and the results come back in request order: tensors for an array or tensor input,
+Rasters (nodata -99999, the input's georeferencing) for a Raster or DEM.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch._device import as_tensor
+from xdem_tpu_torch.raster import Raster
 from xdem_tpu_torch.terrain import cuda_kernels, freq
 from xdem_tpu_torch.terrain.surfit import SURFACE_FIT_ATTRS
 from xdem_tpu_torch.terrain.window import FRACTAL_ATTRS, WINDOWED_ATTRS, normalize_engine
@@ -72,13 +74,15 @@ def get_terrain_attribute(
     tiled: Any = None,
     mp_config: Any = None,
 ) -> Any:
-    """Derive one or several terrain attributes from a DEM array or tensor.
+    """Derive one or several terrain attributes from a DEM (Raster), array or tensor.
 
     Same parameters and numerics as xdem_tpu.terrain.get_terrain_attribute. A numpy input
-    goes to the default device; a tensor stays where it is. On a CUDA tensor the attributes
-    come from the hand-written kernels, on a CPU tensor from their plain PyTorch versions.
-    ``engine`` is validated but does not pick the path. Returns a tensor, or a list of
-    tensors in request order.
+    goes to the default device; a tensor, or a Raster's data, stays where it is. On a CUDA
+    tensor the attributes come from the hand-written kernels, on a CPU tensor from their
+    plain PyTorch versions. ``engine`` is validated but does not pick the path. Returns a
+    tensor, or a list of tensors in request order; for a Raster input, Rasters on its grid
+    with nodata -99999. A Raster's resolution comes from its transform, and one in a
+    geographic CRS warns that the surface-fit attributes may be wrong.
 
     The device sets one limit: ``window_size_fractal`` 3 or 4 warns and then, on a CPU
     tensor, gives the reference's XLA result (all NaN for 3, where one box scale leaves no
@@ -124,6 +128,10 @@ def get_terrain_attribute(
         elif window_size_fractal < 13:
             warnings.warn("Fractal roughness results with window size of less than 13 can be inaccurate.", UserWarning)
 
+    is_raster = isinstance(dem, Raster)
+    if is_raster and resolution is None:
+        resolution = dem.res
+
     sf_attrs = [a for a in attrs if a in SURFACE_FIT_ATTRS]
     win_attrs = [a for a in attrs if a in WINDOWED_ATTRS]
 
@@ -142,6 +150,13 @@ def get_terrain_attribute(
     if isinstance(resolution, (tuple, list)):
         resolution = float(resolution[0])
     resolution = float(resolution)
+
+    if is_raster and not dem.crs.is_projected and sf_attrs:
+        warnings.warn(
+            f"DEM is not in a projected CRS, the following surface fit attributes might be wrong: {sf_attrs}. "
+            f"Use DEM.reproject(crs=DEM.get_metric_crs()) to reproject in a projected CRS.",
+            UserWarning,
+        )
 
     arr = as_tensor(dem).contiguous()
     out_dtype = torch.float32 if out_dtype is None else _torch_dtype(out_dtype)
@@ -173,6 +188,9 @@ def get_terrain_attribute(
         planes["texture_shading"] = freq.texture_shading(arr, alpha=texture_alpha)
 
     ordered = [_terrain_epilog(planes[a], a, degrees, out_dtype) for a in attrs]
+    if is_raster:
+        ordered = [Raster(o, transform=dem.transform, crs=dem.crs, nodata=-99999, area_or_point=dem.area_or_point)
+                   for o in ordered]
     return ordered[0] if single else ordered
 
 

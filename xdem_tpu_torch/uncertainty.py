@@ -1,7 +1,8 @@
 """Uncertainty of elevation differences: heteroscedasticity and spatial correlation.
 
-Port of the raster-raster path of xdem_tpu/uncertainty.py for arrays and tensors on one grid
-(``transform=``, and optionally an EPSG ``crs=``, as the port's coregistration takes them):
+Port of the raster-raster path of xdem_tpu/uncertainty.py for DEMs (Rasters), or for arrays
+and tensors on one grid with ``transform=`` (and optionally ``crs=``, as the port's
+coregistration takes them):
 
   * H2022 (default): the error sigma(x, y) binned against terrain variables (slope and
     maximum curvature from the surface-fit kernel) plus a multi-range variogram of the
@@ -11,8 +12,9 @@ Port of the raster-raster path of xdem_tpu/uncertainty.py for arrays and tensors
   * Basic: the NMAD plus a single-range variogram.
 
 The input's device runs the whole path; on a CUDA tensor nothing larger than per-bin tables
-leaves the card. A point-cloud ``other_elev``, reprojection onto the DEM's grid and
-``mesh=`` are not ported yet.
+leaves the card. A Raster ``other_elev`` on another grid is reprojected onto the DEM's, and a
+stable-terrain mask may be an array, a tensor, a Raster or a Vector. A point-cloud
+``other_elev`` and ``mesh=`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import torch
 
 from xdem_tpu_torch import spatialstats, terrain
 from xdem_tpu_torch._device import as_tensor
-from xdem_tpu_torch.georef import Affine, epsg_code
+from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.reductions import masked_nmad
+from xdem_tpu_torch.raster import Raster, mask_on
 
 __all__ = ["estimate_uncertainty"]
 
@@ -57,12 +60,16 @@ def estimate_uncertainty(
     mesh: Any = None,
     transform: Affine | None = None,
     crs: Any = None,
-) -> tuple[torch.Tensor, Callable[[np.ndarray], np.ndarray]]:
+) -> tuple[Any, Callable[[np.ndarray], np.ndarray]]:
     """Estimate (sigma(x, y), rho(lag)) of the elevation differences `other_elev` - `dem`.
 
-    :param dem: The DEM whose uncertainty is estimated (2-D array or tensor).
-    :param other_elev: An independent DEM on the same grid (2-D array or tensor).
-    :param stable_terrain: Stable-terrain mask (boolean array or tensor on the grid).
+    :param dem: The DEM whose uncertainty is estimated: a DEM/Raster, or a 2-D array or
+        tensor with `transform`.
+    :param other_elev: An independent DEM: a Raster (reprojected onto the grid of a Raster
+        `dem` when the grids differ), or a 2-D array or tensor on the grid of `dem`.
+    :param stable_terrain: Stable-terrain mask (boolean array or tensor on the grid, a Raster
+        whose pixels > 0 are stable, regridded onto a Raster `dem` when its grid differs, or a
+        Vector rasterized on the grid of a Raster `dem`).
     :param approach: "H2022", "R2009" or "Basic".
     :param precision_of_other: "finer" attributes all error to this DEM; "same" divides the
         pair error by sqrt(2).
@@ -70,21 +77,28 @@ def estimate_uncertainty(
         runs on the device).
     :param variogram_estimator: "dowd" (default), "matheron", "cressie" or "genton".
     :param z_name: Elevation column of a point-cloud input (not ported; kept for parity).
-    :param transform: The grid's affine transform (its pixel size sets the terrain
-        attributes and the variogram lags).
-    :param crs: The grid's CRS as an EPSG code, checked and otherwise unused.
-    :returns: sigma as a float32 tensor on the DEM's device, and rho as a function of lags in m.
+    :param transform: The grid's affine transform for an array `dem` (its pixel size sets the
+        terrain attributes and the variogram lags); a Raster `dem` brings its own.
+    :param crs: The grid's CRS for an array `dem`, checked and otherwise unused.
+    :returns: sigma (a Raster on the grid of a Raster `dem`, else a float32 tensor, on the DEM's
+        device) and rho as a function of lags in m.
     """
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-device uncertainty) is not ported to xdem_tpu_torch; run on one device.")
-    if not isinstance(other_elev, (np.ndarray, torch.Tensor)):
+    if not isinstance(other_elev, (np.ndarray, torch.Tensor, Raster)):
         raise NotImplementedError(
             f"other_elev of type {type(other_elev).__name__}: point-cloud and dataframe elevations are "
-            "not ported to xdem_tpu_torch yet; pass a DEM array or tensor on the grid of `dem`.")
+            "not ported to xdem_tpu_torch yet; pass a DEM (Raster), or an array or tensor on the grid of `dem`.")
+    dem_r = dem if isinstance(dem, Raster) else None
+    if dem_r is not None:
+        transform, crs = dem_r.transform, dem_r.crs
+        if isinstance(other_elev, Raster) and (other_elev.shape != dem_r.shape or other_elev.crs != dem_r.crs
+                                               or not other_elev.transform.almost_equals(dem_r.transform)):
+            other_elev = other_elev.reproject(dem_r)
     if transform is None:
         raise ValueError("transform= is needed: its pixel size sets the terrain attributes and the variogram lags.")
     if crs is not None:
-        epsg_code(crs)
+        CRS(crs)
     if spread_estimator is None:
         spread_estimator = spatialstats._stat_nmad
 
@@ -93,10 +107,10 @@ def estimate_uncertainty(
     if dem_t.dim() != 2 or other_t.shape != dem_t.shape:
         raise ValueError(
             f"other_elev (shape {tuple(other_t.shape)}) is not on the grid of dem (shape {tuple(dem_t.shape)}): "
-            "reprojection is not ported to xdem_tpu_torch yet; pass both elevations on one grid.")
+            "pass both as Rasters to reproject other_elev onto the grid of dem.")
     dh = other_t - dem_t
     gsd = float(transform.xres)
-    stable = spatialstats._device_mask_of(stable_terrain, dh.shape, dh.device)
+    stable = mask_on(stable_terrain, dem_r, dh.shape, dh.device)
 
     if approach == "H2022":
         attrs = terrain.get_terrain_attribute(dem_t, list(list_vars), resolution=(transform.xres, transform.yres))
@@ -125,6 +139,8 @@ def estimate_uncertainty(
     # For a same-precision pair, each DEM contributes half the error variance.
     if precision_of_other == "same":
         sig = sig / torch.tensor(np.float32(np.sqrt(2)), device=sig.device)
+    if dem_r is not None:
+        sig = Raster(sig, dem_r.transform, dem_r.crs)
     return sig, rho
 
 

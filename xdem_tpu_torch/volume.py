@@ -1,6 +1,6 @@
 """Volume change: hypsometric binning, interpolation, area/volume, and gap-filling.
 
-Port of xdem_tpu/volume.py for arrays and tensors: hypsometric_binning,
+Port of xdem_tpu/volume.py for arrays, tensors and Rasters (by their data): hypsometric_binning,
 interpolate_hypsometric_bins, fit_hypsometric_bins_poly, calculate_hypsometry_area,
 idw_interpolation, hypsometric_interpolation, local_hypsometric_interpolation,
 get_regional_hypsometric_signal and norm_regional_hypsometric_interpolation, with the same
