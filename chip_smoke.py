@@ -78,6 +78,21 @@ Phases:
      and replayed on the CPU: the two generators draw other points from one seed), and with one
      aligned DEM on both sigma 5e-3 (p99.9) and 1e-2 (max), rho 5e-3. Times and the phase's peak
      memory are printed.
+  9. point clouds and blockwise coregistration at 10 000 x 10 000 on phase 4's pair, with an EPC of
+     1e7 points (uniform positions drawn with numpy, the bilinear heights of the reference terrain
+     moved by (-9.2, 4.6, -2.35) m, 0.1 m of noise: examples.get_epc's recipe at the density of
+     ICESat-2 segments over 200 km x 200 km): a LAS round trip in the git-ignored outputs/ gives
+     the points back to the millimetre; to_vcrs("Ellipsoid") runs on the card; Nuth & Kääb on (DEM,
+     EPC) and (EPC, DEM) recovers the shift within 5 %; epc.coregister_3d(dem) moves the points by
+     the fit; ICP (5e4 picks, brute search on the card) and LZD on the DEM against the reference
+     terrain's points moved by RIGID_TRUTH meet phase 6's limits; dem.estimate_uncertainty(epc)
+     launches K1 once and passes phase 5's checks on sigma and rho; BlockwiseNuthKaab (400 tiles of
+     500 px, 20 000 picks each) finds the shift within 5 % and its apply cuts var(dh) below 5 %;
+     apply_tiled on a 4096^2 crop equals apply; the generic BlockwiseCoreg(NuthKaab()) runs on a
+     2048^2 crop. On a 1024^2 pair with 1e5 points the card is held against the CPU: raster-point
+     fits 1e-4 from one draw, blockwise shifts 1e-4 with the card's picks replayed (tiles that
+     converge on both devices), sigma 5e-3 (p99.9) / 1e-2 (max), rho 5e-3. Times, each fit's host
+     draw and the phase's peak memory are printed.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -121,6 +136,12 @@ GLACIER_THINNING = 15.0  # metres lost inside phase 8's outlines by the to-be-al
 RASTER_NOISE = 0.4  # standard deviation (m) of phase 8's white noise on the to-be-aligned DEM
 ORACLE_POINTS = 1_000_000  # pixels of each phase-8 reprojection held to the float64 oracle
 RASTER_CROP = 1024  # side of the card-against-CPU crop of phase 8
+POINTS = 10_000_000  # phase 9's EPC: ICESat-2 segments gathered over a 200 km x 200 km region
+POINT_NOISE = 0.1  # standard deviation (m) of the points' heights, as examples.get_epc draws them
+BLOCK = (500, 20_000)  # phase 9's blockwise tiles: side in pixels, picks per tile (400 tiles at 10 000^2)
+TILED_CROP = 4096  # side of phase 9's crop where apply_tiled is held to apply
+GENERIC_CROP = 2048  # side of phase 9's crop for the generic BlockwiseCoreg(NuthKaab()) loop
+POINTS_CROP = (1024, 100_000)  # phase 9's card-against-CPU pair: side, points
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -1449,6 +1470,305 @@ def phase_raster(dev, n: int, folder: str) -> dict:
     return out
 
 
+def point_cloud(dev, ref, transform, n_points: int, seed: int, shift=(0.0, 0.0, 0.0)):
+    """An EPC of `n_points` uniform positions over the grid (numpy's draw from `seed`), with
+    the bilinear heights of the terrain `ref` moved by `shift` (east, north, up metres) and
+    POINT_NOISE of noise, as examples.get_epc builds its cloud; float64 on `dev`. Points whose
+    source falls off the grid are dropped."""
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch import EPC
+    from xdem_tpu_torch.ops.interp import interp_rowcol
+
+    rng = np.random.default_rng(seed)
+    h, w = ref.shape
+    rr = torch.from_numpy(rng.uniform(0, h - 1, n_points)).to(dev)
+    cc = torch.from_numpy(rng.uniform(0, w - 1, n_points)).to(dev)
+    noise = torch.from_numpy(rng.normal(0, POINT_NOISE, n_points)).to(dev)
+    x, y = transform.xy(rr, cc)
+    dx, dy, dz = shift
+    z = interp_rowcol(ref, *transform.rowcol(x - dx, y - dy)) + dz + noise
+    keep = torch.isfinite(z)
+    return EPC(x=x[keep], y=y[keep], z=z[keep], crs=32633)
+
+
+def _replay_rasters(module, name: str):
+    """_replay for a function of a Raster that returns Rasters: its first result is returned
+    again to every later call, its data moved to the device of that call's Raster."""
+    orig = getattr(module, name)
+    memo = []
+
+    def replayed(raster, *args, **kwargs):
+        if not memo:
+            memo.append(orig(raster, *args, **kwargs))
+        dev = raster.data.device
+
+        def move(r):
+            return r.copy(new_array=r.data.to(dev))
+
+        return [move(r) for r in memo[0]] if isinstance(memo[0], list) else move(memo[0])
+
+    setattr(module, name, replayed)
+    return lambda: setattr(module, name, orig)
+
+
+def _rigid_error(fitted, c1, truth) -> tuple[float, float, list]:
+    """Largest translation (m) and rotation (deg) error of a rigid fit against `truth` applied
+    about `c1`, the truth re-expressed about the fit's own centroid."""
+    import numpy as np
+
+    from xdem_tpu_torch import coreg
+
+    aff = fitted.meta["outputs"]["affine"]
+    d = np.asarray(c1) - np.asarray(aff["centroid"])
+    want_m = truth.copy()
+    want_m[:3, 3] = truth[:3, 3] + d - truth[:3, :3] @ d
+    got = coreg.translations_rotations_from_matrix(coreg.invert_matrix(aff["matrix"]))
+    want = coreg.translations_rotations_from_matrix(want_m)
+    return (max(abs(g - w) for g, w in zip(got[:3], want[:3])), max(abs(g - w) for g, w in zip(got[3:], want[3:])),
+            [round(v, 4) for v in got])
+
+
+def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
+    """Point clouds and blockwise coregistration at n x n with an EPC of n_points: LAS round
+    trip, the vertical CRS, raster-point fits both ways, coregister_3d, ICP and LZD on a rigid
+    pair, estimate_uncertainty against the points, BlockwiseNuthKaab fit and apply,
+    apply_tiled, the generic blockwise loop, and card against CPU on a crop."""
+    import numpy as np
+    import torch
+
+    import xdem_tpu_torch.spatialstats as ss
+    from xdem_tpu_torch import DEM, EPC, Affine, coreg, terrain, uncertainty
+    from xdem_tpu_torch.coreg import affine, blockwise
+    from xdem_tpu_torch.epc import read_epc, write_epc
+    from xdem_tpu_torch.io import read_raster
+    from xdem_tpu_torch.ops.reductions import masked_median
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"fits": {}}
+    dx, dy, dz = TBA_SHIFT
+    mag = math.hypot(dx, dy)
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    ref_t, tba_t = main_pair(dev, n)
+    ref, tba = DEM.from_array(ref_t, transform, 32633), DEM.from_array(tba_t, transform, 32633)
+    epc, t_make = _synced(lambda: point_cloud(dev, ref_t, transform, n_points, seed=21, shift=TBA_SHIFT))
+    check(isinstance(epc, EPC) and epc.x.is_cuda and len(epc) > 0.99 * n_points, f"the EPC holds {len(epc)} points")
+    print(f"  EPC of {len(epc)} points (float64 on the card) made in {t_make:.3f} s: the reference terrain moved by "
+          f"{TBA_SHIFT} m, {POINT_NOISE} m of noise")
+
+    # LAS round trip in the git-ignored outputs/ folder, then the vertical CRS on the card.
+    path = os.path.join(folder, "points.las")
+    _, t_write = _synced(lambda: write_epc(path, epc))
+    back, t_read = _synced(lambda: read_epc(path))
+    dev_las = max(float((getattr(back, k) - getattr(epc, k)).abs().max()) for k in ("x", "y", "z"))
+    print(f"  LAS: written in {t_write:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), read back in {t_read:.2f} s; "
+          f"EPSG {back.crs.epsg}, {len(back)} points, largest coordinate change {dev_las:.2e} m")
+    check(back.crs == 32633 and len(back) == len(epc) and back.x.is_cuda and dev_las <= 5.01e-4,
+          f"LAS round trip: EPSG {back.crs}, {len(back)} points, {dev_las:.2e} m")
+    del back
+    os.remove(path)
+    epc.set_vcrs("EGM96")
+    ell, t_vcrs = _synced(lambda: epc.to_vcrs("Ellipsoid"))
+    und = ell.z - epc.z
+    lo, hi = float(und.min()), float(und.max())
+    print(f"  to_vcrs('Ellipsoid') of {len(epc)} points on the card: {t_vcrs * 1e3:.1f} ms, undulation {lo:.3f} to {hi:.3f} m")
+    check(ell.z.is_cuda and ell.vcrs_name == "Ellipsoid" and 20.0 < lo <= hi < 45.0, f"undulation {lo} to {hi}")
+    del ell, und
+    out.update(make_s=t_make, las_write_s=t_write, las_read_s=t_read, las_max_dev_m=dev_las, to_vcrs_ms=t_vcrs * 1e3)
+
+    def fit_twice(make, ref_, tba_):
+        """First and steady fit of a fresh method, each with the host draw's time."""
+        res = []
+        for _ in range(2):
+            with Stages({"draw": (affine, "_draw_valid"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
+                c, secs = _synced(lambda: make().fit(ref_, tba_, random_state=42))
+            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, "brute" in st.ms))
+        return res
+
+    # Nuth & Kaab both ways: the DEM against the points finds -TBA_SHIFT, the points against the
+    # DEM +TBA_SHIFT.
+    for label, (a, b), sign in (("DEM ref, EPC tba", (ref, epc), -1.0), ("EPC ref, DEM tba", (epc, ref), 1.0)):
+        (nk, t_first, d_first, _), (_, t_steady, d_steady, _) = fit_twice(coreg.NuthKaab, a, b)
+        tx, ty, tz = nk.to_translations()
+        it = nk.meta["outputs"]["iterative"]["last_iteration"]
+        count = nk.meta["outputs"]["random"]["subsample_final"]
+        print(f"  Nuth & Kaab ({label}): fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / "
+              f"{d_steady:.3f} s, share {d_steady / t_steady:.2f}); {it} iterations, {count} points; translation "
+              f"({tx:.4f}, {ty:.4f}, {tz:.4f}) m, truth ({sign * dx}, {sign * dy}, {sign * dz}) m")
+        check(abs(tx - sign * dx) <= 0.05 * mag and abs(ty - sign * dy) <= 0.05 * mag and abs(tz - sign * dz) <= 0.05 * abs(dz),
+              f"Nuth & Kaab ({label}) ({tx:.3f}, {ty:.3f}, {tz:.3f}) not within 5% of the truth")
+        out["fits"][f"nuth_kaab {label}"] = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first,
+                                             "draw_steady_s": d_steady, "iterations": it, "shift": [tx, ty, tz]}
+    nk = coreg.NuthKaab()
+    moved, t_c3d = _synced(lambda: epc.coregister_3d(ref, nk, random_state=42))
+    tx, ty, tz = nk.to_translations()
+    dmove = max(float((moved.x - epc.x - tx).abs().max()), float((moved.y - epc.y - ty).abs().max()),
+                float((moved.z - epc.z - tz).abs().max()))
+    print(f"  epc.coregister_3d(dem): {t_c3d:.3f} s; points moved by ({tx:.4f}, {ty:.4f}, {tz:.4f}) m to {dmove:.2e} m")
+    check(isinstance(moved, EPC) and moved.x.is_cuda and dmove <= 1e-6, f"coregister_3d moved the points off by {dmove}")
+    out["coregister_3d_s"] = t_c3d
+
+    # ICP and LZD on a rigid pair: points of the reference terrain moved by RIGID_TRUTH (exactly,
+    # in float64) about the lower-left corner at the mean height.
+    truth = coreg.matrix_from_translations_rotations(*RIGID_TRUTH)
+    c1 = (transform.c, transform.f - n * RES, float(ref_t.double().mean()))
+    rigid = coreg.apply_matrix(point_cloud(dev, ref_t, transform, n_points, seed=22), truth, centroid=c1)
+    for name, make, atol_t, atol_r in (("ICP", lambda: coreg.ICP(subsample=50000), 2.0, 5e-3),
+                                       ("LZD", lambda: coreg.LZD(), 1.0, 5e-3)):
+        (c, t_first, d_first, brute), (_, t_steady, d_steady, _) = fit_twice(make, ref, rigid)
+        err_t, err_r, got = _rigid_error(c, c1, truth)
+        print(f"  {name} (DEM ref, rigid EPC tba): fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw "
+              f"{d_first:.3f} / {d_steady:.3f} s); got {got}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg"
+              + (f"; nn_method='auto' took {'the brute search on the card' if brute else 'the host KD-tree'}" if name == "ICP" else ""))
+        if name == "ICP":
+            check(brute, "ICP auto did not take the brute device search on the card")
+        check(err_t <= atol_t and err_r <= atol_r, f"{name}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg")
+        out["fits"][name] = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first, "draw_steady_s": d_steady,
+                             "err_t_m": err_t, "err_r_deg": err_r}
+    del rigid
+
+    # The uncertainty of the DEM against the coregistered points: K1 once, phase 5's checks.
+    spec = {"points to the DEM's CRS": (uncertainty, "_point_xyz"), "terrain (K1)": (terrain, "get_terrain_attribute"),
+            "heteroscedasticity": (ss, "infer_heteroscedasticity_from_stable"),
+            "variogram": (ss, "infer_spatial_correlation_from_stable")}
+    ck.reset_launch_counts()
+    with Stages(spec, sync=True) as split:
+        (sig, rho), t_unc = _synced(lambda: ref.estimate_uncertainty(moved, subsample=10000, random_state=42))
+    k1 = ck.LAUNCHES["surface_fit"]
+    finite = float(torch.isfinite(sig.data).float().mean())
+    med = float(masked_median(sig.data))
+    lags = np.linspace(0.0, 3e5, 3001)
+    r0, r_far = float(rho(np.array([0.0]))[0]), float(rho(np.array([1e7]))[0])
+    monotone = bool(np.all(np.diff(rho(lags)) <= 1e-12))
+    stages = {k: round(v, 1) for k, v in split.ms.items()}
+    print(f"  dem.estimate_uncertainty(epc), {len(moved)} points: {t_unc:.3f} s (K1 launches {k1}), split (ms) {stages}; "
+          f"sigma {finite:.5f} finite, median {med:.6f} m; rho(0) = {r0}, rho(1e7 m) = {r_far:.3e}, "
+          f"rho(20, 200, 2000 m) = {[round(float(x), 6) for x in rho(np.array([20.0, 200.0, 2000.0]))]}")
+    check(k1 == 1, f"K1 launched {k1} times in the uncertainty call, not once")
+    check(sig.data.is_cuda and sig.shape == ref.shape and finite >= 0.99 and med > 0, f"sigma: {finite:.4f} finite, median {med}")
+    check(abs(r0 - 1.0) < 1e-12 and monotone and abs(r_far) <= 0.05, f"rho(0) = {r0}, rho(1e7) = {r_far}, non-increasing: {monotone}")
+    out.update(uncertainty_s=t_unc, uncertainty_stages_ms=stages, uncertainty_k1=k1, sigma_median_m=med)
+    del sig, moved, epc
+
+    # Blockwise Nuth & Kaab on phase 4's pair: 400 tiles solved together.
+    bs, picks = BLOCK
+    fits = []
+    for _ in range(2):
+        with Stages({"batched solve": (affine, "_nuth_kaab_solve_batched")}, sync=True) as st:
+            bw, secs = _synced(lambda: coreg.BlockwiseNuthKaab(block_size_fit=bs, subsample_per_tile=picks,
+                                                               random_state=42).fit(ref, tba))
+        fits.append((bw, secs, st.ms["batched solve"], st.last["batched solve"][4]))
+    (bw, t_bw_first, s_first, iters), (_, t_bw, s_steady, _) = fits
+    med_s = [float(np.nanmedian(v)) for v in (bw.shifts_x, bw.shifts_y, bw.shifts_z)]
+    n_tiles, n_nan = bw.shifts_x.size, int(np.isnan(bw.shifts_x).sum())
+    it_hist = np.bincount(iters.cpu().numpy(), minlength=11).tolist()
+    print(f"  BlockwiseNuthKaab ({n_tiles} tiles of {bs} px, {picks} picks each): fit first {t_bw_first:.3f} s, steady "
+          f"{t_bw:.3f} s (batched solve {s_first:.1f} / {s_steady:.1f} ms); tiles by iterations {it_hist}; "
+          f"{n_nan} gated; median shift ({med_s[0]:.4f}, {med_s[1]:.4f}, {med_s[2]:.4f}) m, truth ({-dx}, {-dy}, {-dz}) m")
+    check(n_tiles == (n // bs) ** 2, f"{n_tiles} tiles")
+    check(abs(med_s[0] + dx) <= 0.05 * mag and abs(med_s[1] + dy) <= 0.05 * mag and abs(med_s[2] + dz) <= 0.05 * abs(dz),
+          f"blockwise median shift {med_s} not within 5% of the truth")
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    aligned, t_apply = _synced(lambda: bw.apply(tba))
+    apply_peak = torch.cuda.max_memory_allocated()
+    aligned, t_apply = _synced(lambda: bw.apply(tba))
+    dh_b, dh_a = ref_t - tba_t, ref_t - aligned.data
+    var_b = float(dh_b[torch.isfinite(dh_b)].double().var())
+    var_a = float(dh_a[torch.isfinite(dh_a)].double().var())
+    print(f"  BlockwiseNuthKaab.apply {n}x{n}: steady {t_apply * 1e3:.2f} ms, peak memory {apply_peak / 1e9:.2f} GB; "
+          f"var(dh) {var_b:.6g} -> {var_a:.6g} (ratio {var_a / var_b:.3e})")
+    check(aligned.data.is_cuda and var_a < 0.05 * var_b, f"blockwise apply: var(dh) ratio {var_a / var_b:.3e}")
+    del dh_b, dh_a, aligned
+    out["blockwise"] = {"fit_first_s": t_bw_first, "fit_s": t_bw, "solve_first_ms": s_first, "solve_ms": s_steady,
+                        "tiles_by_iterations": it_hist, "gated": n_nan, "median_shift": med_s, "apply_ms": t_apply * 1e3,
+                        "apply_peak_gb": apply_peak / 1e9, "var_ratio": var_a / var_b}
+
+    # apply_tiled on a crop equals apply there.
+    k = min(TILED_CROP, n)
+    tba_k = tba.icrop((0, k), (0, k))
+    tiled_path = os.path.join(folder, "tiled.tif")
+    _, t_tiled = _synced(lambda: bw.apply_tiled(tba_k, out_path=tiled_path))
+    whole = bw.apply(tba_k).data.cpu()
+    back = read_raster(tiled_path).data.cpu()
+    same = bool(torch.equal(torch.isnan(back), torch.isnan(whole)) and torch.equal(back.nan_to_num(), whole.nan_to_num()))
+    print(f"  apply_tiled {k}x{k} (bands of 1024 rows, streamed to a GeoTIFF): {t_tiled:.3f} s; read back equal to apply: {same}")
+    check(same, "apply_tiled differs from apply")
+    os.remove(tiled_path)
+    out["apply_tiled_s"] = t_tiled
+
+    # The generic loop, one NuthKaab fit per tile, on a pair made the same way at GENERIC_CROP^2 (a
+    # crop of the pair above is mostly one hillside, whose 10 km tiles leave Nuth & Kaab
+    # nothing to fit).
+    g = min(GENERIC_CROP, n)
+    ref_g, tba_g = (DEM.from_array(a, transform, 32633) for a in main_pair(dev, g, seed=5))
+    (gen, t_gen) = _synced(lambda: coreg.BlockwiseCoreg(coreg.NuthKaab(), block_size_fit=bs).fit(ref_g, tba_g))
+    med_g = [float(np.nanmedian(v)) for v in (gen.shifts_x, gen.shifts_y, gen.shifts_z)]
+    print(f"  BlockwiseCoreg(NuthKaab()) on {g}x{g} ({gen.shifts_x.size} tiles, one fit each): {t_gen:.3f} s; median shift "
+          f"({med_g[0]:.4f}, {med_g[1]:.4f}, {med_g[2]:.4f}) m")
+    check(abs(med_g[0] + dx) <= 0.05 * mag and abs(med_g[1] + dy) <= 0.05 * mag, f"generic blockwise median {med_g}")
+    out["generic_blockwise_s"] = t_gen
+    out["peak_gb"] = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
+    print(f"  the phase's peak memory (to here): {out['peak_gb']:.2f} GB")
+    del ref, tba, ref_t, tba_t, bw, gen, ref_g, tba_g
+    torch.cuda.empty_cache()
+
+    # The card against the CPU on a crop-sized pair and cloud: one numpy draw of the points on
+    # both devices; the blockwise picks drawn on the card and replayed on the CPU; the terrain
+    # variables of the uncertainty call computed on the card and replayed.
+    k, n_c = POINTS_CROP
+    cpu = torch.device("cpu")
+    t_c = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    ref_c, tba_c = main_pair(cpu, k, seed=3)
+    pts_c = point_cloud(cpu, ref_c, t_c, n_c, seed=23, shift=TBA_SHIFT)
+    runs = []
+    undo = [_replay(blockwise, "_tile_picks"), _replay_rasters(terrain, "get_terrain_attribute")]
+    try:
+        for d in (dev, cpu):
+            r, tb = DEM.from_array(ref_c.to(d), t_c, 32633), DEM.from_array(tba_c.to(d), t_c, 32633)
+            p = EPC(x=pts_c.x.to(d), y=pts_c.y.to(d), z=pts_c.z.to(d), crs=32633)
+            fits = {"NK DEM-EPC": coreg.NuthKaab().fit(r, p, random_state=42).to_matrix(),
+                    "NK EPC-DEM": coreg.NuthKaab().fit(p, r, random_state=42).to_matrix(),
+                    "LZD DEM-EPC": coreg.LZD(subsample=20000).fit(r, p, random_state=42).to_matrix()}
+            with Stages({"solve": (affine, "_nuth_kaab_solve_batched")}, sync=False) as st:
+                bwc = coreg.BlockwiseNuthKaab(block_size_fit=256, subsample_per_tile=picks, random_state=42).fit(r, tb)
+            sig_c, rho_c = r.estimate_uncertainty(p, subsample=2000, random_state=42)
+            runs.append({"fits": fits, "shifts": np.stack([bwc.shifts_x, bwc.shifts_y, bwc.shifts_z]),
+                         "iterations": st.last["solve"][4].cpu().numpy(),
+                         "sigma": sig_c.data.cpu().double(), "rho": rho_c(np.array([20.0, 200.0, 2000.0]))})
+    finally:
+        for u in undo:
+            u()
+    gpu, cpu_r = runs
+    d_fit = {key: float(np.abs(gpu["fits"][key] - cpu_r["fits"][key]).max() / np.abs(cpu_r["fits"][key]).max())
+             for key in gpu["fits"]}
+    # A tile that oscillates without converging (a 5 km crop of one hillside) amplifies the last
+    # bits in which the card's and the CPU's float32 sums differ; the tiles that converge at the
+    # same step on both devices are held to 1e-4 of the shifts' mean magnitude.
+    sh_g, sh_c = gpu["shifts"], cpu_r["shifts"]
+    conv = (gpu["iterations"] == cpu_r["iterations"]) & (cpu_r["iterations"] < 10)
+    n_conv = int(conv.sum())
+    d_bw = float(np.nanmax(np.abs(sh_g - sh_c)[:, conv], initial=0.0) / np.nanmean(np.abs(sh_c)))
+    same_nan_bw = bool(np.array_equal(np.isnan(sh_g[:, conv]), np.isnan(sh_c[:, conv])))
+    both = torch.isfinite(cpu_r["sigma"]) & torch.isfinite(gpu["sigma"])
+    dsig = torch.abs(gpu["sigma"][both] - cpu_r["sigma"][both]) / cpu_r["sigma"][both].abs().mean()
+    p999, dmax = float(torch.quantile(dsig, 0.999)), float(dsig.max())
+    d_rho = float(np.abs(gpu["rho"] - cpu_r["rho"]).max())
+    print(f"  card vs CPU on a {k}^2 pair with {len(pts_c)} points: fits max rel {dict((a, f'{b:.2e}') for a, b in d_fit.items())}; "
+          f"blockwise shifts of the {n_conv}/{conv.size} tiles that converge {d_bw:.3e} of their mean magnitude "
+          f"(NaN tiles identical {same_nan_bw}); sigma p99.9 "
+          f"{p999:.3e}, max {dmax:.3e} of its mean; rho {d_rho:.3e}")
+    check(max(d_fit.values()) <= 1e-4, f"raster-point fits card vs CPU: {d_fit}")
+    check(n_conv >= 4 and d_bw <= 1e-4 and same_nan_bw,
+          f"blockwise shifts card vs CPU: {n_conv} tiles converged, {d_bw:.3e}, NaN tiles identical {same_nan_bw}")
+    check(p999 <= 5e-3 and dmax <= 1e-2 and d_rho <= 5e-3, f"uncertainty card vs CPU: sigma {p999:.3e} / {dmax:.3e}, rho {d_rho:.3e}")
+    out["crop"] = {"fits_rel": d_fit, "blockwise_rel": d_bw, "blockwise_converged_tiles": n_conv, "sigma_p999": p999,
+                   "sigma_max": dmax, "rho": d_rho}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1461,7 +1781,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/8] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/9] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
     print(card)
@@ -1470,7 +1790,7 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/8] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/9] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -1482,30 +1802,35 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/8] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/9] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/8] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/9] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/8] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/9] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/8] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/9] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[7/8] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[7/9] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
     vol = phase_volume(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[8/8] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[8/9] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs")  # git-ignored
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as folder:
         ras = phase_raster(dev, MAIN_SIZE, folder)
+    torch.cuda.empty_cache()
+
+    print(f"[9/9] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
+    with tempfile.TemporaryDirectory(dir=scratch) as folder:
+        pts = phase_points(dev, MAIN_SIZE, POINTS, folder)
 
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
@@ -1515,7 +1840,7 @@ def main() -> int:
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
-        "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras}
+        "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -297,8 +297,14 @@ def test_binned_states_need_pandas_from_jax_and_round_trip_from_the_port(pair, t
 
 
 def test_blockwise_names_raise_naming_raster():
-    """The blockwise names raise, naming their module as not ported (Raster, which they
-    need, is ported)."""
+    """The blockwise names are ported: each builds with xdem_tpu's signature, and a bias
+    correction is refused as a blockwise step as xdem_tpu refuses it."""
+    import inspect
+
     for name in ("BlockwiseCoreg", "BlockwiseNuthKaab", "MultiprocConfig"):
-        with pytest.raises(NotImplementedError, match=r"coreg/blockwise\.py\) is not ported"):
-            getattr(coreg, name)()
+        assert list(inspect.signature(getattr(coreg, name)).parameters) == \
+            list(inspect.signature(getattr(jcoreg, name)).parameters), name
+    assert coreg.BlockwiseNuthKaab().block_size_fit == 500 and coreg.MultiprocConfig().chunk_size == 500
+    for mod in (coreg, jcoreg):
+        with pytest.raises(ValueError, match="only supports affine"):
+            mod.BlockwiseCoreg(mod.TerrainBias())

@@ -317,7 +317,19 @@ def test_apply_matrix_rotation_tiers_match_jax(pair, case):
 
 
 def test_apply_matrix_refuses_point_clouds():
-    with pytest.raises(NotImplementedError, match="point clouds"):
+    """Point clouds are ported: an EPC is moved in float64 as xdem_tpu moves it (1e-6 m); a
+    1-D array, which is neither a grid nor a point cloud, is refused."""
+    from xdem_tpu import epc as jepc
+    from xdem_tpu_torch import EPC
+
+    rng = np.random.default_rng(0)
+    x, y, z = 5e5 + rng.uniform(0, 5e3, 500), 8e6 - rng.uniform(0, 5e3, 500), rng.uniform(0, 900, 500)
+    m = coreg.matrix_from_translations_rotations(*TRUTH)
+    got = coreg.apply_matrix(EPC(x=x, y=y, z=z, crs=32633), m, centroid=(5e5, 8e6, 400.0))
+    want = jbase.apply_matrix(jepc.EPC(x=x, y=y, z=z, crs=32633), m, centroid=(5e5, 8e6, 400.0))
+    for k in ("x", "y", "z"):
+        np.testing.assert_allclose(to_np(getattr(got, k)), getattr(want, k), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="point cloud, a data frame or a 2-D grid"):
         coreg.apply_matrix(np.zeros((10, 3)).ravel(), np.eye(4), transform=TRANSFORM)
 
 

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels K1, K2, K3 against their plain PyTorch versions on the card,
 the uncertainty path's device functions on the card against the CPU, and the volume, texture
 shading, convolution, patches and Genton paths on the card against the CPU at 512^2, and the
-DEM path (reprojection, the vertical CRS, a DEM's attributes) on the card against the CPU.
+DEM path (reprojection, the vertical CRS, a DEM's attributes), the raster-point fits, the
+matrix apply to an EPC and the batched blockwise Nuth & Kääb solve (the card's picks solved
+on both) on the card against the CPU.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -595,3 +597,106 @@ def test_dem_attributes_on_the_card_equal_the_array_path(cuda_device):
     for a, g, w in zip(suite, got, want):
         assert g.data.is_cuda and g.nodata == -99999 and tuple(g.transform) == tuple(gpu.transform)
         _bit_equal(g.data, w, a)
+
+
+def _points_on(pc, device):
+    from xdem_tpu_torch import EPC
+
+    return EPC(x=pc.x.to(device), y=pc.y.to(device), z=pc.z.to(device), crs=pc.crs)
+
+
+def _card_point_pair(cuda_device):
+    """The examples' 512 x 640 crop (Nuth & Kääb converges there) and 30 000 points of its
+    to-be-aligned DEM, on the card and on the CPU."""
+    from xdem_tpu_torch import examples
+
+    crop = ((0, 512), (0, 640))
+    ref, tba = examples.get_ref_dem().icrop(*crop), examples.get_tba_dem().icrop(*crop)
+    pts = tba.to_pointcloud(subsample=30_000, random_state=1)
+    return {d.type: (ref.copy(new_array=ref.data.to(d)), tba.copy(new_array=tba.data.to(d)), _points_on(pts, d))
+            for d in (cuda_device, torch.device("cpu"))}
+
+
+@pytest.mark.parametrize("order", ["rst-pts", "pts-rst"])
+def test_raster_point_fits_on_the_card_match_the_cpu(cuda_device, order):
+    """One numpy draw of the points on both devices (only the valid count reaches the host):
+    Nuth & Kääb and LZD matrices within 1e-4 of their largest entry."""
+    on = _card_point_pair(cuda_device)
+    for name, kw in (("NuthKaab", {}), ("LZD", {"subsample": 5000})):
+        fits = []
+        for dev in ("cuda", "cpu"):
+            ref, tba, pts = on[dev]
+            a, b = (ref, pts) if order == "rst-pts" else (ref.to_pointcloud(subsample=30_000, random_state=2), tba)
+            fits.append(getattr(coreg, name)(**kw).fit(a, b, random_state=42).to_matrix())
+        assert np.abs(fits[0] - fits[1]).max() <= 1e-4 * np.abs(fits[1]).max(), (name, fits)
+
+
+def test_apply_matrix_of_an_epc_on_the_card_matches_the_cpu(cuda_device):
+    on = _card_point_pair(cuda_device)
+    m = coreg.matrix_from_translations_rotations(20, 5, 0.1, 0.1, 0.05, 0.01)
+    got, want = (coreg.apply_matrix(on[d][2], m, centroid=(5.03e5, 8.67e6, 300.0)) for d in ("cuda", "cpu"))
+    assert got.x.is_cuda and got.x.dtype == torch.float64
+    for k in ("x", "y", "z"):
+        assert float((getattr(got, k).cpu() - getattr(want, k)).abs().max()) <= 1e-6, k
+
+
+def test_batched_nuth_kaab_on_the_card_matches_the_cpu_with_the_cards_picks(cuda_device):
+    """The card draws each tile's picks; the CPU solves the same picks: tile shifts within
+    1e-4 m, iteration counts equal; the warp by the planes within 1e-5 of the mean magnitude."""
+    from scipy.ndimage import shift as nd_shift
+
+    from xdem_tpu_torch import DEM
+    from xdem_tpu_torch.coreg import affine, blockwise
+
+    n, bs, k = 512, 128, 4000
+    z = _dem("cpu", shape=(n, n), seed=4, holes=False).double().numpy()
+    rr, cc = np.mgrid[0:n, 0:n]
+    ref = z + 40 * np.sin(2 * np.pi * cc / 23) * np.sin(2 * np.pi * rr / 17)
+    tba = (nd_shift(ref, (0.23, -0.31), order=3, mode="nearest") + 1.5).astype(np.float32)
+    ref = ref.astype(np.float32)
+    tba[0:128, 128:228] = np.nan
+    inp = blockwise._blockwise_nuth_kaab_inputs(torch.from_numpy(ref).to(cuda_device),
+                                                torch.from_numpy(tba).to(cuda_device),
+                                                torch.ones((n, n), dtype=torch.bool, device=cuda_device), 42, bs,
+                                                n // bs, n // bs, k)
+    args = [inp[key] for key in ("pts_z", "rows", "cols", "rasters", "slope_tan", "aspect")]
+    gpu = affine._nuth_kaab_solve_batched(*args, 20.0, 20.0, 0.001)
+    cpu = affine._nuth_kaab_solve_batched(*(a.cpu() for a in args), 20.0, 20.0, 0.001)
+    assert gpu[0].is_cuda and torch.equal(gpu[4].cpu(), cpu[4])
+    for g, c in zip(gpu[:2], cpu[:2]):
+        assert float((g.cpu() - c).abs().max()) <= 1e-4
+    t = Affine.from_origin(502810.0, 8674030.0, 20.0, 20.0)
+    fitted = coreg.BlockwiseNuthKaab(block_size_fit=bs, subsample_per_tile=k, random_state=1).fit(
+        DEM.from_array(ref, t, 32633), DEM.from_array(tba, t, 32633))
+    dem_gpu = DEM.from_array(torch.from_numpy(tba).to(cuda_device), t, 32633)
+    dem_cpu = DEM.from_array(torch.from_numpy(tba), t, 32633)
+    warped = [fitted.apply(d).get_nanarray() for d in (dem_gpu, dem_cpu)]
+    assert np.array_equal(np.isnan(warped[0]), np.isnan(warped[1]))
+    assert scaled_dev(warped[0], warped[1]) <= 1e-5
+
+
+def test_batched_nuth_kaab_waits_for_the_card_once_a_step(cuda_device):
+    """The batched solve reads one value back per step ("all tiles done"): CUDA's sync debug
+    mode reports no more synchronizing calls than steps."""
+    import warnings
+
+    from xdem_tpu_torch.coreg import affine
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    t, k = 16, 4000
+    ras = torch.rand((t, 64, 64), generator=g, device=cuda_device) * 100
+    rows = torch.rand((t, k), generator=g, device=cuda_device) * 50 + 5
+    cols = torch.rand((t, k), generator=g, device=cuda_device) * 50 + 5
+    z = affine._interp_tiles(ras, rows, cols) + 1.0
+    st = torch.rand((t, k), generator=g, device=cuda_device) + 0.1
+    asp = torch.rand((t, k), generator=g, device=cuda_device) * 6.28
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")  # also keeps the mode's own "prototype feature" notice
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = affine._nuth_kaab_solve_batched(z, rows, cols, ras, st, asp, 20.0, 20.0, 0.001)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert 0 < len(syncs) <= int(out[4].max()), [str(w.message) for w in syncs]

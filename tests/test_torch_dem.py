@@ -68,11 +68,18 @@ def test_examples_equal_xdem_tpus(pair, jpair, tmp_path):
     outlines = examples.get_path("longyearbyen_glacier_outlines", output_dir=str(tmp_path))
     np.testing.assert_array_equal(xdem_tpu_torch.Vector(outlines).create_mask(pair[0]).numpy(),
                                   xdem_tpu.Vector(outlines).create_mask(jpair[0]))
-    for name in ("longyearbyen_epc", "longyearbyen_ddem", "longyearbyen_tba_dem_coreg"):
+    for name in ("longyearbyen_ddem", "longyearbyen_tba_dem_coreg"):
         with pytest.raises(NotImplementedError, match="not ported"):
             examples.get_path_test(name, output_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="EPC"):
-        examples.get_epc()
+    # The example point cloud: the same points as xdem_tpu's, in its npz layout.
+    from xdem_tpu import epc as jepc
+    from xdem_tpu_torch import EPC, epc
+
+    ours, theirs = examples.get_epc(), jex.get_epc()
+    assert isinstance(ours, EPC)
+    np.testing.assert_array_equal(ours.z.cpu().numpy(), theirs.z)
+    path = examples.get_path_test("longyearbyen_epc", output_dir=str(tmp_path))
+    np.testing.assert_array_equal(epc.read_epc(path).x.cpu().numpy(), jepc.read_epc(path).x)
 
 
 def test_dem_file_round_trip_keeps_vcrs_and_bits(pair, tmp_path):
@@ -84,8 +91,9 @@ def test_dem_file_round_trip_keeps_vcrs_and_bits(pair, tmp_path):
     np.testing.assert_array_equal(ours.get_nanarray(), ref.get_nanarray())
     assert ours.vcrs_name == theirs.vcrs_name == "EGM96" and ours.vcrs_grid == theirs.vcrs_grid
     assert ours.info(stats=True, verbose=False) == theirs.info(stats=True, verbose=False)
-    with pytest.raises(NotImplementedError, match="EPC"):
-        ours.to_pointcloud()
+    pts, jpts = ours.to_pointcloud(subsample=50, random_state=1), theirs.to_pointcloud(subsample=50, random_state=1)
+    assert type(pts).__name__ == "EPC" and pts.vcrs_name == jpts.vcrs_name == "EGM96"
+    np.testing.assert_array_equal(pts.z.cpu().numpy(), jpts.z)
     np.testing.assert_array_equal(ours.to_pointcloud(as_array=True, subsample=50, random_state=1),
                                   theirs.to_pointcloud(as_array=True, subsample=50, random_state=1))
 

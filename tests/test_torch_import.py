@@ -1,6 +1,6 @@
-"""xdem_tpu_torch stands alone: it imports neither JAX, xdem_tpu nor pandas (the card's
-machine has none of them), its copied constant tables equal xdem_tpu's originals, and its
-kernel builder imports without nvcc."""
+"""xdem_tpu_torch stands alone: it imports neither JAX, xdem_tpu, pandas nor scikit-learn (the
+card's machine has none of them), its copied constant tables equal xdem_tpu's originals, and
+its kernel builder imports without nvcc."""
 
 import math
 import re
@@ -36,7 +36,8 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
         "xdem_tpu_torch.coreg.filters, xdem_tpu_torch.coreg.blockwise, xdem_tpu_torch.volume, "
         "xdem_tpu_torch.terrain.freq, xdem_tpu_torch.projections, xdem_tpu_torch.georef, xdem_tpu_torch.config, "
         "xdem_tpu_torch.io, xdem_tpu_torch.geoid, xdem_tpu_torch.vcrs, xdem_tpu_torch.vector, xdem_tpu_torch._misc, "
-        "xdem_tpu_torch.raster, xdem_tpu_torch.dem, xdem_tpu_torch.examples; "
+        "xdem_tpu_torch.raster, xdem_tpu_torch.dem, xdem_tpu_torch.examples, xdem_tpu_torch.pointcloud, "
+        "xdem_tpu_torch.epc; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -188,6 +189,85 @@ def test_file_to_result_path_runs_without_pandas(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(PKG.parent), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_point_and_blockwise_paths_run_without_pandas_or_sklearn(tmp_path):
+    """Point clouds (LAS round trip, the vertical CRS, coregistration both ways, the
+    uncertainty of a DEM against points) and blockwise coregistration (the batched fit, the
+    RANSAC, the warp, the streamed warp) import and run with pandas and scikit-learn
+    unavailable and without JAX or xdem_tpu in the process, as on the card's machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None; sys.modules['sklearn'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import EPC, coreg, examples\n"
+        "from xdem_tpu_torch.epc import read_epc, write_epc\n"
+        f"d = {str(tmp_path)!r}\n"
+        "ref, tba = examples.get_ref_dem().icrop((0, 512), (0, 640)), examples.get_tba_dem().icrop((0, 512), (0, 640))\n"
+        "pts = tba.to_pointcloud(subsample=20000, random_state=1)\n"
+        "write_epc(d + '/p.las', pts); back = read_epc(d + '/p.las')\n"
+        "assert isinstance(back, EPC) and back.crs == 32633 and float((back.z - pts.z).abs().max()) < 1e-3\n"
+        "back.set_vcrs('EGM96'); assert back.to_vcrs('Ellipsoid') is not None\n"
+        "nk = coreg.NuthKaab(); moved = pts.coregister_3d(ref, nk, random_state=42)\n"
+        "assert abs(nk.to_translations()[2] - 2.35) < 0.1 and isinstance(moved, EPC)\n"
+        "coreg.LZD(subsample=3000).fit(ref.to_pointcloud(subsample=20000, random_state=2), tba, random_state=1)\n"
+        "sig, rho = ref.estimate_uncertainty(pts, subsample=500, random_state=1)\n"
+        "assert np.isfinite(sig.get_nanarray()).mean() > 0.9 and abs(rho(np.array([0.0]))[0] - 1) < 1e-9\n"
+        "bw = coreg.BlockwiseNuthKaab(block_size_fit=128, subsample_per_tile=3000, random_state=3).fit(ref, tba)\n"
+        "out = bw.apply(tba); path = bw.apply_tiled(tba, out_path=d + '/a.tif', tile_rows=200)\n"
+        "assert np.isfinite(out.get_nanarray()).mean() > 0.9\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad and sys.modules['pandas'] is None and sys.modules['sklearn'] is None, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_las_layout_and_geokeys_equal_originals(tmp_path):
+    """The port's LAS constants are those of the layout xdem_tpu writes: the header size, the
+    GeoKeyDirectory record and the projected, geographic and user-defined keys."""
+    import struct
+
+    from xdem_tpu import epc as jepc
+    from xdem_tpu_torch import epc as tepc
+
+    for crs, key in ((32633, tepc.LAS_KEY_PROJECTED), (4326, tepc.LAS_KEY_GEOGRAPHIC)):
+        path = str(tmp_path / f"{crs}.las")
+        jepc.write_epc(path, jepc.EPC(x=[1.0, 2.0], y=[3.0, 4.0], z=[5.0, 6.0], crs=crs))
+        buf = open(path, "rb").read()
+        assert struct.unpack_from("<H", buf, 94)[0] == tepc.LAS_HEADER_SIZE
+        assert struct.unpack_from("<H", buf, tepc.LAS_HEADER_SIZE + 18)[0] == tepc.LAS_GEOKEY_RECORD
+        keys = np.frombuffer(buf, "<u2", count=12, offset=tepc.LAS_HEADER_SIZE + 54)
+        assert keys[8] == key and keys[11] == crs
+        # A user-defined code is no EPSG code: both readers ignore it.
+        patched = bytearray(buf)
+        struct.pack_into("<H", patched, tepc.LAS_HEADER_SIZE + 54 + 22, tepc.LAS_USER_DEFINED)
+        (tmp_path / "u.las").write_bytes(bytes(patched))
+        assert tepc._read_las(str(tmp_path / "u.las"))[3] is None is jepc._read_las(str(tmp_path / "u.las"))[3]
+
+
+def test_blockwise_thresholds_and_ransac_rules_equal_originals():
+    """_gate_diverged_tiles gates a shift beyond a tile's extent and keeps one at it, as
+    xdem_tpu's does; the RANSAC keeps scikit-learn's RANSACRegressor rules (three points a
+    trial, a 0.99 stop probability) and xdem_tpu's defaults (threshold 0.01, 2000 trials,
+    seed 42)."""
+    import inspect
+
+    from sklearn.linear_model import RANSACRegressor
+
+    from xdem_tpu.coreg import blockwise as jbw
+    from xdem_tpu_torch.coreg import blockwise as tbw
+
+    for lim in (500 * 20.0, np.nextafter(500 * 20.0, np.inf)):
+        a, b = [np.array([lim, 0.0]), np.array([0.0, -lim]), np.zeros(2)], [np.array([lim, 0.0]), np.array([0.0, -lim]),
+                                                                            np.zeros(2)]
+        np.testing.assert_array_equal(tbw._gate_diverged_tiles(*a, 500, 20.0, 20.0),
+                                      jbw._gate_diverged_tiles(*b, 500, 20.0, 20.0))
+    assert RANSACRegressor().stop_probability == tbw.RANSAC_STOP_PROBABILITY and tbw.RANSAC_MIN_SAMPLES == 3
+    for name in ("_ransac", "ransac_all", "apply", "apply_tiled", "fit", "fit_and_apply"):
+        ours, theirs = (inspect.signature(getattr(m.BlockwiseCoreg, name)).parameters for m in (tbw, jbw))
+        assert {k: v.default for k, v in ours.items()} == {k: v.default for k, v in theirs.items()}, name
 
 
 def _same(a, b) -> bool:

@@ -465,8 +465,10 @@ def test_stats_subsample_and_arithmetic_match_xdem_tpu():
     np.testing.assert_array_equal(mask.get_nanarray(), np.asarray((theirs > 500.0).data))
     np.testing.assert_array_equal(ours.to_pointcloud(as_array=True, subsample=40, random_state=2),
                                   theirs.to_pointcloud(as_array=True, subsample=40, random_state=2))
-    with pytest.raises(NotImplementedError, match="PointCloud"):
-        ours.to_pointcloud()
+    pts, jpts = ours.to_pointcloud(subsample=40, random_state=2), theirs.to_pointcloud(subsample=40, random_state=2)
+    assert type(pts).__name__ == "PointCloud" and pts.x.dtype == torch.float64
+    for k in ("x", "y", "z"):
+        np.testing.assert_array_equal(getattr(pts, k).cpu().numpy(), getattr(jpts, k))
 
 
 def test_set_mask_nodata_and_area_or_point_match_xdem_tpu():

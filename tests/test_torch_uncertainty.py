@@ -120,7 +120,7 @@ class _VectorLike:
 
 
 @pytest.mark.parametrize("change,exc,match", [
-    (dict(other=pd.DataFrame({"x": [0.0], "y": [0.0], "z": [1.0]})), NotImplementedError, "point-cloud"),
+    (dict(other=pd.DataFrame({"x": [0.0], "y": [0.0], "z": [1.0]})), ValueError, "Too few stable"),
     (dict(stable_terrain=_VectorLike()), ValueError, "raster is needed"),
     (dict(mesh=object()), NotImplementedError, "mesh"),
     (dict(other=np.zeros((10, 12), np.float32)), ValueError, "not on the grid"),

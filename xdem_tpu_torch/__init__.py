@@ -2,10 +2,12 @@
 
 Elevation objects (``DEM`` and ``Raster``: a float32 tensor with NaN nodata, an ``Affine``
 transform and a ``CRS``; GeoTIFF I/O through a native codec in ``xdem_tpu_torch.io``;
-reprojection and vertical CRS transforms on the tensors' device; ``Vector`` masks), terrain
-attributes (``xdem_tpu_torch.terrain``), 3-D coregistration of raster pairs
-(``xdem_tpu_torch.coreg``: Nuth & Kääb, vertical shift, DhMinimize, ICP, CPD, LZD, the bias
-corrections Deramp, DirectionalBias and TerrainBias, pipelines, and the matrix apply), the
+reprojection and vertical CRS transforms on the tensors' device; ``Vector`` masks; the point
+clouds ``PointCloud`` and ``EPC``, float64 tensors on one device, with LAS/npz/text files),
+terrain attributes (``xdem_tpu_torch.terrain``), 3-D coregistration of raster-raster and
+raster-point pairs (``xdem_tpu_torch.coreg``: Nuth & Kääb, vertical shift, DhMinimize, ICP,
+CPD, LZD, the bias corrections Deramp, DirectionalBias and TerrainBias, pipelines, blockwise
+Nuth & Kääb, and the matrix apply), the
 robust fits behind them (``xdem_tpu_torch.fit``), the uncertainty of elevation differences
 (``xdem_tpu_torch.uncertainty``, ``xdem_tpu_torch.spatialstats``) and volume change by
 hypsometric binning (``xdem_tpu_torch.volume``), in float32, on one device: CUDA when
@@ -28,9 +30,11 @@ from xdem_tpu_torch import (coreg, examples, fit, georef, io, ops, spatialstats,
                             volume)
 from xdem_tpu_torch.config import config, config_context
 from xdem_tpu_torch.dem import DEM
+from xdem_tpu_torch.epc import EPC
+from xdem_tpu_torch.pointcloud import PointCloud
 from xdem_tpu_torch.raster import Raster
 from xdem_tpu_torch.vector import Vector
 
-__all__ = ["DEM", "Raster", "Vector", "CRS", "Affine", "config", "config_context", "as_tensor", "default_device",
+__all__ = ["DEM", "EPC", "PointCloud", "Raster", "Vector", "CRS", "Affine", "config", "config_context", "as_tensor", "default_device",
            "coreg", "examples", "fit", "georef", "io", "ops", "spatialstats", "terrain", "uncertainty", "vcrs",
            "volume"]

@@ -1,7 +1,7 @@
-"""3-D coregistration of raster pairs (Rasters/DEMs, or arrays and tensors with a transform):
-affine methods, bias corrections and pipelines, with the matrix toolbox. Blockwise
-coregistration (BlockwiseCoreg, BlockwiseNuthKaab, MultiprocConfig) is not ported yet: those
-names raise NotImplementedError."""
+"""3-D coregistration of raster-raster and raster-point pairs (Rasters/DEMs, arrays and tensors
+with a transform, PointCloud/EPC): affine methods, bias corrections and pipelines, blockwise
+coregistration (BlockwiseCoreg, BlockwiseNuthKaab, MultiprocConfig), with the matrix
+toolbox."""
 
 from xdem_tpu_torch.coreg.base import (
     Coreg,

@@ -1,8 +1,8 @@
 """Affine coregistration: AffineCoreg, VerticalShift, Nuth & Kääb (2011), DhMinimize, ICP,
 CPD and LZD.
 
-Port of the raster-raster paths of xdem_tpu/coreg/affine.py. Every solver runs on the device
-of its inputs, in float32 (nothing here turns TF32 on); where xdem_tpu has a
+Port of the raster-raster and raster-point paths of xdem_tpu/coreg/affine.py. Every solver
+runs on the device of its grid, in float32 (nothing here turns TF32 on); where xdem_tpu has a
 ``lax.while_loop`` the port has a Python loop whose stop test reads one scalar per
 iteration.
 
@@ -10,7 +10,9 @@ iteration.
   replacement (uniform scores from an explicit ``torch.Generator``, invalid pixels parked at
   -inf, top-k), then bilinear dh, aspect-binned medians and a closed-form 3x3 solve of the
   cosine model. Its draw differs from xdem_tpu's (torch and JAX generators give other bits
-  from one seed), so the fit agrees with the reference to the coregistration tolerance.
+  from one seed), so the fit agrees with the reference to the coregistration tolerance. A
+  raster-point pair takes slope and aspect in float64 and draws over the points with numpy,
+  as xdem_tpu does; only the valid count crosses to the host.
 - VerticalShift, DhMinimize, ICP, CPD and LZD draw their subsample on the host with
   ``np.random.default_rng(random_state).choice`` over the jointly valid pixels, exactly as
   xdem_tpu does, so the samples are identical and the fits agree closely.
@@ -31,9 +33,11 @@ from typing import Any, Callable, Literal
 import numpy as np
 import torch
 
+from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.coreg.base import (
     Coreg,
     _check_matrix,
+    _grid_side,
     _make_matrix_valid,
     invert_matrix,
     matrix_from_translations_rotations,
@@ -45,6 +49,7 @@ from xdem_tpu_torch.ops.reductions import binned_median as _binned_median
 from xdem_tpu_torch.ops.reductions import masked_median as _masked_median
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask
+from xdem_tpu_torch.pointcloud import PointCloud
 
 
 def _warn_if_not_converged(it: int, max_iterations: int, stat: float, tolerance: float,
@@ -132,12 +137,71 @@ def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int
     return rr, cc, int(count), vals
 
 
-def _subsample_pair(ref_elev: torch.Tensor, tba_elev: torch.Tensor, inlier_mask: Any, transform: Affine,
+def _points_on_grid(pts: PointCloud, transform: Affine, device: torch.device):
+    """(rows, cols, z) of the points on a grid: float64 fractional pixel coordinates
+    (centre convention) and heights, on `device`."""
+    rows, cols = transform.rowcol(pts.x.to(device), pts.y.to(device))
+    return rows, cols, pts.z.to(device)
+
+
+def _draw_valid(valid: torch.Tensor, subsample: float | int, random_state: Any) -> tuple[torch.Tensor, int]:
+    """Positions of a subsample of the True entries of `valid`, drawn as xdem_tpu draws them:
+    numpy's ``choice(idx, count)`` over the valid positions ``idx`` equals
+    ``idx[choice(len(idx), count)]`` for one seed, so only the valid count reaches the host
+    and the positions are mapped on `valid`'s device. Returns (positions, count)."""
+    n_valid = int(valid.sum())
+    if n_valid == 0:
+        raise ValueError("No valid points overlapping the raster.")
+    count = _count_from_subsample(subsample, n_valid)
+    idx = torch.nonzero(valid).reshape(-1)
+    if count < n_valid:
+        pos = np.random.default_rng(random_state).choice(n_valid, count, replace=False)
+        idx = idx[torch.from_numpy(np.asarray(pos, np.int64)).to(idx.device)]
+    return idx, count
+
+
+def _subsample_pair_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine,
+                           subsample: float | int, random_state: Any, aux_vars: dict[str, torch.Tensor]) -> dict:
+    """The raster-point branch of :func:`_subsample_pair`, on the grid's device. A point is
+    valid when its height is finite, it lies inside the grid, and its four bilinear
+    neighbours are finite, inliers, and finite in every aux grid."""
+    ref_is_pts = isinstance(ref_elev, PointCloud)
+    pts, rst = (ref_elev, tba_elev) if ref_is_pts else (tba_elev, ref_elev)
+    dev = rst.device
+    h, w = rst.shape
+    rows_f, cols_f, z = _points_on_grid(pts, transform, dev)
+    rst_valid = torch.isfinite(rst)
+    if inlier_mask is not None:
+        rst_valid &= device_mask(inlier_mask, (h, w), dev)
+    for v in aux_vars.values():
+        rst_valid &= torch.isfinite(v)
+    flat_valid = rst_valid.reshape(-1)
+    inside = (rows_f >= 0) & (rows_f <= h - 1) & (cols_f >= 0) & (cols_f <= w - 1)
+    r0 = torch.clamp(torch.floor(torch.where(inside, rows_f, 0.0)), 0, h - 1).long()
+    c0 = torch.clamp(torch.floor(torch.where(inside, cols_f, 0.0)), 0, w - 1).long()
+    r1, c1 = torch.clamp(r0 + 1, max=h - 1), torch.clamp(c0 + 1, max=w - 1)
+    valid = torch.isfinite(z) & inside
+    for rr, cc in ((r0, c0), (r0, c1), (r1, c0), (r1, c1)):
+        valid &= flat_valid[rr * w + cc]
+    idx, count = _draw_valid(valid, subsample, random_state)
+    rows, cols = rows_f[idx], cols_f[idx]
+    out = {"pts_z": z[idx].to(torch.float32), "rows": rows.to(torch.float32), "cols": cols.to(torch.float32),
+           "raster": rst.to(torch.float32), "invert": not ref_is_pts, "count": count}
+    if aux_vars:
+        nearest = torch.round(rows).long().clamp(0, h - 1) * w + torch.round(cols).long().clamp(0, w - 1)
+        out["aux"] = {k: v.reshape(-1)[nearest].to(torch.float32) for k, v in aux_vars.items()}
+    return out
+
+
+def _subsample_pair(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine,
                     subsample: float | int, random_state: Any, aux_vars: dict[str, Any] | None = None) -> dict:
-    """Subsample a raster pair for the shift-and-compare methods: the reference heights and
-    pixel coordinates of the picks as float32 tensors on the pair's device, the
-    to-be-aligned grid to interpolate, the count, and float32 aux values."""
+    """Subsample a raster-raster or raster-point pair for the shift-and-compare methods: the
+    reference-side heights and the fractional pixel coordinates of the picks as float32
+    tensors on the grid's device, the grid to interpolate (`raster`; `invert` when it is the
+    reference), the count, and float32 aux values at the picks."""
     aux_vars = aux_vars or {}
+    if isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud):
+        return _subsample_pair_points(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, aux_vars)
     rr, cc, count, vals = _draw_pixels({"__ref__": ref_elev, "__tba__": tba_elev, **aux_vars},
                                        inlier_mask, subsample, random_state)
     dev = tba_elev.device
@@ -154,11 +218,48 @@ def _subsample_pair(ref_elev: torch.Tensor, tba_elev: torch.Tensor, inlier_mask:
     return out
 
 
-def _subsample_pair_values(ref_elev: torch.Tensor, tba_elev: torch.Tensor, inlier_mask: Any, transform: Affine,
+def _subsample_values_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine,
+                             subsample: float | int, random_state: Any, aux_vars: dict[str, Any]):
+    """The raster-point branch of :func:`_subsample_pair_values`, on the grid's device: the
+    grid and every aux grid are interpolated bilinearly at the points (float32 pixel
+    coordinates, as xdem_tpu forms them); a point is valid when every interpolated value and
+    its height are finite and its nearest pixel is an inlier. Aux functions of (rows, cols)
+    are evaluated at the picks only."""
+    ref_is_pts = isinstance(ref_elev, PointCloud)
+    pts, rst = (ref_elev, tba_elev) if ref_is_pts else (tba_elev, ref_elev)
+    dev = rst.device
+    h, w = rst.shape
+    rows_f, cols_f, z = _points_on_grid(pts, transform, dev)
+    r32, c32 = rows_f.to(torch.float32), cols_f.to(torch.float32)
+    grid_keys = [k for k, v in aux_vars.items() if not callable(v)]
+    vals = torch.stack([interp_rowcol(as_tensor(g, device=dev), r32, c32, method="linear")
+                        for g in [rst] + [aux_vars[k] for k in grid_keys]])
+    valid = torch.isfinite(vals).all(0) & torch.isfinite(z)
+    if inlier_mask is not None:
+        nearest = torch.round(rows_f).clamp(0, h - 1).long() * w + torch.round(cols_f).clamp(0, w - 1).long()
+        valid &= device_mask(inlier_mask, (h, w), dev).reshape(-1)[nearest]
+    idx, _ = _draw_valid(valid, subsample, random_state)
+    sub_vals = vals[:, idx].to(torch.float64).cpu().numpy()
+    aux = {k: sub_vals[1 + i] for i, k in enumerate(grid_keys)}
+    rr, cc = (v[idx].to(torch.float64).cpu().numpy() for v in (r32, c32))
+    for k, v in aux_vars.items():
+        if k not in aux:
+            aux[k] = np.asarray(v(rr, cc), dtype=np.float64)
+    sub_pts_z = z[idx].cpu().numpy()
+    x, y = (v[idx].cpu().numpy() for v in (pts.x.to(dev), pts.y.to(dev)))
+    aux = {k: aux[k] for k in aux_vars}
+    return (sub_pts_z, sub_vals[0], x, y, aux) if ref_is_pts else (sub_vals[0], sub_pts_z, x, y, aux)
+
+
+def _subsample_pair_values(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine,
                            subsample: float | int, random_state: Any, aux_vars: dict[str, Any] | None = None):
-    """Subsample a raster pair at common pixels: (ref, tba, x, y, aux) as float64 numpy, with
-    x, y the world coordinates of the pixel centres."""
+    """Subsample a raster-raster pair at common pixels, or a raster-point pair at the points:
+    (ref, tba, x, y, aux) as float64 numpy, with x, y the world coordinates of the pixel
+    centres or of the points."""
     aux_vars = aux_vars or {}
+    if isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud):
+        return _subsample_values_points(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state,
+                                        aux_vars)
     rr, cc, _, vals = _draw_pixels({"__ref__": ref_elev, "__tba__": tba_elev, **aux_vars},
                                    inlier_mask, subsample, random_state)
     x, y = transform.xy(rr, cc)
@@ -274,6 +375,94 @@ def _nuth_kaab_solve(
     return float(sx * res_x), float(sy * res_y), float(vshift), stat, it
 
 
+def _interp_tiles(tiles: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of (T, H, W) grids at (T, K) fractional pixel coordinates, each
+    row of points in its own grid, with ops.interp's rules (NaN outside or next to NaN)."""
+    t, h, w = tiles.shape
+    flat = tiles.reshape(-1)
+    base = (torch.arange(t, device=tiles.device) * (h * w))[:, None]
+    r0, c0 = torch.floor(rows).long(), torch.floor(cols).long()
+    fr, fc = rows - r0, cols - c0
+
+    def at(r, c):
+        return flat[base + torch.clamp(r, 0, h - 1) * w + torch.clamp(c, 0, w - 1)]
+
+    top = at(r0, c0) * (1 - fc) + at(r0, c0 + 1) * fc
+    bot = at(r0 + 1, c0) * (1 - fc) + at(r0 + 1, c0 + 1) * fc
+    vals = top * (1 - fr) + bot * fr
+    inside = (rows >= 0) & (rows <= h - 1) & (cols >= 0) & (cols <= w - 1)
+    return torch.where(inside, vals, torch.nan)
+
+
+def _nuth_kaab_solve_batched(
+    pts_z: torch.Tensor,
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    rasters: torch.Tensor,
+    slope_tan: torch.Tensor,
+    aspect: torch.Tensor,
+    res_x: float,
+    res_y: float,
+    tolerance: float,
+    max_iterations: int = 10,
+    n_bins: int = 72,
+    bin_before_fit: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_nuth_kaab_solve` over a leading tile axis: (T, K) points in (T, H, W) grids.
+
+    Every tile runs the single solve's stop rule (at least 3 steps, then the offset step below
+    `tolerance` in float32); a tile that has stopped keeps its values while the others go on,
+    as a vmapped while loop does. Medians are 0.5 * (lo + hi) of sorts by (tile, value) and
+    (tile, bin, value); NaN picks reach neither. One host read per iteration ("all tiles
+    done"). Returns float32 tensors (shift_x m, shift_y m, vshift, last step px, steps) per
+    tile.
+    """
+    dev, f32 = pts_z.device, torch.float32
+    t, k = pts_z.shape
+    bin_width = 2 * math.pi / n_bins
+    bin_centers = (torch.arange(n_bins, dtype=f32, device=dev) + 0.5) * bin_width
+    G = torch.stack([torch.cos(bin_centers), torch.sin(bin_centers), torch.ones(n_bins, dtype=f32, device=dev)], 1)
+    ridge = 1e-12 * torch.eye(3, dtype=f32, device=dev)
+    tile_id = torch.arange(t, device=dev)[:, None].expand(t, k)
+    bin_ids = tile_id * n_bins + torch.clamp((aspect / bin_width).to(torch.int32), 0, n_bins - 1).long()
+    Gp = torch.stack([torch.cos(aspect), torch.sin(aspect), torch.ones_like(aspect)], -1)
+
+    def lstsq(Gm: torch.Tensor, yv: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        # solve_ex: linalg.solve's own singularity check would read the device's answer back
+        # every step (the ridge keeps each system regular).
+        Gw = Gm * ok.to(f32)[..., None]
+        rhs = (Gw.transpose(1, 2) @ torch.where(ok, yv, 0.0)[..., None])[..., 0]
+        return torch.linalg.solve_ex(Gw.transpose(1, 2) @ Gm + ridge, rhs).result
+
+    sx = torch.zeros(t, dtype=f32, device=dev)
+    sy = torch.zeros(t, dtype=f32, device=dev)
+    vshift = torch.zeros(t, dtype=f32, device=dev)
+    stat = torch.full((t,), math.inf, dtype=f32, device=dev)
+    it = torch.zeros(t, dtype=torch.int64, device=dev)
+    tol32 = float(np.float32(tolerance))
+    active = torch.ones(t, dtype=torch.bool, device=dev)
+    for _ in range(max_iterations):
+        dh = pts_z - _interp_tiles(rasters, rows - sy[:, None], cols + sx[:, None])
+        vs = _binned_median(dh.reshape(-1), tile_id.reshape(-1), torch.isfinite(dh).reshape(-1), t)
+        y = (dh - vs[:, None]) / slope_tan
+        valid = torch.isfinite(y)
+        if bin_before_fit:
+            med = _binned_median(y.reshape(-1), bin_ids.reshape(-1), valid.reshape(-1), t * n_bins).reshape(t, n_bins)
+            p = lstsq(G.expand(t, n_bins, 3), med, torch.isfinite(med))
+        else:
+            p = lstsq(Gp, y, valid)
+        north_px, east_px = p[:, 0], p[:, 1]
+        sx = torch.where(active, sx + east_px, sx)
+        sy = torch.where(active, sy + north_px, sy)
+        vshift = torch.where(active, vs, vshift)
+        stat = torch.where(active, torch.hypot(east_px, north_px), stat)
+        it = it + active.long()
+        active = active & (it < max_iterations) & ~((it >= 3) & (stat < tol32))
+        if not bool(active.any()):
+            break
+    return sx * res_x, sy * res_y, vshift, stat, it
+
+
 def _nk_slope_aspect_valid(ref: torch.Tensor, tba: torch.Tensor, inlier: torch.Tensor):
     """Slope tangent (per pixel), aspect and the joint valid mask of a raster pair."""
     # Gradients are translation-invariant: mean-centre so f32 differencing stays accurate.
@@ -349,6 +538,14 @@ def nuth_kaab(
             f"Nuth and Kääb coregistration needs planar (projected) coordinates, but the input CRS "
             f"is {crs}. Reproject both elevations to a local projected system first."
         )
+    if isinstance(ref_elev, PointCloud) and isinstance(tba_elev, PointCloud):
+        raise TypeError(
+            "The Nuth and Kääb (2011) coregistration does not support two point clouds, one elevation "
+            "dataset in the pair must be a DEM."
+        )
+    if isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud):
+        return _nuth_kaab_points(ref_elev, tba_elev, inlier_mask, transform, tolerance, max_iterations, subsample,
+                                 random_state, bin_before_fit, n_bins)
     inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
     out = _nuth_kaab_rst_rst_device(
         ref_elev, tba_elev, inlier, seed_from(random_state), subsample,
@@ -358,21 +555,59 @@ def nuth_kaab(
     sx, sy, vshift = out["shift_x"], out["shift_y"], out["vshift"]
     if out["n_valid"] == 0:
         raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
-    _warn_if_not_converged(out["iterations"], int(max_iterations), out["stat"], tolerance, sx, sy)
-    if out["populated"] < n_bins // 4:
-        logging.warning(
-            "Only %d/%d aspect bins are well-populated: the terrain faces few directions, so "
-            "the Nuth and Kääb horizontal offsets are poorly constrained and may diverge. "
-            "Use a larger extent with diverse aspects, or DhMinimize/LZD instead.",
-            out["populated"], n_bins,
-        )
+    _check_nuth_kaab(out["iterations"], int(max_iterations), out["stat"], tolerance, sx, sy, vshift,
+                     out["populated"], n_bins)
+    return (sx, sy, vshift), int(min(out["count"], out["n_valid"])), out["iterations"]
+
+
+def _check_nuth_kaab(it: int, max_iterations: int, stat: float, tolerance: float, sx: float, sy: float,
+                     vshift: float, populated: int, n_bins: int) -> None:
+    """The warnings and the refusal of a Nuth & Kääb fit's outcome."""
     if not (np.isfinite(sx) and np.isfinite(sy) and np.isfinite(vshift)):
         raise ValueError(
             "No valid points remain in the subsample: either the shift to correct moved the "
             "grids out of overlap, or the solver diverged. Passing subsample=1 keeps every "
             "valid pixel available at each iteration."
         )
-    return (sx, sy, vshift), int(min(out["count"], out["n_valid"])), out["iterations"]
+    _warn_if_not_converged(it, max_iterations, stat, tolerance, sx, sy)
+    if populated < n_bins // 4:
+        logging.warning(
+            "Only %d/%d aspect bins are well-populated: the terrain faces few directions, so "
+            "the Nuth and Kääb horizontal offsets are poorly constrained and may diverge. "
+            "Use a larger extent with diverse aspects, or DhMinimize/LZD instead.",
+            populated, n_bins,
+        )
+
+
+def _grad_slope_aspect(grid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Slope tangent (pixel units, NaN where it is ~0) and aspect of a grid in float64 on its
+    device: xdem_tpu's host formulas."""
+    gradient_y, gradient_x = torch.gradient(grid.to(torch.float64))
+    slope_tan = torch.sqrt(gradient_x**2 + gradient_y**2)
+    aspect = torch.atan2(-gradient_x, gradient_y) + math.pi
+    return torch.where(torch.isclose(slope_tan, torch.zeros_like(slope_tan)), torch.nan, slope_tan), aspect
+
+
+def _nuth_kaab_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine, tolerance: float,
+                      max_iterations: int, subsample: float | int, random_state: Any, bin_before_fit: bool,
+                      n_bins: int) -> tuple[tuple[float, float, float], int, int]:
+    """Nuth and Kääb on a raster-point pair: slope and aspect of the grid side, the points'
+    subsample (numpy's draw, as xdem_tpu's), and the iterative solve with the grid as the
+    reference when it is one (`invert`)."""
+    slope_tan, aspect = _grad_slope_aspect(_grid_side(ref_elev, tba_elev))
+    sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state,
+                          aux_vars={"slope_tan": slope_tan, "aspect": aspect})
+    del slope_tan, aspect
+    asp, st = sub["aux"]["aspect"], sub["aux"]["slope_tan"]
+    hist = torch.histc(asp[torch.isfinite(asp)], bins=n_bins, min=0.0, max=2 * math.pi)
+    populated = int((hist > 10).sum())
+    sx, sy, vshift, stat, it = _nuth_kaab_solve(
+        sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], st, asp, transform.xres, transform.yres, tolerance,
+        max_iterations=int(max_iterations), n_bins=int(n_bins), invert=bool(sub["invert"]),
+        bin_before_fit=bin_before_fit,
+    )
+    _check_nuth_kaab(it, int(max_iterations), stat, tolerance, sx, sy, vshift, populated, n_bins)
+    return (sx, sy, vshift), sub["count"], it
 
 
 # ======================================================================================
@@ -413,6 +648,11 @@ class AffineCoreg(Coreg):
     @property
     def is_affine(self) -> bool:
         return True
+
+    def _fit_rst_pts(self, **kwargs: Any) -> None:
+        # Every affine method fits a raster-point pair with its raster-raster solver, whose
+        # subsample draws at the points (_subsample_pair, _subsample_pair_values).
+        self._fit_rst_rst(**kwargs)
 
     @classmethod
     def from_matrix(cls, matrix: np.ndarray) -> "AffineCoreg":
@@ -455,14 +695,16 @@ def vertical_shift(
     xdem_tpu, evaluates dh on the device and reduces on the host.
     """
     logging.info("Running vertical shift coregistration")
-    if isinstance(subsample, float) and subsample == 1.0 and vshift_reduc_func in (np.median, np.nanmedian):
+    points = isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud)
+    if (isinstance(subsample, float) and subsample == 1.0 and vshift_reduc_func in (np.median, np.nanmedian)
+            and not points):
         inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
         med, n_valid = _masked_median_diff(ref_elev, tba_elev, inlier)
         if n_valid == 0:
             raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
         return med, n_valid
     sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
-    dh = _dh_device(sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], 0.0, 0.0, False).cpu().numpy()
+    dh = _dh_device(sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], 0.0, 0.0, sub["invert"]).cpu().numpy()
     return float(vshift_reduc_func(dh[np.isfinite(dh)])), sub["count"]
 
 
@@ -888,8 +1130,9 @@ def icp(
     from scipy.spatial import KDTree
 
     aux = None
+    grid = _grid_side(ref_elev, tba_elev)
     if method == "point-to-plane":
-        nx, ny, nz = _icp_norms_device(ref_elev, transform.xres, transform.yres)
+        nx, ny, nz = _icp_norms_device(grid, transform.xres, transform.yres)
         aux = {"nx": nx, "ny": ny, "nz": nz}
     sub_ref, sub_tba, x, y, sub_aux = _subsample_pair_values(
         ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, aux_vars=aux
@@ -903,13 +1146,13 @@ def icp(
     if nn_method == "auto":
         n_pts = ref_epc.shape[1]
         fits = (float(n_pts) * float(tba_epc.shape[1]) <= 1e10) and (2048 * n_pts * 4 <= 1.5e9)
-        on_cuda = ref_elev.device.type == "cuda"
+        on_cuda = grid.device.type == "cuda"
         nn_method = "brute" if (on_cuda and not callable(fit_minimizer) and fits) else "kdtree"
         logging.info("ICP nn_method='auto' resolved to '%s' (device %s, %d points)", nn_method,
-                     ref_elev.device, n_pts)
+                     grid.device, n_pts)
 
     if nn_method == "brute":
-        dev = ref_elev.device
+        dev = grid.device
         norms_dev = torch.from_numpy(
             (norms.T if norms is not None else np.zeros((ref_epc.shape[1], 3))).astype(np.float32)).to(dev)
         matrix_dev, n_it, _stat = _icp_solve_device(
@@ -1106,7 +1349,7 @@ def cpd(
                                                            scale_std=standardize)
     tolerance = tolerance / std_fac
     sigma2_min = tolerance / 10
-    dev = ref_elev.device
+    dev = _grid_side(ref_elev, tba_elev).device
     X = torch.from_numpy(ref_epc.T.astype(np.float32)).to(dev)
     Y = torch.from_numpy(tba_epc.T.astype(np.float32)).to(dev)
     # Initial variance: the mean pairwise squared distance.
@@ -1237,13 +1480,18 @@ def lzd(
             f"LZD coregistration needs planar (projected) coordinates, but the input CRS is {crs}. "
             f"Reproject to a local projected system first."
         )
-    raster = ref_elev
+    if isinstance(ref_elev, PointCloud) and isinstance(tba_elev, PointCloud):
+        raise TypeError("The LZD coregistration does not support two point clouds.")
+    ref_is_pts = isinstance(ref_elev, PointCloud)
+    raster = _grid_side(ref_elev, tba_elev)
     gy, gx = torch.gradient(raster)
     gradx = gx / torch.tensor(transform.xres, dtype=raster.dtype, device=raster.device)
     grady = -gy / torch.tensor(transform.yres, dtype=raster.dtype, device=raster.device)  # rows run south
-    _, sub_pts, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
-                                                 random_state)
-    # The to-be-aligned points move; the reference raster is interpolated at their positions.
+    sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
+                                                       random_state)
+    # The point side (the to-be-aligned side of a raster pair) moves; the raster side is
+    # interpolated at its positions.
+    sub_pts = sub_ref if ref_is_pts else sub_tba
     centroid = (float(np.nanmean(x)), float(np.nanmean(y)), float(np.nanmean(sub_pts)))
     cx, cy, cz = centroid
     inv = transform.invert()
@@ -1267,6 +1515,8 @@ def lzd(
         )
     matrix = _make_matrix_valid(matrix_dev.double().cpu().numpy())
     logging.info("LZD converged in %d device iterations (statistic %.6f)", n_it, stat)
+    if ref_is_pts:  # the fit moved the reference points onto the grid: invert it
+        matrix = invert_matrix(matrix)
     return matrix, centroid, len(sub_pts)
 
 

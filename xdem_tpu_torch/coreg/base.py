@@ -1,15 +1,18 @@
 """Coregistration framework: matrix toolbox, matrix application, the Coreg base class and
 CoregPipeline.
 
-Port of xdem_tpu/coreg/base.py for gridded elevation given as Rasters/DEMs, or as arrays or
-tensors with ``transform=`` (and ``crs=``). A to-be-aligned Raster on another grid is
-reprojected onto the reference's; inlier masks may be arrays, tensors, Rasters (regridded by
-nearest neighbour) or Vectors. ``apply`` returns a Raster for a Raster and (tensor,
-transform) for an array. A matrix is applied in four tiers: (1) a pure vertical shift,
-(2) a translation applied by updating the georeferencing (resampled back onto the input grid
-by bilinear gathers), (3) small rotations by a fixed-point inverse regrid on the device of the
-DEM, (4) large rotations by a host Delaunay regrid (scipy). Point-cloud inputs are not
-ported yet.
+Port of xdem_tpu/coreg/base.py for elevation given as Rasters/DEMs, arrays or tensors with
+``transform=`` (and ``crs=``), or point clouds (PointCloud/EPC). A to-be-aligned Raster on
+another grid is reprojected onto the reference's; the point side of a raster-point pair goes
+to the raster's CRS, and a point-point pair to the reference's. Inlier masks may be arrays,
+tensors, Rasters (regridded by nearest neighbour) or Vectors. A fit tries the method's
+raster-raster solver, then its raster-point one (the reference raster turned into points),
+then its point-point one, as xdem_tpu does. ``apply`` returns a Raster for a Raster, a point
+cloud for a point cloud and (tensor, transform) for an array. A matrix moves points exactly
+in float64 on their device, and a DEM in four tiers: (1) a pure vertical shift, (2) a
+translation applied by updating the georeferencing (resampled back onto the input grid by
+bilinear gathers), (3) small rotations by a fixed-point inverse regrid on the device of the
+DEM, (4) large rotations by a host Delaunay regrid (scipy).
 
 The fitted state is the ``meta`` dict. :meth:`Coreg.load` reads the pickle that
 ``xdem_tpu``'s ``Coreg.save`` writes (pipelines included), and :meth:`Coreg.from_meta` takes
@@ -31,8 +34,9 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch._device import as_tensor
-from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.interp import interp_rowcol
+from xdem_tpu_torch.pointcloud import PointCloud
 from xdem_tpu_torch.raster import Raster, mask_on
 
 
@@ -130,15 +134,29 @@ def _matrix_is_translation_only(matrix: np.ndarray) -> bool:
 # ------------------------------------------------------------------ matrix application
 
 
-def _apply_matrix_pts_arr(x: np.ndarray, y: np.ndarray, z: np.ndarray, matrix: np.ndarray,
+def _apply_matrix_pts_arr(x: Any, y: Any, z: Any, matrix: np.ndarray,
                           centroid: tuple[float, float, float] | None = None, invert: bool = False):
-    """Exact rigid transform of points (float64, on the host), about `centroid`."""
+    """Exact rigid transform of points about `centroid`, in float64: numpy arrays on the
+    host, tensors on their device."""
     if invert:
         matrix = invert_matrix(matrix)
     cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
+    if isinstance(x, torch.Tensor):
+        m = [[float(v) for v in row] for row in np.asarray(matrix, np.float64)]
+        xc, yc, zc = (t.to(torch.float64) - c for t, c in ((x, cx), (y, cy), (z, cz)))
+        return tuple(m[i][0] * xc + m[i][1] * yc + m[i][2] * zc + m[i][3] + c for i, c in enumerate((cx, cy, cz)))
     pts = np.stack([np.asarray(x) - cx, np.asarray(y) - cy, np.asarray(z) - cz, np.ones_like(np.asarray(z))], axis=0)
     out = np.asarray(matrix) @ pts
     return out[0] + cx, out[1] + cy, out[2] + cz
+
+
+def _apply_matrix_pts(epc: PointCloud, matrix: np.ndarray, centroid: tuple[float, float, float] | None = None,
+                      invert: bool = False) -> PointCloud:
+    """A copy of the point cloud moved by a rigid matrix, on its device in float64."""
+    x, y, z = _apply_matrix_pts_arr(epc.x, epc.y, epc.z, matrix, centroid=centroid, invert=invert)
+    out = epc.copy()
+    out.x, out.y, out.z = x, y, z
+    return out
 
 
 def _iterate_affine_regrid_small_rotations(
@@ -282,24 +300,37 @@ def apply_matrix(
     crs: Any = None,
     z_name: str = "z",
     force_regrid_method: str | None = None,
-) -> tuple[torch.Tensor, Affine]:
-    """Apply a 4x4 rigid transform, about `centroid` (default the origin), to a gridded DEM
-    (array or tensor with `transform`); returns (tensor, transform).
+) -> Any:
+    """Apply a 4x4 rigid transform, about `centroid` (default the origin), to a point cloud
+    (a moved copy, float64 on its device), a data frame with x/y columns and the elevation in
+    `z_name` (a moved copy, read and written by column), or a gridded DEM (array or tensor
+    with `transform`, giving (tensor, transform)).
 
-    `resample=True` resamples the result back onto the input georeferencing; with
-    `resample=False` a translation only moves the returned transform (lossless). `crs` and
-    `z_name` are accepted for the signature of xdem_tpu: the matrix acts in the projected
-    coordinates of `transform`, and point clouds are not ported.
+    `resample=True` resamples a grid back onto the input georeferencing; with
+    `resample=False` a translation only moves the returned transform (lossless). `crs` is
+    accepted for the signature of xdem_tpu: the matrix acts in the projected coordinates the
+    input carries.
     """
     resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
+    if invert:
+        matrix = invert_matrix(matrix)
+    if isinstance(elev, PointCloud):
+        return _apply_matrix_pts(elev, matrix, centroid=centroid)
+    if hasattr(elev, "columns"):  # a data frame: x/y and z_name columns
+        cols = {str(c).lower(): c for c in elev.columns}
+        xcol, ycol = cols.get("x"), cols.get("y")
+        if xcol is None or ycol is None or z_name not in elev.columns:
+            raise ValueError(f"Dataframe input needs x/y columns and elevation in z_name={z_name!r}.")
+        ox, oy, oz = _apply_matrix_pts_arr(np.asarray(elev[xcol], np.float64), np.asarray(elev[ycol], np.float64),
+                                           np.asarray(elev[z_name], np.float64), matrix, centroid=centroid)
+        out_df = elev.copy()
+        out_df[xcol], out_df[ycol], out_df[z_name] = ox, oy, oz
+        return out_df
     if not _is_grid(elev):
-        raise NotImplementedError("xdem_tpu_torch applies a matrix to 2-D arrays or tensors only; "
-                                  "point clouds are not ported yet.")
+        raise ValueError(f"apply_matrix takes a point cloud, a data frame or a 2-D grid, got {type(elev).__name__}.")
     if transform is None:
         raise ValueError("'transform' must be given for array input.")
     transform = _as_affine(transform)
-    if invert:
-        matrix = invert_matrix(matrix)
     data, new_transform = _apply_matrix_rst(as_tensor(elev), transform, matrix, centroid=centroid,
                                             resampling=resampling, force_regrid_method=force_regrid_method)
     if resample and not new_transform.almost_equals(transform):
@@ -322,7 +353,7 @@ def _as_affine(transform: Any) -> Affine | None:
 
 
 def _is_grid(elev: Any) -> bool:
-    return isinstance(elev, Raster) or np.ndim(elev) == 2
+    return isinstance(elev, Raster) or (not isinstance(elev, PointCloud) and np.ndim(elev) == 2)
 
 
 def _cast_area_or_point(ref: Raster, tba: Raster) -> str | None:
@@ -343,21 +374,52 @@ def _cast_area_or_point(ref: Raster, tba: Raster) -> str | None:
     return None
 
 
+def _to_crs_of(pc: PointCloud, crs: Any) -> PointCloud:
+    """`pc` in `crs` (itself when already there or when `crs` is None)."""
+    if crs is None or pc.crs == CRS(crs):
+        return pc
+    return pc.to_crs(crs)
+
+
 def _preprocess_coreg_fit(reference_elev: Any, to_be_aligned_elev: Any, inlier_mask: Any,
                           transform: Any, crs: Any = None, area_or_point: str | None = None,
-                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, Affine, Any, str | None]:
-    """Normalize a raster-raster pair onto one grid: two Rasters (the to-be-aligned one
-    reprojected onto the reference grid when they differ), a Raster and an array on its grid,
-    or two arrays or tensors with `transform`. Returns (ref, tba, inlier mask, transform, crs,
-    area_or_point)."""
-    if not (_is_grid(reference_elev) and _is_grid(to_be_aligned_elev)):
-        raise NotImplementedError(
-            "xdem_tpu_torch coregistration takes two gridded elevations (Rasters/DEMs, or 2-D arrays "
-            "or tensors on one grid); point-cloud inputs are not ported yet."
-        )
+                          ) -> tuple[Any, Any, torch.Tensor | None, Affine, Any, str | None]:
+    """Normalize a fit's inputs. Raster-raster: two Rasters (the to-be-aligned one reprojected
+    onto the reference grid when they differ), a Raster and an array on its grid, or two
+    arrays or tensors with `transform`. Raster-point: the point cloud in the raster's CRS, and
+    for a "Point" raster the working transform moved by half a pixel (the gathers assume
+    pixel centres). Point-point: the to-be-aligned cloud in the reference's CRS. Returns (ref,
+    tba, inlier mask on the raster side's grid, transform, crs, area_or_point), a grid side as
+    a tensor and a point side as a PointCloud."""
     transform = _as_affine(transform)
+    ref_pts, tba_pts = isinstance(reference_elev, PointCloud), isinstance(to_be_aligned_elev, PointCloud)
     ref_r = reference_elev if isinstance(reference_elev, Raster) else None
     tba_r = to_be_aligned_elev if isinstance(to_be_aligned_elev, Raster) else None
+    if ref_pts and tba_pts:
+        return reference_elev, _to_crs_of(to_be_aligned_elev, reference_elev.crs), None, transform, \
+            reference_elev.crs, area_or_point
+    if not all(pts or _is_grid(e) for pts, e in ((ref_pts, reference_elev), (tba_pts, to_be_aligned_elev))):
+        raise NotImplementedError(
+            "xdem_tpu_torch coregistration takes gridded elevations (Rasters/DEMs, or 2-D arrays or tensors "
+            "on one grid) and point clouds (PointCloud/EPC)."
+        )
+    if ref_pts or tba_pts:
+        grid_in = to_be_aligned_elev if ref_pts else reference_elev
+        grid_r = grid_in if isinstance(grid_in, Raster) else None
+        if grid_r is not None:
+            transform, crs, area_or_point = grid_r.transform, grid_r.crs, grid_r.area_or_point
+        elif transform is None:
+            raise ValueError("'transform' must be given for a plain-array elevation.")
+        grid = as_tensor(grid_in)
+        pts = _to_crs_of(reference_elev if ref_pts else to_be_aligned_elev, crs)
+        mask = mask_on(inlier_mask, grid_r, tuple(grid.shape), grid.device)
+        from xdem_tpu_torch.config import config
+
+        if area_or_point == "Point" and config["shift_area_or_point"]:
+            t = transform
+            transform = t.translation(-0.5 * (t.a + t.b), -0.5 * (t.d + t.e))
+        return (pts, grid, mask, transform, crs, area_or_point) if ref_pts else \
+            (grid, pts, mask, transform, crs, area_or_point)
     if ref_r is not None and tba_r is not None:
         if ref_r.shape != tba_r.shape or not ref_r.transform.almost_equals(tba_r.transform) or tba_r.crs != ref_r.crs:
             tba_r = tba_r.reproject(ref_r)
@@ -386,6 +448,20 @@ def _preprocess_coreg_fit(reference_elev: Any, to_be_aligned_elev: Any, inlier_m
         raise ValueError(f"Both elevations must share one grid, got shapes {tuple(ref.shape)} and {tuple(tba.shape)}.")
     mask = mask_on(inlier_mask, ref_r if ref_r is not None else tba_r, tuple(ref.shape), ref.device)
     return ref, tba, mask, transform, crs, area_or_point
+
+
+def _raster_to_pointcloud(arr: torch.Tensor, transform: Affine, crs: Any) -> PointCloud:
+    """The finite pixels of a grid as a point cloud at their centres, on the grid's device."""
+    h, w = arr.shape
+    idx = torch.nonzero(torch.isfinite(arr.reshape(-1))).reshape(-1)
+    x, y = transform.xy(torch.div(idx, w, rounding_mode="floor").to(torch.float64), (idx % w).to(torch.float64))
+    return PointCloud(x=x, y=y, z=arr.reshape(-1)[idx], crs=crs if crs is not None else 32633)
+
+
+def _grid_side(ref: Any, tba: Any) -> torch.Tensor:
+    """The gridded elevation of a raster-raster or raster-point pair (the reference when both
+    are grids)."""
+    return tba if isinstance(ref, PointCloud) else ref
 
 
 def _bias_vars_on(bias_vars: dict[str, Any] | None, device: torch.device) -> dict[str, torch.Tensor] | None:
@@ -665,9 +741,10 @@ class Coreg:
         random_state: int | None = None,
         **kwargs: Any,
     ) -> "Coreg":
-        """Estimate the coregistration from a reference and a to-be-aligned DEM: two Rasters
-        (the to-be-aligned one reprojected onto the reference grid when they differ), or 2-D
-        arrays or tensors on the grid `transform` (and `crs`)."""
+        """Estimate the coregistration from a reference and a to-be-aligned elevation: two
+        Rasters (the to-be-aligned one reprojected onto the reference grid when they differ),
+        2-D arrays or tensors on the grid `transform` (and `crs`), or a grid and a point cloud
+        (PointCloud/EPC, moved to the grid's CRS)."""
         if weights is not None:
             raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
         if kwargs.pop("mesh", None) is not None:
@@ -678,18 +755,21 @@ class Coreg:
             self._meta["inputs"]["random"]["subsample"] = subsample
         if random_state is not None:
             self._meta["inputs"]["random"]["random_state"] = random_state
-        bias_vars = _bias_vars_on(bias_vars, ref.device)
+        bias_vars = _bias_vars_on(bias_vars, _grid_side(ref, tba).device)
 
         # Initial shift: pre-translate the to-be-aligned DEM, re-add the shift afterwards.
         initial_shift = self._meta["inputs"].get("affine", {}).get("initial_shift")
         if initial_shift is not None:
             sx0, sy0 = initial_shift[0], initial_shift[1]
             sz0 = initial_shift[2] if len(initial_shift) > 2 else 0.0
-            tba, _ = apply_matrix(tba, matrix_from_translations_rotations(t_x=sx0, t_y=sy0, t_z=sz0),
-                                  transform=transform)
+            if isinstance(tba, PointCloud):
+                tba = tba.translate(sx0, sy0, sz0)
+            else:
+                tba, _ = apply_matrix(tba, matrix_from_translations_rotations(t_x=sx0, t_y=sy0, t_z=sz0),
+                                      transform=transform)
 
-        self._fit_rst_rst(ref_elev=ref, tba_elev=tba, inlier_mask=mask, transform=transform,
-                          crs=crs, z_name=z_name, bias_vars=bias_vars, **kwargs)
+        self._fit_func(ref_elev=ref, tba_elev=tba, inlier_mask=mask, transform=transform,
+                       crs=crs, z_name=z_name, bias_vars=bias_vars, **kwargs)
         if initial_shift is not None:
             aff = self._meta["outputs"].get("affine", {})
             for key, add in (("shift_x", sx0), ("shift_y", sy0), ("shift_z", sz0)):
@@ -711,8 +791,37 @@ class Coreg:
         self._fit_called = True
         return self
 
+    def _fit_func(self, **kwargs: Any) -> None:
+        """Dispatch the fit by input types, falling back rst-rst -> rst-pts -> pts-pts: a grid
+        the method cannot fit as a grid is turned into points."""
+        ref, tba = kwargs["ref_elev"], kwargs["tba_elev"]
+        ref_pts, tba_pts = isinstance(ref, PointCloud), isinstance(tba, PointCloud)
+        if ref_pts and tba_pts:
+            self._fit_pts_pts(**kwargs)
+            return
+        sub = dict(kwargs)
+        if not ref_pts and not tba_pts:
+            try:
+                self._fit_rst_rst(**kwargs)
+                return
+            except NotImplementedCoregFit:
+                sub["ref_elev"] = _raster_to_pointcloud(ref, kwargs["transform"], kwargs["crs"])
+        try:
+            self._fit_rst_pts(**sub)
+        except NotImplementedCoregFit:
+            for key in ("ref_elev", "tba_elev"):
+                if not isinstance(sub[key], PointCloud):
+                    sub[key] = _raster_to_pointcloud(sub[key], kwargs["transform"], kwargs["crs"])
+            self._fit_pts_pts(**sub)
+
     def _fit_rst_rst(self, **kwargs: Any) -> None:
         raise NotImplementedCoregFit(f"{type(self).__name__} does not implement raster-raster fit.")
+
+    def _fit_rst_pts(self, **kwargs: Any) -> None:
+        raise NotImplementedCoregFit(f"{type(self).__name__} does not implement raster-point fit.")
+
+    def _fit_pts_pts(self, **kwargs: Any) -> None:
+        raise NotImplementedCoregFit(f"{type(self).__name__} does not implement point-point fit.")
 
     def apply(
         self,
@@ -725,9 +834,9 @@ class Coreg:
         z_name: str = "z",
         **kwargs: Any,
     ) -> Any:
-        """Apply the estimated transform to a gridded DEM: a Raster gives a Raster (on its grid
-        when `resample`), an array or tensor gives (tensor, transform). `resampling=None` uses
-        the package default (`xdem_tpu_torch.config["resampling"]`)."""
+        """Apply the estimated transform: a Raster gives a Raster (on its grid when
+        `resample`), an array or tensor gives (tensor, transform), a point cloud a moved copy.
+        `resampling=None` uses the package default (`xdem_tpu_torch.config["resampling"]`)."""
         if not self._fit_called and not (self.is_affine and "matrix" in self._meta["outputs"].get("affine", {})):
             raise AssertionError(".fit() does not seem to have been called yet")
         if resampling is None:
@@ -735,8 +844,17 @@ class Coreg:
 
             resampling = config["resampling"]
         resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
+        if isinstance(elev, PointCloud):
+            try:
+                return self._apply_func(elev=elev, bias_vars=bias_vars, transform=transform, crs=crs,
+                                        resample=resample, resampling=resampling, **kwargs)
+            except NotImplementedCoregApply:
+                if not self.is_affine:
+                    raise
+                return apply_matrix(elev, self.to_matrix(), centroid=self._meta["outputs"].get("affine", {}).get("centroid"))
         if not _is_grid(elev):
-            raise NotImplementedError("xdem_tpu_torch applies a coregistration to Rasters, 2-D arrays or tensors only.")
+            raise NotImplementedError("xdem_tpu_torch applies a coregistration to Rasters, point clouds, 2-D arrays "
+                                      "or tensors.")
         raster = elev if isinstance(elev, Raster) else None
         if raster is not None:
             transform, crs = raster.transform, raster.crs
@@ -868,7 +986,8 @@ def _ported_class(name: str) -> type:
 
     cls = getattr(_coreg_pkg, name, None)
     if not (isinstance(cls, type) and issubclass(cls, Coreg)):
-        raise NotImplementedError(f"Coreg method {name!r} is not ported to xdem_tpu_torch yet.")
+        raise NotImplementedError(f"{name!r} is not a Coreg method of xdem_tpu_torch: Coreg.load reads the state "
+                                  "of a Coreg or a CoregPipeline.")
     return cls
 
 
@@ -925,7 +1044,7 @@ class CoregPipeline(Coreg):
             out = step.apply(out, bias_vars=self._parse_bias_vars(i, bias_vars), **kwargs)
             if isinstance(out, tuple):
                 out, kwargs["transform"] = out
-        return out if isinstance(elev, Raster) else (out, kwargs["transform"])
+        return out if isinstance(elev, (Raster, PointCloud)) else (out, kwargs["transform"])
 
     def _to_matrix_func(self) -> np.ndarray:
         """Product of the step matrices."""

@@ -1,8 +1,9 @@
 """Bias corrections (non-rigid alignment) against arbitrary variables: BiasCorr, and its
 DirectionalBias, TerrainBias and Deramp forms.
 
-Port of xdem_tpu/coreg/biascorr.py for raster pairs. The fit draws the same numpy subsample as
-xdem_tpu, then bins (``spatialstats.nd_binning``, dicts of numpy arrays, no pandas) and/or
+Port of xdem_tpu/coreg/biascorr.py for raster-raster and raster-point pairs (the variables
+are read on the grid side, and at the points by bilinear interpolation). The fit draws the
+same numpy subsample as xdem_tpu, then bins (``spatialstats.nd_binning``, dicts of numpy arrays, no pandas) and/or
 fits (``xdem_tpu_torch.fit``) on the host. The apply evaluates the correction over the whole
 raster on its device: the fitted model with float32 parameters, or the binned table by
 multilinear interpolation. The variables are made on the device too: pixel coordinates
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch.coreg.affine import _subsample_pair_values
-from xdem_tpu_torch.coreg.base import Coreg
+from xdem_tpu_torch.coreg.base import Coreg, NotImplementedCoregApply, _grid_side
 from xdem_tpu_torch.fit import (
     curve_fit_lm,
     polynomial_1d,
@@ -31,6 +32,7 @@ from xdem_tpu_torch.fit import (
     sumsin_1d,
 )
 from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.pointcloud import PointCloud
 
 # Workflow names mapped to (model function, robust optimizer).
 fit_workflows = {
@@ -188,6 +190,11 @@ class BiasCorr(Coreg):
                      weights=None, **kwargs):
         self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform, bias_vars=bias_vars, **kwargs)
 
+    def _fit_rst_pts(self, **kwargs):
+        # Every bias correction fits a raster-point pair as it fits a raster pair: the values
+        # are subsampled at the points, the variables read on the grid side.
+        self._fit_rst_rst(**kwargs)
+
     def _fit_biascorr(self, ref_elev, tba_elev, inlier_mask, transform, bias_vars=None, p0=None, **kwargs):
         """Subsample dh and the bias variables (tensors, host arrays, or functions of the
         drawn pixels) at common pixels, then bin and/or fit."""
@@ -210,6 +217,8 @@ class BiasCorr(Coreg):
     # ------------------------------------------------- apply
 
     def _apply_func(self, elev, bias_vars=None, transform=None, crs=None, **kwargs):
+        if isinstance(elev, PointCloud):
+            raise NotImplementedCoregApply("BiasCorr apply is implemented for rasters.")
         return elev + self._correction(elev, transform, bias_vars, **kwargs), transform
 
     def _apply_vars(self, elev: torch.Tensor, transform: Affine, bias_vars: dict[str, torch.Tensor] | None):
@@ -277,7 +286,7 @@ class DirectionalBias(BiasCorr):
     def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, z_name="z", bias_vars=None,
                      weights=None, **kwargs):
         logging.info("Estimating rotated coordinates.")
-        shape, angle = tuple(ref_elev.shape), self._meta["inputs"]["specific"]["angle"]
+        shape, angle = tuple(_grid_side(ref_elev, tba_elev).shape), self._meta["inputs"]["specific"]["angle"]
         if "hop_length" not in kwargs:
             kwargs["hop_length"] = (transform.xres + transform.yres) / 2
         self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform,
@@ -336,7 +345,8 @@ class TerrainBias(BiasCorr):
                      weights=None, **kwargs):
         name = self._meta["inputs"]["specific"]["terrain_attribute"]
         self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform,
-                           bias_vars={name: self._terrain_var(ref_elev, transform, bias_vars)}, **kwargs)
+                           bias_vars={name: self._terrain_var(_grid_side(ref_elev, tba_elev), transform, bias_vars)},
+                           **kwargs)
 
     def _apply_vars(self, elev, transform, bias_vars):
         name = self._meta["inputs"]["specific"]["terrain_attribute"]

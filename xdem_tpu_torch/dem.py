@@ -3,8 +3,7 @@
 Port of xdem_tpu/dem.py. The terrain wrappers call `terrain.get_terrain_attribute`, so a DEM
 on a CUDA device runs the hand-written kernels (K1, K2, K3) and returns Rasters on that
 device. `to_vcrs` transforms the elevations on their device in float64, in row bands.
-`to_pointcloud` raises by name until the elevation point cloud (EPC) is ported, except
-with ``as_array=True``.
+`to_pointcloud` gives an elevation point cloud (EPC) on the DEM's device.
 """
 
 from __future__ import annotations
@@ -347,7 +346,8 @@ class DEM(Raster):
         Returns (error raster sigma(x, y), correlation function rho(lag)). H2022 =
         heteroscedasticity + multi-range variogram; R2009 = constant error + multi-range;
         Basic = NMAD + single-range. ``other_elev`` is a DEM/Raster (reprojected onto this
-        DEM's grid when they differ); point clouds are not ported yet. ``spread_estimator``
+        DEM's grid when they differ) or an elevation point cloud (EPC/PointCloud, or a data
+        frame with x/y columns and ``z_name``). ``spread_estimator``
         defaults to the NMAD and ``variogram_estimator`` to Dowd. ``mesh`` is not ported.
         """
         from xdem_tpu_torch import uncertainty as _unc
@@ -370,11 +370,15 @@ class DEM(Raster):
 
     def to_pointcloud(self, data_column_name: str = "z", subsample: int | float = 1,
                       random_state: int | None = None, **kwargs: Any):
-        """Valid pixels as an (N, 3) array with ``as_array=True`` (see Raster.to_pointcloud
-        for the options); the elevation point cloud (EPC) is not ported yet."""
-        if not kwargs.get("as_array"):
-            raise NotImplementedError(
-                "EPC (the elevation point cloud) is not ported to xdem_tpu_torch yet: pass as_array=True "
-                "for an (N, 3) array.")
-        return super().to_pointcloud(data_column_name=data_column_name, subsample=subsample,
-                                     random_state=random_state, **kwargs)
+        """Valid pixels as an elevation point cloud (EPC) carrying the DEM's vertical CRS, on
+        the DEM's device; see Raster.to_pointcloud for the skip_nodata/as_array/
+        force_pixel_offset options."""
+        from xdem_tpu_torch.epc import EPC
+
+        pc = super().to_pointcloud(data_column_name=data_column_name, subsample=subsample,
+                                   random_state=random_state, **kwargs)
+        if kwargs.get("as_array"):
+            return pc
+        epc = EPC(x=pc.x, y=pc.y, z=pc.z, crs=pc.crs, data_column=pc.data_column)
+        epc._vcrs = self._vcrs
+        return epc

@@ -164,8 +164,22 @@ def _convex_hull(pts: np.ndarray) -> np.ndarray:
 
 
 def get_epc(n_points: int = 50_000, seed: int = 7):
-    """Sparse elevation point cloud sampled from the reference DEM: EPC is not ported yet."""
-    raise NotImplementedError(_NOT_PORTED["longyearbyen_epc"])
+    """Sparse elevation point cloud sampled from the reference DEM (ICESat-2-like): uniform
+    positions, bilinear heights of the reference terrain and 0.1 m of noise, drawn with
+    numpy from `seed`. The EPC lies on the default device."""
+    from scipy.ndimage import map_coordinates
+
+    from xdem_tpu_torch.epc import EPC
+
+    ref = _base_arrays()["ref"]
+    transform = _transform()
+    rng = np.random.default_rng(seed)
+    h, w = ref.shape
+    rr = rng.uniform(0, h - 1, n_points)
+    cc = rng.uniform(0, w - 1, n_points)
+    z = map_coordinates(ref.astype(np.float64), [rr, cc], order=1)
+    x, y = transform.xy(rr, cc)
+    return EPC(x=x, y=y, z=z + rng.normal(0, 0.1, n_points), crs=_CRS)
 
 
 # (r0, r1, c0, c1): a 256x256 region chosen for aspect diversity (the synthetic terrain is
@@ -212,7 +226,6 @@ available_test = [n for n in available if n != "giza_dem"]
 
 # Names whose objects belong to modules not ported yet.
 _NOT_PORTED = {
-    "longyearbyen_epc": "The example point cloud needs EPC, which is not ported to xdem_tpu_torch yet.",
     "longyearbyen_ddem": "The example dDEM needs dDEM and the coregistered DEM, which are not ported to "
                          "xdem_tpu_torch yet.",
     "longyearbyen_tba_dem_coreg": "The coregistered example DEM is not ported to xdem_tpu_torch yet (its "
@@ -257,6 +270,10 @@ def _generate(name: str, test: bool = False, output_dir: str | None = None,
         r.save(path)
     elif name == "longyearbyen_glacier_outlines":
         get_glacier_outlines().save(path)
+    elif name == "longyearbyen_epc":
+        from xdem_tpu_torch.epc import write_epc
+
+        write_epc(path, get_epc())
     return path
 
 

@@ -16,6 +16,8 @@ def binned_median(y: torch.Tensor, bin_idx: torch.Tensor, valid: torch.Tensor, n
     """Median of `y` in each of `n_bins` bins over the `valid` entries; NaN for empty bins.
 
     One sort by (bin, value), then the two middle order statistics of each bin are gathered.
+    Each bin's extent is found in the sorted bin keys, so nothing waits for the device (a
+    CUDA ``bincount`` reads its input's extremes back to the host).
     """
     y = y.reshape(-1)
     parked = torch.where(valid.reshape(-1), bin_idx.reshape(-1).long(), n_bins)
@@ -23,8 +25,8 @@ def binned_median(y: torch.Tensor, bin_idx: torch.Tensor, valid: torch.Tensor, n
     by_value = torch.argsort(y, stable=True)
     order = by_value[torch.argsort(parked[by_value], stable=True)]
     ys = y[order]
-    counts = torch.bincount(parked, minlength=n_bins + 1)[:n_bins]
-    starts = torch.cumsum(counts, 0) - counts
+    bounds = torch.searchsorted(parked[order], torch.arange(n_bins + 1, device=y.device))
+    starts, counts = bounds[:-1], bounds[1:] - bounds[:-1]
     last = max(y.numel() - 1, 0)
     lo = ys[torch.clamp(starts + torch.div(counts - 1, 2, rounding_mode="floor"), 0, last)]
     hi = ys[torch.clamp(starts + torch.div(counts, 2, rounding_mode="floor"), 0, last)]

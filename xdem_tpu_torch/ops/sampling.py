@@ -23,9 +23,10 @@ def seed_from(random_state: Any) -> int:
 
 def topk_subsample(generator: torch.Generator, valid_flat: torch.Tensor, count: int):
     """Seeded fixed-size subsample without replacement: uniform scores with invalid slots
-    parked at -inf, then top-k. Returns (indices, picked_valid); when count exceeds the
+    parked at -inf, then top-k along the last axis (a leading axis draws one subsample per
+    row from the one generator). Returns (indices, picked_valid); when count exceeds the
     valid population the overflow picks have picked_valid=False and must be NaN-poisoned."""
     u = torch.rand(valid_flat.shape, generator=generator, device=valid_flat.device)
     scores = torch.where(valid_flat, u, -math.inf)
     idx = torch.topk(scores, count, sorted=False).indices
-    return idx, valid_flat[idx]
+    return idx, torch.gather(valid_flat, -1, idx)

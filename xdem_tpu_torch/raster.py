@@ -668,39 +668,41 @@ class Raster:
                       auxiliary_column_names: Sequence[str] | None = None,
                       skip_nodata: bool = True, as_array: bool = False,
                       force_pixel_offset: str = "center"):
-        """Valid pixels as an (N, 3) numpy array of (x, y, z) with ``as_array=True``.
+        """Valid pixels as a PointCloud on the raster's device (x, y in float64), or as an
+        (N, 3) numpy array with ``as_array=True``.
 
         ``skip_nodata=False`` keeps NaN pixels and ``force_pixel_offset`` picks the in-pixel
         coordinate ("center" default, or a rasterio-style corner "ul"/"ur"/"ll"/"lr");
-        ``subsample`` draws as xdem_tpu does. Rasters are single-band, so ``data_band`` must
-        be 1. Without ``as_array`` this raises: PointCloud is not ported yet."""
+        ``subsample`` draws as xdem_tpu does (numpy's choice over the valid pixels in raster
+        order). Rasters are single-band, so ``data_band`` must be 1."""
+        from xdem_tpu_torch.pointcloud import PointCloud
+
         if data_band != 1:
             raise ValueError("Rasters are single-band here: data_band must be 1.")
         if auxiliary_data_bands is not None or auxiliary_column_names is not None:
             raise ValueError("Rasters are single-band here: auxiliary bands are not available.")
         if force_pixel_offset not in ("center", "ul", "ur", "ll", "lr"):
             raise ValueError("force_pixel_offset must be 'center', 'ul', 'ur', 'll' or 'lr'.")
-        if not as_array:
-            raise NotImplementedError(
-                "PointCloud is not ported to xdem_tpu_torch yet: pass as_array=True for an (N, 3) array.")
-        arr = self._host()
-        valid = np.isfinite(arr) if skip_nodata else np.ones(arr.shape, dtype=bool)
-        rr, cc = np.nonzero(valid)
+        h, w = self.shape
+        flat = self.data.reshape(-1)
+        idx = torch.nonzero(torch.isfinite(flat)).reshape(-1) if skip_nodata else torch.arange(h * w, device=flat.device)
+        if subsample != 1:
+            n = int(idx.numel())
+            count = int(subsample * n) if isinstance(subsample, float) and subsample <= 1 else int(subsample)
+            pick = np.random.default_rng(random_state).choice(n, min(count, n), replace=False)
+            idx = idx[torch.from_numpy(np.asarray(pick, np.int64)).to(idx.device)]
+        rr = torch.div(idx, w, rounding_mode="floor").to(torch.float64)
+        cc = (idx % w).to(torch.float64)
         if force_pixel_offset == "center":
             x, y = self.transform.xy(rr, cc)
         else:
             dr = {"ul": 0, "ur": 0, "ll": 1, "lr": 1}[force_pixel_offset]
             dc = {"ul": 0, "ur": 1, "ll": 0, "lr": 1}[force_pixel_offset]
             x, y = self.transform.xy(rr + dr, cc + dc, offset="ul")
-        z = arr[valid]
-        if subsample != 1:
-            n = len(z)
-            count = int(subsample * n) if isinstance(subsample, float) and subsample <= 1 else int(subsample)
-            count = min(count, n)
-            rng = np.random.default_rng(random_state)
-            idx = rng.choice(n, count, replace=False)
-            x, y, z = x[idx], y[idx], z[idx]
-        return np.column_stack([x, y, z])
+        z = flat[idx].to(torch.float64)
+        if as_array:
+            return torch.stack([x, y, z], dim=1).cpu().numpy()
+        return PointCloud(x=x, y=y, z=z, crs=self.crs, data_column=data_column_name)
 
     def get_stats(self, stats: Sequence[str] | None = None) -> dict[str, float]:
         """Common raster statistics over valid pixels, computed on the cached host copy as

@@ -1282,14 +1282,36 @@ def _choose_cdist_equidistant_sampling_parameters(
     return runs, samples, ratio_subsample
 
 
-def _sample_with_pad(rng: np.random.Generator, candidates: np.ndarray, n: int) -> np.ndarray:
-    """Random choice of up to n indices, padded with -1 (masked later) when insufficient."""
-    out = np.full(n, -1, dtype=np.int64)
-    if len(candidates) == 0:
-        return out
-    take = min(n, len(candidates))
-    out[:take] = rng.choice(candidates, take, replace=False)
-    return out
+def _draw_rings_from_coords(rng: np.random.Generator, coords: torch.Tensor, runs: int, samples: int, nb_rings: int,
+                            radius0: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Equidistant disk/ring sampling of explicit (N, 2) float64 coordinates on their device,
+    with numpy's draws: per run a random centre, up to `samples` points of the disk of
+    radius0 and of each ring (radius0 * sqrt(2)^(k-1), radius0 * sqrt(2)^k], padded with -1.
+    Returns (disk, disk + rings) positions of shapes (runs, samples) and (runs, (nb_rings + 1)
+    * samples). The points are grouped by ring with one stable sort a run, in index order
+    within each group, so ``choice(len(group), take)`` on the host picks what
+    ``choice(group, take)`` would, and only the group sizes reach the host."""
+    dev = coords.device
+    edges = torch.tensor([radius0 * np.sqrt(2) ** k for k in range(nb_rings + 1)], dtype=torch.float64, device=dev)
+    disk, rings = [], []
+    for _r in range(runs):
+        center = coords[int(rng.integers(0, coords.shape[0]))]
+        dist = torch.hypot(coords[:, 0] - center[0], coords[:, 1] - center[1])
+        group = torch.searchsorted(edges, dist)  # 0 in the disk, k in ring k, nb_rings + 1 beyond
+        order = torch.argsort(group, stable=True)
+        counts = torch.bincount(group, minlength=nb_rings + 2)[: nb_rings + 1].tolist()
+        starts = np.cumsum([0] + counts[:-1])
+        picks = []
+        for k, n_k in enumerate(counts):
+            out = torch.full((samples,), -1, dtype=torch.int64, device=dev)
+            if n_k:
+                take = min(samples, n_k)
+                pos = torch.from_numpy(rng.choice(n_k, take, replace=False) + int(starts[k])).to(dev)
+                out[:take] = order[pos]
+            picks.append(out)
+        disk.append(picks[0])
+        rings.append(torch.cat(picks))
+    return torch.stack(disk), torch.stack(rings)
 
 
 def _draw_equidistant_rings_device(generator: torch.Generator, valid: torch.Tensor, runs: int, samples: int,
@@ -1596,26 +1618,20 @@ def sample_empirical_variogram(
 
                 za, ca = gather(ija)
                 zb, cb = gather(ijb)
+                dev = default_device()
+                za_t, zb_t, ca_t, cb_t = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (za, zb, ca, cb))
             else:
-                idx_a, idx_b = [], []  # centre-disk samples, and disk + ring samples, per run
-                for _r in range(runs_):
-                    center = coords_v[rng.integers(0, len(coords_v))]
-                    dist_c = np.hypot(coords_v[:, 0] - center[0], coords_v[:, 1] - center[1])
-                    ia = _sample_with_pad(rng, np.flatnonzero(dist_c <= radius0), samples_)
-                    ib = [ia]
-                    for k in range(1, nb_rings + 1):
-                        ring = np.flatnonzero((dist_c > radius0 * np.sqrt(2) ** (k - 1))
-                                              & (dist_c <= radius0 * np.sqrt(2) ** k))
-                        ib.append(_sample_with_pad(rng, ring, samples_))
-                    idx_a.append(ia)
-                    idx_b.append(np.concatenate(ib))
-                ia, ib = np.asarray(idx_a), np.asarray(idx_b)
-                za = np.where(ia >= 0, vals_v[np.clip(ia, 0, None)], np.nan)
-                zb = np.where(ib >= 0, vals_v[np.clip(ib, 0, None)], np.nan)
-                ca = np.where(ia[..., None] >= 0, coords_v[np.clip(ia, 0, None)], np.nan)
-                cb = np.where(ib[..., None] >= 0, coords_v[np.clip(ib, 0, None)], np.nan)
-            dev = default_device()
-            za_t, zb_t, ca_t, cb_t = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (za, zb, ca, cb))
+                coords_t = torch.from_numpy(np.ascontiguousarray(coords_v)).to(default_device())
+                ia, ib = _draw_rings_from_coords(rng, coords_t, runs_, samples_, nb_rings, radius0)
+                vals_t = torch.from_numpy(vals_v).to(coords_t.device)
+
+                def gather_pts(ii):
+                    ok_i = ii >= 0
+                    jj = torch.clamp(ii, min=0)
+                    z = torch.where(ok_i, vals_t[jj], torch.nan).to(torch.float32)
+                    return z, torch.where(ok_i[..., None], coords_t[jj], torch.nan).to(torch.float32)
+
+                (za_t, ca_t), (zb_t, cb_t) = gather_pts(ia), gather_pts(ib)
 
         total_pairs = za_t.shape[0] * za_t.shape[1] * zb_t.shape[1]
         _check_pair_count(total_pairs)
