@@ -93,7 +93,38 @@ Phases:
      fits 1e-4 from one draw, blockwise shifts 1e-4 with the card's picks replayed (tiles that
      converge on both devices), sigma 5e-3 (p99.9) / 1e-2 (max), rho 5e-3. Times, each fit's host
      draw and the phase's peak memory are printed.
-The line before the last is a JSON summary of the kernels; the last line is
+ 10. dDEM and DEMCollection at 10 000 x 10 000 on phase 4's terrain: three DEMs of 2000, 2010 (the
+     reference) and 2020, the first the reference minus VOLUME_LAW's dh(z) inside phase 8's six
+     outlines (named "glacier 1" to "glacier 6"), the last the terrain plus it on a grid moved by
+     GRID_OFFSET_PX (so subtract_dems runs its cubic-spline reprojection), both with 10 % voids in
+     16-pixel blocks inside the outlines. With the kernels' counts set to 0: subtract_dems,
+     interpolate_ddems("local_hypsometric"), the dh, dv and both cumulative series with and without
+     an outlines_filter that picks glacier 1, dDEM.interpolate by idw, local_hypsometric and
+     regional_hypsometric on one dDEM, subtract_dems_intervalwise and its series. Every series
+     recovers the law over the outlines (or glacier 1) within 1 %; each method fills the voids.
+     idw's time is split into its filter rounds and its hull. The examples' coregistered DEM and
+     dDEM are generated on the card: a new Nuth & Kaab fit on them leaves under 5 % of
+     examples.TBA_SHIFT, and the dDEM is ref minus that DEM. On a 1024^2 collection the card is
+     held against the CPU: dh series 1e-5 of the mean magnitude, filled arrays 1e-4 with
+     identical NaN masks.
+ 11. terrain attributes out of core at 20 000 x 20 000 (20 m, EPSG:32633): phase 4's recipe written
+     as an uncompressed striped GeoTIFF under the git-ignored outputs/ (the phase fails if the
+     6.4 GB it writes are not free), then tiled_terrain_attribute from the path with tile_rows=1024
+     and slope, the terrain ruggedness index and fractal roughness: each kernel launches once in
+     each of the 20 bands, the peak device memory stays under 2 GB above the phase's start, and
+     each band's read, copies, kernels (CUDA events) and writes are timed. On an in-memory
+     10 000^2 crop, tiled= with xdem_tpu's seven-attribute test set (windows 5 and 13) is held
+     to the whole-array suite: the K2 and K3 attributes to the bit, the K1 attributes within
+     1e-3 of the mean magnitude (aspect 0.1 deg) with identical NaN masks.
+ 12. the Accuracy and Topo workflows from dict configurations on phase 8's two files, at output
+     level 1: Accuracy (default Nuth & Kaab, the outlines' GeoJSON as path_to_mask) recovers the
+     shift within 5 % and lowers the NMAD of dh; Topo with slope, aspect, maximum curvature, the
+     terrain ruggedness index and fractal roughness launches K1 three times, K2 and K3 once, and
+     each attribute's statistics table equals get_stats of the attribute computed directly. Each
+     workflow's time is split into loading, host statistics, plots (or their absence without
+     matplotlib) and the rest.
+The line before the last is a JSON summary of the kernels (with their launches on each path) and of
+the phases; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
 
@@ -142,6 +173,16 @@ BLOCK = (500, 20_000)  # phase 9's blockwise tiles: side in pixels, picks per ti
 TILED_CROP = 4096  # side of phase 9's crop where apply_tiled is held to apply
 GENERIC_CROP = 2048  # side of phase 9's crop for the generic BlockwiseCoreg(NuthKaab()) loop
 POINTS_CROP = (1024, 100_000)  # phase 9's card-against-CPU pair: side, points
+DDEM_YEARS = (2000, 2010, 2020)  # phase 10's acquisitions; the middle one is the reference DEM
+TILED_SIZE = 20000  # side of phase 11's out-of-core DEM (20 m, EPSG:32633)
+TILED_ROWS = 1024  # rows of each of phase 11's bands
+TILED_ATTRS = ("slope", "terrain_ruggedness_index", "fractal_roughness")  # one attribute per kernel
+TILED_CROP_ATTRS = ("slope", "aspect", "hillshade", "max_curvature", "topographic_position_index", "roughness",
+                    "fractal_roughness")  # xdem_tpu's tiled test set, windows 5 and 13
+TILED_DISK_BYTES = 6_400_000_000  # phase 11's source file and its three attributes at TILED_SIZE^2 in float32
+TOPO_ATTRS = ("slope", "aspect", "max_curvature", "terrain_ruggedness_index", "fractal_roughness")
+DDEM_CROP = 1024  # side of phase 10's card-against-CPU collection
+DDEM_VOID_PX = 16  # side of phase 10's voids: square blocks, as clouds and shadows leave them
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -659,7 +700,7 @@ def phase_uncertainty(dev, n: int) -> dict:
 
     check(dem.is_cuda and other.is_cuda and sig.is_cuda, "the pair or sigma is not on the card")
     finite = float(torch.isfinite(sig).float().mean())
-    med = float(masked_median(sig))
+    med = float(masked_median(sig, torch.isfinite(sig)))
     check(tuple(sig.shape) == (n, n) and finite >= 0.99, f"sigma finite over {finite:.4f} of the raster")
     check(med > 0, f"median sigma {med} is not positive")
     gathered = first_run.last["prepare / top-k"]
@@ -1638,7 +1679,7 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
         (sig, rho), t_unc = _synced(lambda: ref.estimate_uncertainty(moved, subsample=10000, random_state=42))
     k1 = ck.LAUNCHES["surface_fit"]
     finite = float(torch.isfinite(sig.data).float().mean())
-    med = float(masked_median(sig.data))
+    med = float(masked_median(sig.data, torch.isfinite(sig.data)))
     lags = np.linspace(0.0, 3e5, 3001)
     r0, r_far = float(rho(np.array([0.0]))[0]), float(rho(np.array([1e7]))[0])
     monotone = bool(np.all(np.diff(rho(lags)) <= 1e-12))
@@ -1769,6 +1810,441 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
     return out
 
 
+def named_outlines(n: int):
+    """raster_outlines(n) with a name for each glacier ("glacier 1" to "glacier 6")."""
+    from xdem_tpu_torch import Vector
+
+    v = raster_outlines(n)
+    return Vector(v.polygons, crs=32633, properties=[{"name": f"glacier {i + 1}"} for i in range(len(v.polygons))])
+
+
+def ddem_collection_inputs(dev, n: int, seed: int = 0):
+    """Phase 10's three DEMs on `dev`, dated DDEM_YEARS: phase 4's terrain at RASTER_ORIGIN (the
+    reference, 2010); the same minus the law VOLUME_LAW (dh = a + b z) inside the outlines
+    (2000); and the terrain plus the law, sampled on a grid moved by GRID_OFFSET_PX (2020). Both
+    others lose VOLUME_VOIDS of their pixels inside the outlines, in blocks of DDEM_VOID_PX.
+    Returns (dems, timestamps, outlines)."""
+    import datetime
+
+    import torch
+
+    from xdem_tpu_torch import DEM, Affine
+
+    a, b = VOLUME_LAW
+    ox, oy = GRID_OFFSET_PX
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    moved = transform.translation(ox * RES, oy * RES)
+    ref64, moved64 = spectral_dem(n, seed, shift_px=(oy, -ox), device=dev)
+    outlines = named_outlines(n)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    blocks = -(-n // DDEM_VOID_PX)
+    dems = []
+    for z, t, sign in ((ref64, transform, -1.0), (ref64, transform, 0.0), (moved64, moved, 1.0)):
+        dem = DEM.from_array(z.float().contiguous(), t, 32633)
+        if sign:
+            inside = outlines.create_mask(dem).to(dev)
+            lost = torch.rand((blocks, blocks), generator=gen, device=dev) < VOLUME_VOIDS
+            lost = lost.repeat_interleave(DDEM_VOID_PX, 0).repeat_interleave(DDEM_VOID_PX, 1)[:n, :n]
+            voids = inside & lost
+            dem.data = torch.where(voids, torch.nan, torch.where(inside, dem.data + sign * (a + b * dem.data), dem.data))
+        dems.append(dem)
+    del ref64, moved64
+    times = [datetime.datetime(y, 8, 1) for y in DDEM_YEARS]
+    return dems, times, outlines
+
+
+def phase_ddem(dev, n: int, folder: str) -> dict:
+    """dDEM and DEMCollection at n x n: reference-wise and interval-wise dDEMs of three DEMs, the
+    hypsometric gap filling of the collection, the three interpolate methods of one dDEM, the dh,
+    dv and cumulative series against the law, the examples' coregistered DEM and dDEM, and the
+    card against the CPU on a DDEM_CROP^2 collection."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from xdem_tpu_torch import DEM, DEMCollection, coreg, examples
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+
+    out: dict = {}
+    (dems, times, outlines), t_make = _synced(lambda: ddem_collection_inputs(dev, n))
+    ref = dems[1]
+    print(f"  three {n}x{n} DEMs ({', '.join(str(y) for y in DDEM_YEARS)}; the last on a grid moved by {GRID_OFFSET_PX} px) "
+          f"made on the card in {t_make:.2f} s")
+    a, b = VOLUME_LAW
+    inside = outlines.create_mask(ref).to(dev)
+    law = float((a + b * ref.data.double())[inside].mean())
+    first = outlines.query("name == 'glacier 1'").create_mask(ref).to(dev)
+    law_first = float((a + b * ref.data.double())[first].mean())
+
+    def close(x, want, what):
+        rel = abs(x / want - 1)
+        check(rel <= 1e-2, f"{what}: {x:.6f} against the law's {want:.6f} ({rel:.3e} relative)")
+        return rel
+
+    # The path a user drives, once, with the kernels' counts set to 0 just before it.
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = {}
+    col = DEMCollection([dems[2], dems[0], dems[1]], timestamps=[times[2], times[0], times[1]], outlines=outlines,
+                        reference_dem=ref)
+    _, t["subtract_dems"] = _synced(col.subtract_dems)
+    _, t["interpolate_ddems"] = _synced(lambda: col.interpolate_ddems("local_hypsometric"))
+    dh, t["dh_series"] = _synced(col.get_dh_series)
+    dv, t["dv_series"] = _synced(col.get_dv_series)
+    cum_dh, t["cumulative_dh"] = _synced(lambda: col.get_cumulative_series("dh"))
+    cum_dv, t["cumulative_dv"] = _synced(lambda: col.get_cumulative_series("dv"))
+    dh_first, t["dh_series_filtered"] = _synced(lambda: col.get_dh_series(outlines_filter="name == 'glacier 1'"))
+    cum_first, t["cumulative_filtered"] = _synced(lambda: col.get_cumulative_series("dh", outlines_filter="name == 'glacier 1'"))
+    ddem = col.ddems[0]  # [2000, 2010]
+    fills = {}
+    for method, kw in (("idw", {}), ("local_hypsometric", {"reference_elevation": ref, "mask": outlines}),
+                       ("regional_hypsometric", {"reference_elevation": ref, "mask": outlines})):
+        filled, t[f"interpolate_{method}"] = _synced(lambda: ddem.interpolate(method, **kw))
+        check(filled is not None and filled.shape == (n, n) and ddem.fill_method == method,
+              f"dDEM.interpolate({method!r}) gave no filled array of the dDEM's shape")
+        fills[method] = filled
+    # Each method's values in the voids against the law (hypsometric bins are 50 m, 0.5 m of the law).
+    holes = (torch.isnan(ddem.data) & inside).cpu().numpy()
+    law_holes = a + b * ref.get_nanarray()[holes].astype(np.float64)
+    for method, filled in fills.items():
+        got = filled[holes]
+        share, err = float(np.isfinite(got).mean()), float(np.nanmedian(np.abs(got - law_holes)))
+        print(f"  dDEM.interpolate({method!r}): {share:.4f} of the {int(holes.sum())} void pixels filled, median |dh - law| "
+              f"{err:.4f} m there")
+        check(share >= 0.8 and err <= 1.0, f"{method} fills {share:.4f} of the voids, {err:.4f} m from the law")
+        out.setdefault("fill", {})[method] = {"share": share, "median_err_m": err}
+    del fills
+    _, t["subtract_dems_intervalwise"] = _synced(col.subtract_dems_intervalwise)
+    dh_iv, t["dh_series_intervalwise"] = _synced(lambda: col.get_dh_series(nans_ok=True))
+    cum_iv, t["cumulative_intervalwise"] = _synced(lambda: col.get_cumulative_series("dh", nans_ok=True))
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    print("  first calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in t.items()))
+    # Steady: a second call of the subtractions and the series (the gap fillers are host code
+    # that caches nothing, so their first call is their steady one).
+    steady = {"subtract_dems_intervalwise": _synced(col.subtract_dems_intervalwise)[1],
+              "dh_series_intervalwise": _synced(lambda: col.get_dh_series(nans_ok=True))[1]}
+    ivw = list(col.ddems)
+    steady["subtract_dems"] = _synced(col.subtract_dems)[1]
+    steady["dh_series"] = _synced(lambda: col.get_dh_series(nans_ok=True))[1]
+    steady["cumulative_dv"] = _synced(lambda: col.get_cumulative_series("dv", nans_ok=True))[1]
+    col.ddems, col.ddems_are_intervalwise = ivw, True
+    print("  steady calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in steady.items()))
+    print(f"  launches on the dDEM path: {launches} (no kernel: the series are reductions, the gap fillers host code); "
+          f"peak {peak / 1e9:.2f} GB above the inputs")
+
+    # The law over the outlines: dh of [2000, 2010] is +law, of [2010, 2020] (reference - later) -law;
+    # cumulative [0, law, 2 law]; interval-wise (later - earlier) +law twice.
+    print(f"  law over the outlines {law:.6f} m (glacier 1 {law_first:.6f} m); dh series {dh['dh'].tolist()}, area "
+          f"{dh['area'].tolist()} m2; dv {dv['dv'].tolist()} m3; cumulative dh {cum_dh['dh'].tolist()}; interval-wise dh "
+          f"{dh_iv['dh'].tolist()}, cumulative {cum_iv['dh'].tolist()}; glacier 1 {dh_first['dh'].tolist()}")
+    check([str(x)[:4] for x in dh["start_time"]] == ["2000", "2010"] and len(dh["dh"]) == 2,
+          "the dh series is not the two intervals [2000, 2010] and [2010, 2020]")
+    rel = [close(dh["dh"][0], law, "dh [2000, 2010]"), close(-dh["dh"][1], law, "dh [2010, 2020]"),
+           close(cum_dh["dh"][1], law, "cumulative dh at 2010"), close(cum_dh["dh"][2], 2 * law, "cumulative dh at 2020"),
+           close(dh_iv["dh"][0], law, "interval-wise dh [2000, 2010]"), close(dh_iv["dh"][1], law, "interval-wise dh [2010, 2020]"),
+           close(cum_iv["dh"][2], 2 * law, "interval-wise cumulative dh at 2020"),
+           close(dh_first["dh"][0], law_first, "glacier 1 dh [2000, 2010]"),
+           close(cum_first["dh"][2], 2 * law_first, "glacier 1 cumulative dh at 2020")]
+    area = float(inside.sum()) * RES * RES
+    check(abs(dh["area"][0] / area - 1) < 1e-9 and np.allclose(dv["dv"], dh["dh"] * dh["area"]) and cum_dh["dh"][0] == 0.0,
+          "the areas, the dv series or the cumulative series' start are wrong")
+    check(abs(cum_dv["dv"][2] / (2 * law * area) - 1) <= 1e-2, "the cumulative dv series does not recover the law")
+    out.update(times_s=t, steady_s=steady, launches=launches, peak_gb=peak / 1e9, law_m=law, worst_rel=max(rel))
+
+    # idw's split: its hull (a dilation and binary_fill_holes of the valid mask) timed alone on the
+    # same mask; the rest of the call is the ten filter rounds and the host copies.
+    valid = np.isfinite(ddem.get_nanarray())
+    _, t_hull = _synced(lambda: ndimage.binary_fill_holes(ndimage.binary_dilation(valid, structure=np.ones((3, 3)))))
+    t_idw = t["interpolate_idw"]
+    print(f"  idw on the host (float64): {t_idw:.3f} s, of which the hull {t_hull:.3f} s (timed alone) and the ten "
+          f"uniform_filter rounds with the copies {t_idw - t_hull:.3f} s")
+    out["idw_split_s"] = {"rounds_and_copies": t_idw - t_hull, "hull": t_hull}
+    del valid
+    del col, ddem, dems, ref, inside, first
+    torch.cuda.empty_cache()
+
+    # The examples' coregistered DEM and dDEM, generated on the card.
+    ex_dir = os.path.join(folder, "examples")
+    _, t_ex = _synced(lambda: (examples.get_path("longyearbyen_tba_dem_coreg", output_dir=ex_dir),
+                              examples.get_path("longyearbyen_ddem", output_dir=ex_dir)))
+    ex_ref = examples.get_ref_dem()
+    ex_coreg = DEM(examples.get_path("longyearbyen_tba_dem_coreg", output_dir=ex_dir))
+    ex_ddem = DEM(examples.get_path("longyearbyen_ddem", output_dir=ex_dir))
+    nk = coreg.NuthKaab().fit(ex_ref, ex_coreg, inlier_mask=~torch.from_numpy(examples.get_glacier_mask()), random_state=42)
+    left = np.array(nk.to_translations())
+    mag = float(np.linalg.norm(examples.TBA_SHIFT))
+    same = bool(torch.equal(torch.nan_to_num(ex_ddem.data), torch.nan_to_num(ex_ref.data.to(dev) - ex_coreg.data.to(dev))))
+    print(f"  examples: the coregistered DEM and the dDEM generated on the card in {t_ex:.2f} s; a new fit on them finds "
+          f"{[round(float(v), 4) for v in left]} m left of the {examples.TBA_SHIFT} m shift ({float(np.linalg.norm(left)) / mag:.3e} "
+          f"of it); the dDEM is ref minus that DEM: {same}")
+    check(ex_coreg.data.is_cuda and float(np.linalg.norm(left)) <= 0.05 * mag and same,
+          "the examples' coregistered DEM does not recover TBA_SHIFT within 5 %, or its dDEM is not ref minus it")
+    out["examples"] = {"s": t_ex, "left_m": left.tolist()}
+
+    # The card against the CPU on a DDEM_CROP^2 collection made the same way.
+    k = min(DDEM_CROP, n)
+    dems_c, times_c, outlines_c = ddem_collection_inputs(torch.device("cpu"), k, seed=4)
+    on = []
+    for d in (dev, torch.device("cpu")):
+        ds = [x.copy(new_array=x.data.to(d)) for x in dems_c]
+        col = DEMCollection(ds, timestamps=times_c, outlines=outlines_c, reference_dem=ds[1])
+        col.subtract_dems()
+        filled = col.interpolate_ddems("local_hypsometric")
+        on.append((col.get_dh_series()["dh"], [torch.from_numpy(np.asarray(f, np.float64)) for f in filled]))
+    (dh_g, f_g), (dh_c, f_c) = on
+    d_dh = float(np.abs(dh_g - dh_c).max() / np.abs(dh_c).mean())
+    d_fill = max(scaled_dev(g, c)[0] for g, c in zip(f_g, f_c) if bool(torch.isfinite(c).any()) and float(c.abs().nan_to_num().max()) > 0)
+    nan_same = all(bool(torch.equal(torch.isnan(g), torch.isnan(c))) for g, c in zip(f_g, f_c))
+    print(f"  card vs CPU on a {k}^2 collection: dh series {d_dh:.3e} of the mean magnitude, filled arrays {d_fill:.3e} "
+          f"(NaN masks identical {nan_same})")
+    check(d_dh <= 1e-5 and d_fill <= 1e-4 and nan_same, f"dDEM card vs CPU: dh {d_dh:.3e}, filled {d_fill:.3e}, NaN {nan_same}")
+    out["crop"] = {"dh": d_dh, "filled": d_fill}
+    return out
+
+
+def _timed_calls(targets, card_timed=()):
+    """Wrap (owner, name) functions so that each call's seconds add up in the returned dict
+    (host clock between two synchronizations; for the names in `card_timed` CUDA events,
+    one pair a call). Returns (totals, undo)."""
+    import torch
+
+    import inspect
+
+    totals = {name: [] for _, name in targets}
+    saved = []
+
+    for owner, name in targets:
+        raw = inspect.getattr_static(owner, name)
+        orig = getattr(owner, name)
+        saved.append((owner, name, raw))
+
+        def wrapped(*args, _orig=orig, _name=name, **kwargs):
+            if _name in card_timed and torch.cuda.is_available():
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = _orig(*args, **kwargs)
+                end.record()
+                torch.cuda.synchronize()
+                totals[_name].append(start.elapsed_time(end) / 1e3)
+                return res
+            res, s = _synced(lambda: _orig(*args, **kwargs))
+            totals[_name].append(s)
+            return res
+
+        setattr(owner, name, staticmethod(wrapped) if isinstance(raw, staticmethod) else wrapped)
+
+    def undo():
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+    return totals, undo
+
+
+def phase_tiled(dev, n: int, folder: str) -> dict:
+    """Terrain attributes out of core at n x n (20 m, EPSG:32633): phase 4's spectral DEM written as
+    an uncompressed striped GeoTIFF, tiled_terrain_attribute from the path in bands of TILED_ROWS
+    (one attribute per kernel, each kernel once a band), and on an in-memory crop of 10 000^2
+    the tiled= route against the whole-array suite."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch import Affine, io, terrain
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import tiled
+
+    free = shutil.disk_usage(folder).free
+    print(f"  free disk in {folder}: {free / 1e9:.2f} GB (the phase writes {TILED_DISK_BYTES / 1e9:.1f} GB)")
+    check(free >= TILED_DISK_BYTES, f"phase 11 needs {TILED_DISK_BYTES / 1e9:.1f} GB of disk, {free / 1e9:.2f} GB are free")
+    out: dict = {"free_disk_gb": free / 1e9}
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    src = os.path.join(folder, "dem.tif")
+
+    def make_and_write():
+        dem = spectral_dem(n, 5, device=dev)[0].float()
+        with io.StreamingRasterWriter(src, (n, n), transform, crs=32633) as wtr:
+            for r0 in range(0, n, 2048):
+                wtr.write_rows(r0, dem[r0:r0 + 2048].cpu().numpy())
+        del dem
+
+    _, t_write = _synced(make_and_write)
+    torch.cuda.empty_cache()
+    print(f"  {n}x{n} DEM made on the card and written as an uncompressed striped GeoTIFF in {t_write:.2f} s "
+          f"({os.path.getsize(src) / 1e9:.2f} GB)")
+
+    # The path, once: counts set to 0, the per-band split by wrappers that synchronize.
+    totals, undo = _timed_calls([(tiled._RowSource, "rows"), (tiled, "_band_on"), (tiled, "get_terrain_attribute"),
+                                 (tiled, "_rows_to_host"), (io.StreamingRasterWriter, "write_rows")],
+                                card_timed=("get_terrain_attribute",))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ck.reset_launch_counts()
+    try:
+        paths, t_path = _synced(lambda: terrain.tiled_terrain_attribute(
+            src, list(TILED_ATTRS), terrain.TilingConfig(tile_rows=TILED_ROWS, outdir=os.path.join(folder, "out"))))
+    finally:
+        undo()
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    bands = -(-n // TILED_ROWS)
+    split = {k: float(sum(v)) for k, v in totals.items()}
+    per_band = {k: 1e3 * float(np.median(v)) for k, v in totals.items() if v}
+    print(f"  tiled_terrain_attribute({list(TILED_ATTRS)}) from the file in {bands} bands of {TILED_ROWS} rows: {t_path:.2f} s; "
+          f"per band (median ms): read {per_band['rows']:.1f}, copy up {per_band['_band_on']:.1f}, kernels and epilog "
+          f"(CUDA events) {per_band['get_terrain_attribute']:.1f}, copy down {per_band['_rows_to_host']:.1f}, write "
+          f"{per_band['write_rows'] * len(TILED_ATTRS):.1f} ({len(TILED_ATTRS)} files); sums (s) {({k: round(v, 3) for k, v in split.items()})}")
+    print(f"  launches: {launches}; peak device memory {peak / 1e9:.3f} GB above the phase's start")
+    check(launches == {k: bands for k in ("surface_fit", "windowed", "fractal")},
+          f"the tiled path launched {launches}, not each kernel once in each of its {bands} bands")
+    check(peak < 2e9, f"the tiled path's peak device memory is {peak / 1e9:.2f} GB above its start")
+    for p, a in zip(paths, TILED_ATTRS):
+        rows = io.read_rows(p, n // 2, 64)
+        ok = float(np.isfinite(rows[:, 8:-8]).mean())
+        check(ok > 0.999 and (a != "slope" or float(np.nanmax(rows)) < 90), f"{a}: the tiled output's middle rows are wrong")
+        os.remove(p)
+    out.update(path_s=t_path, write_s=t_write, launches=launches, peak_gb=peak / 1e9, bands=bands, per_band_ms=per_band,
+               split_s=split)
+
+    # In memory: a 10 000^2 crop, tiled= against the whole-array suite (windows 5 and 13).
+    k = min(10000, n)
+    crop = torch.from_numpy(io.read_rows(src, 0, k)[:, :k].copy()).to(dev)
+    os.remove(src)
+    kw = dict(resolution=RES, window_size=5, window_size_fractal=13)
+    cfg = terrain.TilingConfig(tile_rows=TILED_ROWS, outdir=os.path.join(folder, "crop"))
+    (paths, t_tiled) = _synced(lambda: terrain.get_terrain_attribute(crop, list(TILED_CROP_ATTRS), tiled=cfg, **kw))
+    whole, t_whole = _synced(lambda: terrain.get_terrain_attribute(crop, list(TILED_CROP_ATTRS), **kw))
+    # Each band is centred on its own mean before the surface fit, so the K1 planes differ from the
+    # whole array's by float32 rounding: slope and hillshade are held at TOL of their mean magnitude;
+    # aspect at 0.1 deg where the slope is 1 deg or more (on flatter pixels a rounding of the
+    # gradient turns it), and the maximum curvature at xdem_tpu's tolerance for this comparison
+    # (|d| <= 1e-3 + 1e-4 |whole|; its mean magnitude on this DEM is rounding-sized).
+    devs = {}
+    slope_whole = whole[0]
+    for p, a, w in zip(paths, TILED_CROP_ATTRS, whole):
+        g = io.read_raster(p).data.to(dev)
+        same_nan = bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+        both = torch.isfinite(g) & torch.isfinite(w)
+        if a == "aspect":
+            d = (g - w).abs()
+            d = torch.where(both, torch.minimum(d, 360 - d), 0.0)
+            devs[a] = float(d.max())
+            devs["aspect_slope_ge_1deg"] = float(torch.where(slope_whole >= 1.0, d, 0.0).max())
+            check(same_nan and devs["aspect_slope_ge_1deg"] <= 0.1,
+                  f"tiled aspect departs by {devs['aspect_slope_ge_1deg']:.4f} deg where the slope is >= 1 deg (NaN {same_nan})")
+        elif a == "max_curvature":
+            devs[a] = scaled_dev(g, w)[0]
+            excess = float(torch.where(both, (g - w).abs() - (1e-3 + 1e-4 * w.abs()), -1.0).max())
+            check(same_nan and excess <= 0, f"tiled max_curvature exceeds 1e-3 + 1e-4 |whole| by {excess:.3e} (NaN {same_nan})")
+        elif a in ("slope", "hillshade"):
+            devs[a] = scaled_dev(g, w)[0]
+            check(same_nan and devs[a] <= TOL, f"tiled {a}: {devs[a]:.3e} of the mean magnitude (NaN {same_nan})")
+        else:
+            devs[a] = 0.0 if bool(torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))) and same_nan else float("inf")
+            check(devs[a] == 0.0, f"tiled {a} is not the whole-array result to the bit")
+        os.remove(p)
+        del g
+    print(f"  in memory at {k}x{k}: tiled= {t_tiled:.2f} s, whole array {t_whole * 1e3:.1f} ms; deviation from the whole "
+          f"array (K1: of the mean magnitude, aspect in degrees over all pixels and where the slope is >= 1 deg; K2, K3: "
+          f"0 is bit-equal): {devs}")
+    out["crop"] = {"tiled_s": t_tiled, "whole_ms": t_whole * 1e3, "dev": devs}
+    return out
+
+
+def phase_workflows(dev, n: int, folder: str) -> dict:
+    """The Accuracy and Topo workflows from dict configurations on phase 8's two GeoTIFFs in
+    `folder`, at output level 1, with each one's time split into loading, statistics, plots and
+    the rest (the compute)."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch import DEM
+    from xdem_tpu_torch.coreg.base import translations_rotations_from_matrix
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.workflows import Accuracy, Topo, Workflows
+
+    try:
+        import matplotlib  # noqa: F401
+
+        plots = "drawn"
+    except ImportError:
+        plots = "skipped (no matplotlib)"
+    paths = {name: os.path.join(folder, f"{name}.tif") for name in ("ref", "tba")}
+    outlines_path = os.path.join(folder, "outlines.geojson")
+    raster_outlines(n).save(outlines_path)
+    out: dict = {"plots": plots}
+
+    def table(path):
+        with open(path) as f:
+            rows = list(csv.DictReader(f))
+        return rows
+
+    def run(wf_cls, cfg):
+        targets = [(Workflows, "_load_dem"), (Workflows, "_load_mask"), (Workflows, "compute_stats"),
+                   (Workflows, "save_raster_plot")]
+        if wf_cls is Accuracy:
+            targets += [(Accuracy, "_histogram"), (Accuracy, "_sym_limit")]
+        totals, undo = _timed_calls(targets)
+        ck.reset_launch_counts()
+        try:
+            wf = wf_cls(cfg)
+            _, t_run = _synced(wf.run)
+        finally:
+            undo()
+        sums = {k: float(sum(v)) for k, v in totals.items()}
+        split = {"loading": sums["_load_dem"] + sums["_load_mask"], "host statistics": sums["compute_stats"] + sums.get("_sym_limit", 0.0),
+                 "plots": sums["save_raster_plot"] + sums.get("_histogram", 0.0)}
+        split["compute and the rest"] = t_run - sum(split.values())
+        return wf, t_run, split, dict(ck.LAUNCHES)
+
+    # Accuracy: the default coregistration (Nuth & Kaab), the outlines as unstable terrain.
+    acc_dir = os.path.join(folder, "accuracy")
+    wf, t_acc, split, launches = run(Accuracy, {
+        "inputs": {"reference_elev": {"path_to_elev": paths["ref"]},
+                   "to_be_aligned_elev": {"path_to_elev": paths["tba"], "path_to_mask": outlines_path}},
+        "outputs": {"path": acc_dir, "level": 1}})
+    tx, ty, tz = translations_rotations_from_matrix(wf.coreg.to_matrix())[:3]
+    dx, dy, dz = TBA_SHIFT
+    mag = math.hypot(dx, dy)
+    before = float(table(os.path.join(acc_dir, "tables", "dh_before_stats.csv"))[0]["nmad"])
+    after = float(table(os.path.join(acc_dir, "tables", "dh_after_stats.csv"))[0]["nmad"])
+    html = open(os.path.join(acc_dir, "report.html")).read()
+    print(f"  Accuracy from a dict config: {t_acc:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in split.items())}); plots "
+          f"{plots}; launches {launches}; estimated ({tx:.4f}, {ty:.4f}, {tz:.4f}) m against ({-dx}, {-dy}, {-dz}); "
+          f"NMAD of dh {before:.4f} m before, {after:.4f} m after")
+    check("Estimated transformation" in html and abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
+          f"Accuracy's estimated transformation ({tx:.3f}, {ty:.3f}) is not within 5 % of ({-dx}, {-dy})")
+    check(after < before, f"Accuracy: the NMAD of dh after ({after}) is not below the NMAD before ({before})")
+    out["accuracy"] = {"s": t_acc, "split_s": split, "launches": launches, "translation": [tx, ty, tz],
+                       "nmad_before": before, "nmad_after": after}
+    del wf
+    torch.cuda.empty_cache()
+
+    # Topo: the schema's default attributes plus one of each other kernel.
+    topo_dir = os.path.join(folder, "topo")
+    wf, t_topo, split, launches = run(Topo, {"inputs": {"path_to_elev": paths["ref"]},
+                                             "terrain_attributes": list(TOPO_ATTRS),
+                                             "outputs": {"path": topo_dir, "level": 1}})
+    print(f"  Topo from a dict config, {list(TOPO_ATTRS)}: {t_topo:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in split.items())}); "
+          f"plots {plots}; launches {launches}")
+    check(launches == {"surface_fit": 3, "windowed": 1, "fractal": 1},
+          f"Topo launched {launches}, not K1 three times (slope, aspect, max curvature), K2 and K3 once")
+    stats_names = wf.config["statistics"]
+    dem = DEM(paths["ref"])
+    for a in TOPO_ATTRS:
+        want = dem.get_terrain_attribute(a).get_stats(stats_names)
+        got = table(os.path.join(topo_dir, "tables", f"{a}_stats.csv"))[0]
+        check(list(got) == list(want) and all(float(got[k]) == float(want[k]) for k in want),
+              f"Topo's {a} table {got} is not get_stats of the attribute {want}")
+    print(f"  each attribute's table equals get_stats of the attribute computed directly ({len(stats_names)} statistics)")
+    out["topo"] = {"s": t_topo, "split_s": split, "launches": launches}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1781,7 +2257,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/9] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/12] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
     print(card)
@@ -1790,7 +2266,7 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/9] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/12] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -1802,45 +2278,64 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/9] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/12] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/9] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/12] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/9] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/12] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/9] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/12] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[7/9] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[7/12] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
     vol = phase_volume(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[8/9] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[8/12] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs")  # git-ignored
     os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as folder:
-        ras = phase_raster(dev, MAIN_SIZE, folder)
-    torch.cuda.empty_cache()
+    # Phase 8's two files stay until phase 12 has read them.
+    with tempfile.TemporaryDirectory(dir=scratch) as raster_folder:
+        ras = phase_raster(dev, MAIN_SIZE, raster_folder)
+        torch.cuda.empty_cache()
 
-    print(f"[9/9] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
-    with tempfile.TemporaryDirectory(dir=scratch) as folder:
-        pts = phase_points(dev, MAIN_SIZE, POINTS, folder)
+        print(f"[9/12] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
+        with tempfile.TemporaryDirectory(dir=scratch) as folder:
+            pts = phase_points(dev, MAIN_SIZE, POINTS, folder)
+        torch.cuda.empty_cache()
 
+        print(f"[10/12] dDEM and DEMCollection at {MAIN_SIZE} x {MAIN_SIZE} ({card}):")
+        with tempfile.TemporaryDirectory(dir=scratch) as folder:
+            ddm = phase_ddem(dev, MAIN_SIZE, folder)
+        torch.cuda.empty_cache()
+
+        print(f"[11/12] terrain attributes out of core at {TILED_SIZE} x {TILED_SIZE} ({card}):")
+        with tempfile.TemporaryDirectory(dir=scratch) as folder:
+            til = phase_tiled(dev, TILED_SIZE, folder)
+        torch.cuda.empty_cache()
+
+        print(f"[12/12] the Accuracy and Topo workflows on phase 8's files ({card}):")
+        wfl = phase_workflows(dev, MAIN_SIZE, raster_folder)
+
+    paths = {"main": res["launches"], "raster": ras["launches"], "ddem": ddm["launches"], "tiled": til["launches"],
+             "accuracy": wfl["accuracy"]["launches"], "topo": wfl["topo"]["launches"]}
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
+         "launches_by_path": {p: counts[k] for p, counts in paths.items()},
          "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1],
          "bound_ms": res["bounds"][k][0], "bound_by": res["bounds"][k][1], "library_ms": None}
         for k, (src, rep) in KERNELS.items()
     ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
-        "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts}
+        "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts,
+        "ddem": ddm, "tiled": til, "workflows": wfl}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

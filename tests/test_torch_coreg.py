@@ -85,7 +85,8 @@ def test_binned_median_matches_jax(case):
 
 def test_median_is_the_middle_pair_mean():
     x = torch.tensor([4.0, 1.0, float("nan"), 3.0, 2.0])
-    assert float(reductions.masked_median(x)) == 2.5 == float(jaffine._masked_median(jnp.asarray(to_np(x))))
+    assert float(reductions.masked_median(x, torch.isfinite(x))) == 2.5 == float(jaffine._masked_median(jnp.asarray(to_np(x))))
+    assert float(reductions.masked_median(x, x > 1.5)) == 3.0
     assert float(reductions.nanmedian(torch.tensor([1.0, float("inf"), 2.0, float("nan")]))) == 2.0
 
 

@@ -700,3 +700,87 @@ def test_batched_nuth_kaab_waits_for_the_card_once_a_step(cuda_device):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     assert 0 < len(syncs) <= int(out[4].max()), [str(w.message) for w in syncs]
+
+
+# ---------------------------------------------------------------------- out of core, dDEM, workflows
+
+_TILED = ("slope", "aspect", "hillshade", "max_curvature", "topographic_position_index", "roughness",
+          "fractal_roughness")
+
+
+def test_tiled_on_the_card_equals_the_whole_array(cuda_device, tmp_path):
+    """Bands of 512 rows of a 2047 x 2061 DEM with NaN holes: each kernel launches once a band;
+    the windowed and fractal attributes equal the whole array's to the bit; the surface-fit
+    attributes, whose bands are centred on their own means, differ by float32 rounding: slope
+    and hillshade within 1e-3 of their mean magnitude, aspect 0.1 deg where the slope is 1 deg or
+    more, the maximum curvature within 1e-3 + 1e-4 of its value, NaN masks identical."""
+    from xdem_tpu_torch import io
+
+    dem = _dem(cuda_device, shape=(2047, 2061), seed=11)
+    dem[torch.isinf(dem)] = torch.nan  # the GeoTIFF writer stores any non-finite value as nodata
+    kw = dict(resolution=20.0, window_size=5, window_size_fractal=13)
+    ck.reset_launch_counts()
+    paths = terrain.get_terrain_attribute(dem, list(_TILED), tiled=terrain.TilingConfig(tile_rows=512, outdir=str(tmp_path)),
+                                          **kw)
+    assert ck.LAUNCHES == {"surface_fit": 4, "windowed": 4, "fractal": 4}
+    whole = terrain.get_terrain_attribute(dem, list(_TILED), **kw)
+    slope = whole[0]
+    for a, p, w in zip(_TILED, paths, whole):
+        g = io.read_raster(p).data.to(cuda_device)
+        assert_same_nan(g.cpu(), w.cpu(), a)
+        both = torch.isfinite(g) & torch.isfinite(w)
+        if a in ("topographic_position_index", "roughness", "fractal_roughness"):
+            _bit_equal(g, w, a)
+        elif a == "aspect":
+            d = (g - w).abs()
+            d = torch.where(both & (slope >= 1.0), torch.minimum(d, 360 - d), 0.0)
+            assert float(d.max()) <= 0.1, a
+        elif a == "max_curvature":
+            assert bool(((g - w).abs() <= 1e-3 + 1e-4 * w.abs())[both].all()), a
+        else:
+            assert scaled_dev(g.cpu(), w.cpu()) <= 1e-3, a
+
+
+def test_ddem_collection_on_the_card_matches_the_cpu(cuda_device):
+    """subtract_dems with a cubic reprojection, the hypsometric gap filling and the dh series
+    on the card against the CPU, from one set of DEMs."""
+    import datetime
+
+    from xdem_tpu_torch import DEM, DEMCollection, Vector
+
+    rng = np.random.default_rng(12)
+    base = np.add.outer(np.linspace(1500, 300, 256), np.linspace(0, 200, 300)).astype(np.float32)
+    older = (base + 5 + rng.normal(0, 0.1, base.shape)).astype(np.float32)
+    older[60:80, 60:90] = np.nan
+    t = Affine.from_origin(5000, 9000, 20, 20)
+    ring = [[np.array([[5400.0, 8600.0], [9000.0, 8600.0], [9000.0, 5000.0], [5400.0, 5000.0]])]]
+    on = []
+    for d in (cuda_device, torch.device("cpu")):
+        dems = [DEM(torch.from_numpy(base).to(d), t, 32633),
+                DEM(torch.from_numpy(older).to(d), t.translation(7.4, -12.2), 32633)]
+        col = DEMCollection(dems, timestamps=[datetime.date(2020, 8, 1), datetime.date(2010, 8, 1)],
+                            outlines=Vector(ring, crs=32633), reference_dem=0)
+        col.subtract_dems()
+        filled = col.interpolate_ddems("local_hypsometric")
+        assert col.ddems[0].data.device.type == d.type
+        on.append((col.get_dh_series()["dh"], [torch.from_numpy(np.asarray(f, np.float64)) for f in filled]))
+    (dh_g, f_g), (dh_c, f_c) = on
+    assert np.isfinite(dh_c).all() and np.abs(dh_g - dh_c).max() <= 1e-5 * np.abs(dh_c).mean()
+    for g, c in zip(f_g, f_c):
+        assert_same_nan(g, c, "filled")
+        if float(c.abs().nan_to_num().max()) > 0:
+            assert scaled_dev(g, c) <= 1e-4
+
+
+def test_topo_on_the_card_launches_each_kernel(cuda_device, tmp_path):
+    from xdem_tpu_torch import Raster
+    from xdem_tpu_torch.workflows import Topo
+
+    path = str(tmp_path / "dem.tif")
+    Raster(_dem(cuda_device, shape=(512, 520), seed=13, holes=False), Affine.from_origin(0, 20000, 20, 20), 32633).save(path)
+    ck.reset_launch_counts()
+    Topo({"inputs": {"path_to_elev": path},
+          "terrain_attributes": ["slope", "aspect", "max_curvature", "terrain_ruggedness_index", "fractal_roughness"],
+          "outputs": {"path": str(tmp_path / "out"), "level": 1}}).run()
+    assert ck.LAUNCHES == {"surface_fit": 3, "windowed": 1, "fractal": 1}
+    assert (tmp_path / "out" / "tables" / "fractal_roughness_stats.csv").exists()

@@ -68,9 +68,19 @@ def test_examples_equal_xdem_tpus(pair, jpair, tmp_path):
     outlines = examples.get_path("longyearbyen_glacier_outlines", output_dir=str(tmp_path))
     np.testing.assert_array_equal(xdem_tpu_torch.Vector(outlines).create_mask(pair[0]).numpy(),
                                   xdem_tpu.Vector(outlines).create_mask(jpair[0]))
-    for name in ("longyearbyen_ddem", "longyearbyen_tba_dem_coreg"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            examples.get_path_test(name, output_dir=str(tmp_path))
+    # The coregistered DEM and the dDEM: Nuth & Kaab with xdem_tpu's settings, whose subsample is
+    # torch's draw and not jax.random's, so the fit agrees with xdem_tpu's to the 1 % tolerance.
+    ref, tba, stable = examples.get_ref_dem(), examples.get_tba_dem(), ~examples.get_glacier_mask()
+    nk = coreg.NuthKaab(offset_threshold=0.005)
+    aligned = nk.fit_and_apply(ref, tba, inlier_mask=stable, random_state=42)
+    jnk = jcoreg.NuthKaab(offset_threshold=0.005).fit(jex.get_ref_dem(), jex.get_tba_dem(), inlier_mask=stable,
+                                                       random_state=42)
+    np.testing.assert_allclose(nk.to_translations(), jnk.to_translations(), rtol=0.01)
+    full = DEM(examples.get_path("longyearbyen_tba_dem_coreg", output_dir=str(tmp_path)))
+    np.testing.assert_array_equal(full.get_nanarray(), aligned.get_nanarray())
+    r0, r1, c0, c1 = examples._TEST_ICROP
+    ddem = DEM(examples.get_path_test("longyearbyen_ddem", output_dir=str(tmp_path)))
+    np.testing.assert_array_equal(ddem.get_nanarray(), (ref - aligned).icrop((r0, r1), (c0, c1)).get_nanarray())
     # The example point cloud: the same points as xdem_tpu's, in its npz layout.
     from xdem_tpu import epc as jepc
     from xdem_tpu_torch import EPC, epc

@@ -37,7 +37,8 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
         "xdem_tpu_torch.terrain.freq, xdem_tpu_torch.projections, xdem_tpu_torch.georef, xdem_tpu_torch.config, "
         "xdem_tpu_torch.io, xdem_tpu_torch.geoid, xdem_tpu_torch.vcrs, xdem_tpu_torch.vector, xdem_tpu_torch._misc, "
         "xdem_tpu_torch.raster, xdem_tpu_torch.dem, xdem_tpu_torch.examples, xdem_tpu_torch.pointcloud, "
-        "xdem_tpu_torch.epc; "
+        "xdem_tpu_torch.epc, xdem_tpu_torch.ddem, xdem_tpu_torch.demcollection, xdem_tpu_torch.terrain.tiled, "
+        "xdem_tpu_torch.workflows, xdem_tpu_torch.cli; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -222,6 +223,86 @@ def test_point_and_blockwise_paths_run_without_pandas_or_sklearn(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=str(PKG.parent), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ddem_collection_and_tiled_paths_run_without_pandas_or_sklearn(tmp_path):
+    """dDEM, DEMCollection (ISO-string timestamps, outlines, the three gap fillers, every
+    series) and tiled terrain from a file import and run with pandas and scikit-learn
+    unavailable and without JAX or xdem_tpu in the process, as on the card's machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None; sys.modules['sklearn'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import DEMCollection, examples, terrain\n"
+        f"d = {str(tmp_path)!r}\n"
+        "ref = examples.get_ref_dem().icrop((150, 450), (300, 540)); outlines = examples.get_glacier_outlines()\n"
+        "inside = outlines.create_mask(ref)\n"
+        "older = ref.copy(new_array=torch.where(inside, ref.data + 5.0, ref.data))\n"
+        "older.data[100:110, 100:110] = float('nan')\n"
+        "col = DEMCollection([ref, older], timestamps=['2010-08-01', '2000-08-01'], outlines=outlines, reference_dem=0)\n"
+        "ddems = col.subtract_dems()\n"
+        "for m in ('idw', 'local_hypsometric', 'regional_hypsometric'):\n"
+        "    assert ddems[0].interpolate(m, reference_elevation=ref, mask=outlines) is not None\n"
+        "dh = col.get_dh_series(); assert abs(dh['dh'][0] + 5.0) < 0.05, dh\n"
+        "assert col.get_cumulative_series('dv', nans_ok=True)['dv'][0] == 0.0\n"
+        "col.subtract_dems_intervalwise(); assert len(col.get_dv_series(nans_ok=True)['dv']) == 1\n"
+        "ref.save(d + '/ref.tif')\n"
+        "paths = terrain.get_terrain_attribute(d + '/ref.tif', ['slope', 'roughness', 'fractal_roughness'],\n"
+        "                                      tiled=terrain.TilingConfig(tile_rows=100, outdir=d))\n"
+        "assert len(paths) == 3\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad and sys.modules['pandas'] is None and sys.modules['sklearn'] is None, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_workflows_run_from_dict_configs_without_yaml_or_matplotlib(tmp_path):
+    """Topo and Accuracy from dict configurations run with pandas, scikit-learn, PyYAML and
+    matplotlib unavailable: the plots and the PDF are skipped with a logged warning, the
+    tables and the report are written, and a YAML configuration names PyYAML in its error."""
+    code = (
+        "import sys\n"
+        "for m in ('pandas', 'sklearn', 'yaml', 'matplotlib', 'matplotlib.pyplot'): sys.modules[m] = None\n"
+        "import os, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import examples, workflows\n"
+        f"d = {str(tmp_path)!r}\n"
+        "ref = examples.get_path_test('longyearbyen_ref_dem', output_dir=d)\n"
+        "tba = examples.get_path_test('longyearbyen_tba_dem', output_dir=d)\n"
+        "mask = examples.get_path('longyearbyen_glacier_outlines', output_dir=d)\n"
+        "workflows.Topo({'inputs': {'path_to_elev': ref}, 'terrain_attributes': ['slope', 'roughness'],\n"
+        "                'outputs': {'path': d + '/topo', 'generate_pdf': True}}).run()\n"
+        "assert os.path.exists(d + '/topo/tables/slope_stats.csv') and os.path.exists(d + '/topo/report.html')\n"
+        "assert not os.listdir(d + '/topo/plots') and not os.path.exists(d + '/topo/report.pdf')\n"
+        "acc = workflows.Accuracy({'inputs': {'reference_elev': {'path_to_elev': ref},\n"
+        "    'to_be_aligned_elev': {'path_to_elev': tba, 'path_to_mask': mask}}, 'outputs': {'path': d + '/acc'}})\n"
+        "acc.run(); assert os.path.exists(d + '/acc/tables/stats_summary.csv')\n"
+        "try:\n"
+        "    workflows.load_yaml_config(d + '/none.yaml'); raise SystemExit('no error')\n"
+        "except ImportError as err:\n"
+        "    assert 'PyYAML' in str(err), err\n"
+        "assert all(sys.modules[m] is None for m in ('pandas', 'sklearn', 'yaml', 'matplotlib'))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "matplotlib unavailable" in proc.stderr
+
+
+@pytest.mark.parametrize("name", ["COREG_METHODS", "MIN_STATS", "STATS_METHODS", "TERRAIN_ATTRIBUTES_DEFAULT",
+                                  "TERRAIN_ATTRIBUTES", "INPUTS_DEM", "OUTPUTS_SCHEMA", "ACCURACY_SCHEMA",
+                                  "TOPO_SCHEMA", "COMPLETE_CONFIG_ACCURACY", "COMPLETE_CONFIG_TOPO"])
+def test_workflow_schemas_equal_originals(name):
+    from xdem_tpu.workflows import schemas as jschemas
+    from xdem_tpu_torch.workflows import schemas
+
+    assert getattr(schemas, name) == getattr(jschemas, name)
+    for required, method in ((False, None), (True, "LZD")):
+        assert schemas.make_coreg_step(required, method) == jschemas.make_coreg_step(required, method)
 
 
 def test_las_layout_and_geokeys_equal_originals(tmp_path):
@@ -494,12 +575,18 @@ def test_default_device_and_dtype():
 
 
 def test_top_level_lists_every_ported_module():
-    """`fit` is imported and listed as xdem_tpu does, and nothing listed is missing."""
+    """`fit`, `dDEM` and `DEMCollection` are imported and listed as xdem_tpu does, `workflows`
+    loads on first use as in xdem_tpu, and nothing listed is missing."""
     assert xdem_tpu_torch.fit.robust_norder_polynomial_fit is not None
-    assert "fit" in xdem_tpu_torch.__all__ and "fit" in xdem_tpu.__all__
+    for name in ("fit", "dDEM", "DEMCollection"):
+        assert name in xdem_tpu_torch.__all__ and name in xdem_tpu.__all__, name
+    assert xdem_tpu_torch.dDEM is xdem_tpu_torch.ddem.dDEM
+    assert xdem_tpu_torch.DEMCollection is xdem_tpu_torch.demcollection.DEMCollection
+    assert "workflows" in xdem_tpu_torch.__all__ and "workflows" in dir(xdem_tpu_torch)
+    assert xdem_tpu_torch.workflows.Topo is not None and xdem_tpu_torch.workflows.Accuracy is not None
     for name in xdem_tpu_torch.__all__:
         assert hasattr(xdem_tpu_torch, name), name
-    for word in ("ICP", "DhMinimize", "Deramp", "xdem_tpu_torch.fit"):
+    for word in ("ICP", "DhMinimize", "Deramp", "xdem_tpu_torch.fit", "DEMCollection", "xdem_tpu_torch.workflows"):
         assert word in xdem_tpu_torch.__doc__, word
 
 

@@ -124,13 +124,18 @@ def test_validation_errors_match_jax(kwargs):
     assert str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("call", [
-    lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mesh=object()),
-    lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, tiled=object()),
-    lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mp_config=object()),
+@pytest.mark.parametrize("call, err, match", [
+    (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mesh=object()), NotImplementedError,
+     "not ported"),
+    (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, tiled=terrain.TilingConfig()), ValueError,
+     "needs `outdir`"),
+    (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mp_config=object()), ValueError,
+     "process-pool tiling does not exist"),
 ], ids=["mesh", "tiled", "mp_config"])
-def test_not_ported_paths_raise(call):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_not_ported_paths_raise(call, err, match):
+    """mesh= (sharding over devices) is not ported; tiled= and mp_config= are routed to
+    tiled_terrain_attribute and refuse what xdem_tpu refuses, with its messages."""
+    with pytest.raises(err, match=match):
         call(np.zeros((6, 6), np.float32))
 
 

@@ -39,6 +39,7 @@ from xdem_tpu_torch.coreg.base import (
     _check_matrix,
     _grid_side,
     _make_matrix_valid,
+    _refuse_mesh,
     invert_matrix,
     matrix_from_translations_rotations,
     translations_rotations_from_matrix,
@@ -46,7 +47,7 @@ from xdem_tpu_torch.coreg.base import (
 from xdem_tpu_torch.georef import Affine, is_projected
 from xdem_tpu_torch.ops.interp import interp_rowcol
 from xdem_tpu_torch.ops.reductions import binned_median as _binned_median
-from xdem_tpu_torch.ops.reductions import masked_median as _masked_median
+from xdem_tpu_torch.ops.reductions import masked_median
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask
 from xdem_tpu_torch.pointcloud import PointCloud
@@ -88,6 +89,11 @@ def _finite_all(arrays: list[torch.Tensor]) -> torch.Tensor:
     for a in arrays[1:]:
         out &= torch.isfinite(a)
     return out
+
+
+def _finite_median(x: torch.Tensor) -> torch.Tensor:
+    """Median over the finite entries of `x` (0-dim tensor; NaN when none is finite)."""
+    return masked_median(x, torch.isfinite(x))
 
 
 def _gather_flat(arrays: list[torch.Tensor], flat_idx: torch.Tensor) -> torch.Tensor:
@@ -357,7 +363,7 @@ def _nuth_kaab_solve(
     it = 0
     while it < max_iterations and not (it >= 3 and stat < tol32):
         dh = _dh_device(pts_z, rows, cols, raster, sx, sy, invert)
-        vshift = _masked_median(dh)
+        vshift = _finite_median(dh)
         y = (dh - vshift) / slope_tan
         valid = torch.isfinite(y)
         if bin_before_fit:
@@ -529,9 +535,14 @@ def nuth_kaab(
     random_state: Any,
     bin_before_fit: bool = True,
     n_bins: int = 72,
+    z_name: str = "z",
+    mesh: Any = None,
 ) -> tuple[tuple[float, float, float], int, int]:
     """Nuth and Kääb (2011) on a raster pair; returns ((east, north, vertical) sampling
-    offsets in m, final subsample count, iterations)."""
+    offsets in m, final subsample count, iterations). ``z_name`` names a point cloud's
+    elevation column (a PointCloud carries its heights as ``z``); ``mesh=`` raises
+    NotImplementedError (one device)."""
+    _refuse_mesh(mesh)
     logging.info("Running Nuth and Kääb (2011) coregistration")
     if crs is not None and not is_projected(crs):
         raise NotImplementedError(
@@ -676,7 +687,7 @@ class AffineCoreg(Coreg):
 def _masked_median_diff(ref: torch.Tensor, tba: torch.Tensor, inlier: torch.Tensor) -> tuple[float, int]:
     """Median of (ref - tba) over the inlier and finite pixels, and their count."""
     dh = torch.where(inlier, ref - tba, torch.nan)
-    return float(_masked_median(dh)), int(torch.isfinite(dh).sum())
+    return float(_finite_median(dh)), int(torch.isfinite(dh).sum())
 
 
 def vertical_shift(
@@ -687,13 +698,17 @@ def vertical_shift(
     subsample: float | int,
     random_state: Any,
     vshift_reduc_func: Callable[[np.ndarray], Any] = np.median,
+    z_name: str = "z",
+    mesh: Any = None,
 ) -> tuple[float, int]:
     """Vertical shift of a raster pair: reduce the elevation differences. Returns (shift, count).
 
     The default (every valid pixel, median) is one device reduction. A subsample or another
     reductor draws pixels with numpy's generator from `random_state`, the same draw as
-    xdem_tpu, evaluates dh on the device and reduces on the host.
+    xdem_tpu, evaluates dh on the device and reduces on the host. ``z_name`` and ``mesh`` as
+    in `nuth_kaab`.
     """
+    _refuse_mesh(mesh)
     logging.info("Running vertical shift coregistration")
     points = isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud)
     if (isinstance(subsample, float) and subsample == 1.0 and vshift_reduc_func in (np.median, np.nanmedian)
@@ -792,8 +807,8 @@ class NuthKaab(AffineCoreg):
 def _nmad_dev(x: torch.Tensor) -> torch.Tensor:
     """NMAD over the finite entries, with medians as the mean of the two middle order
     statistics (the formula of xdem_tpu, not torch's lower-middle median)."""
-    med = _masked_median(x)
-    return 1.4826 * _masked_median(torch.abs(x - med))
+    med = _finite_median(x)
+    return 1.4826 * _finite_median(torch.abs(x - med))
 
 
 def _nelder_mead_2d(f: Callable[[torch.Tensor], torch.Tensor]):
@@ -850,7 +865,7 @@ def _dh_minimize_nm_device(pts_z, rows, cols, raster, res_x: float, res_y: float
 
     x_best, f_best, it = _nelder_mead_2d(f)
     sx, sy = (x_best / res).tolist()
-    vshift = _masked_median(_dh_device(pts_z, rows, cols, raster, sx, sy, invert))
+    vshift = _finite_median(_dh_device(pts_z, rows, cols, raster, sx, sy, invert))
     return x_best, f_best, it, vshift
 
 
@@ -863,10 +878,21 @@ def dh_minimize(
     random_state: Any,
     fit_minimizer: Any = None,
     fit_loss_func: Callable | None = None,
-) -> tuple[tuple[float, float, float], int, int]:
+    z_name: str = "z",
+    mesh: Any = None,
+) -> tuple[tuple[float, float, float], int]:
     """Elevation-difference minimisation: minimise a dispersion loss (default NMAD) of dh
-    over a 2-D shift. Returns ((east, north, vertical) offsets in m, subsample count,
-    Nelder-Mead iterations; 0 for a host minimizer)."""
+    over a 2-D shift. Returns ((east, north, vertical) offsets in m, subsample count).
+    ``z_name`` and ``mesh`` as in `nuth_kaab`."""
+    _refuse_mesh(mesh)
+    shifts, count, _ = _dh_minimize(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state,
+                                    fit_minimizer, fit_loss_func)
+    return shifts, count
+
+
+def _dh_minimize(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, fit_minimizer,
+                 fit_loss_func) -> tuple[tuple[float, float, float], int, int]:
+    """`dh_minimize`, also returning the Nelder-Mead iterations (0 for a host minimizer)."""
     logging.info("Running dh minimization coregistration.")
     sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
     args = (sub["pts_z"], sub["rows"], sub["cols"], sub["raster"])
@@ -909,9 +935,9 @@ class DhMinimize(AffineCoreg):
     def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, **kwargs):
         p = self._meta["inputs"]["random"]
         fb = self._meta["inputs"]["fitorbin"]
-        (east, north, vshift), count, n_it = dh_minimize(
+        (east, north, vshift), count, n_it = _dh_minimize(
             ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"],
-            fit_minimizer=fb["fit_minimizer"], fit_loss_func=fb["fit_loss_func"],
+            fb["fit_minimizer"], fb["fit_loss_func"],
         )
         self._meta["outputs"]["affine"] = {"shift_x": east, "shift_y": north, "shift_z": vshift}
         self._meta["outputs"]["random"] = {"subsample_final": count}
@@ -1110,6 +1136,7 @@ def icp(
     fit_minimizer: Any = "lsq_approx",
     fit_loss_func: Any = "linear",
     nn_method: str = "auto",
+    mesh: Any = None,
 ) -> tuple[np.ndarray, tuple[float, float, float], int]:
     """Iterative closest point registration of a raster pair; returns (matrix, centroid,
     point count).
@@ -1121,6 +1148,7 @@ def icp(
     when the minimizer is built in and N x M <= 1e10 with a 2048-block of distances within
     1.5 GB, and kdtree otherwise (always on the CPU, where the KD-tree is faster).
     """
+    _refuse_mesh(mesh)
     if callable(fit_minimizer) and nn_method == "brute":
         raise ValueError(
             'A custom fit_minimizer runs on the host: it cannot drive the nn_method="brute" device '
@@ -1339,9 +1367,11 @@ def cpd(
     tolerance: float = 0.01,
     only_translation: bool = False,
     standardize: bool = True,
+    mesh: Any = None,
 ) -> tuple[np.ndarray, tuple[float, float, float], int]:
     """Coherent Point Drift rigid registration of a raster pair on the device of the inputs;
     returns (matrix, centroid, point count)."""
+    _refuse_mesh(mesh)
     logging.info("Running CPD coregistration")
     sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
                                                        random_state)
@@ -1470,10 +1500,12 @@ def lzd(
     max_iterations: int = 200,
     tolerance: float = 0.01,
     only_translation: bool = False,
+    mesh: Any = None,
 ) -> tuple[np.ndarray, tuple[float, float, float], int]:
     """Least Z-difference coregistration (Rosenholm & Torlegård 1988) of a raster pair;
     returns (matrix, centroid, point count). The linearised model is linear in the 6
     parameters, so each iteration is one least-squares solve on the device."""
+    _refuse_mesh(mesh)
     logging.info("Running LZD coregistration")
     if crs is not None and not is_projected(crs):
         raise NotImplementedError(

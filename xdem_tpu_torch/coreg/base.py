@@ -48,6 +48,13 @@ class NotImplementedCoregApply(NotImplementedError):
     """Raised when a Coreg does not implement a given apply input."""
 
 
+def _refuse_mesh(mesh: Any) -> None:
+    """Raise the port's error for ``mesh=``: xdem_tpu shards fits over a JAX device mesh, and
+    this package fits on one device."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
+
+
 # ------------------------------------------------------------------ matrix toolbox
 
 
@@ -81,12 +88,30 @@ def matrix_from_translations_rotations(
     beta: float = 0.0,
     gamma: float = 0.0,
     use_degrees: bool = True,
+    *,
+    t1: float | None = None,
+    t2: float | None = None,
+    t3: float | None = None,
+    alpha1: float | None = None,
+    alpha2: float | None = None,
+    alpha3: float | None = None,
 ) -> np.ndarray:
     """Build a 4x4 rigid matrix from translations and extrinsic-Euler xyz rotations.
 
+    Upstream xdem's keyword names (``t1/t2/t3`` for the translations, ``alpha1/alpha2/alpha3``
+    for the rotations) are aliases of ``t_x/t_y/t_z`` and ``alpha/beta/gamma``.
+
     >>> matrix_from_translations_rotations(1.0, 2.0, 3.0)[:3, 3]
     array([1., 2., 3.])
+    >>> matrix_from_translations_rotations(t1=1.0, t3=3.0)[:3, 3]
+    array([1., 0., 3.])
     """
+    t_x = t_x if t1 is None else t1
+    t_y = t_y if t2 is None else t2
+    t_z = t_z if t3 is None else t3
+    alpha = alpha if alpha1 is None else alpha1
+    beta = beta if alpha2 is None else alpha2
+    gamma = gamma if alpha3 is None else alpha3
     if use_degrees:
         alpha, beta, gamma = np.deg2rad([alpha, beta, gamma])
     Rx = np.array([[1, 0, 0], [0, np.cos(alpha), -np.sin(alpha)], [0, np.sin(alpha), np.cos(alpha)]])
@@ -300,6 +325,7 @@ def apply_matrix(
     crs: Any = None,
     z_name: str = "z",
     force_regrid_method: str | None = None,
+    **kwargs: Any,
 ) -> Any:
     """Apply a 4x4 rigid transform, about `centroid` (default the origin), to a point cloud
     (a moved copy, float64 on its device), a data frame with x/y columns and the elevation in
@@ -309,7 +335,7 @@ def apply_matrix(
     `resample=True` resamples a grid back onto the input georeferencing; with
     `resample=False` a translation only moves the returned transform (lossless). `crs` is
     accepted for the signature of xdem_tpu: the matrix acts in the projected coordinates the
-    input carries.
+    input carries. Other keywords are accepted and ignored, as xdem_tpu ignores them.
     """
     resampling = {"bilinear": "linear", "cubic_spline": "cubic"}.get(resampling, resampling)
     if invert:
@@ -747,8 +773,7 @@ class Coreg:
         (PointCloud/EPC, moved to the grid's CRS)."""
         if weights is not None:
             raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
-        if kwargs.pop("mesh", None) is not None:
-            raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
+        _refuse_mesh(kwargs.pop("mesh", None))
         ref, tba, mask, transform, crs, area_or_point = _preprocess_coreg_fit(
             reference_elev, to_be_aligned_elev, inlier_mask, transform, crs, area_or_point)
         if subsample is not None:
@@ -908,6 +933,14 @@ class Coreg:
         akw.update(apply_kwargs or {})
         self.fit(reference_elev, to_be_aligned_elev, inlier_mask=inlier_mask, bias_vars=bias_vars, **fkw)
         return self.apply(to_be_aligned_elev, bias_vars=bias_vars, **akw)
+
+    def residuals(self, reference_elev: Any, to_be_aligned_elev: Any, **kwargs: Any) -> np.ndarray:
+        """Host array of the reference minus the aligned to-be-aligned Raster (keywords go to
+        apply)."""
+        aligned = self.apply(to_be_aligned_elev, **kwargs)
+        if isinstance(reference_elev, Raster) and isinstance(aligned, Raster):
+            return (reference_elev - aligned).data.cpu().numpy()
+        raise NotImplementedError("Residuals currently require raster inputs.")
 
     # ------------------------------- serialization of the fitted state
 

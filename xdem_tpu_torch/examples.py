@@ -224,14 +224,6 @@ available = [
 # Names also offered as cropped "_test" variants via get_path_test
 available_test = [n for n in available if n != "giza_dem"]
 
-# Names whose objects belong to modules not ported yet.
-_NOT_PORTED = {
-    "longyearbyen_ddem": "The example dDEM needs dDEM and the coregistered DEM, which are not ported to "
-                         "xdem_tpu_torch yet.",
-    "longyearbyen_tba_dem_coreg": "The coregistered example DEM is not ported to xdem_tpu_torch yet (its "
-                                  "dDEM slice generates it).",
-}
-
 
 def _generate(name: str, test: bool = False, output_dir: str | None = None,
               overwrite: bool = False) -> str:
@@ -247,8 +239,6 @@ def _generate(name: str, test: bool = False, output_dir: str | None = None,
         path = _os.path.join(cache_dir, f"{name}{suffix}.npz")
     else:
         raise ValueError(f"Example '{name}' not in available: {available}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[name])
     if _os.path.exists(path) and not overwrite:
         return path
 
@@ -274,19 +264,40 @@ def _generate(name: str, test: bool = False, output_dir: str | None = None,
         from xdem_tpu_torch.epc import write_epc
 
         write_epc(path, get_epc())
+    elif name == "longyearbyen_ddem":
+        from xdem_tpu_torch.dem import DEM
+
+        ref = get_ref_dem()
+        tba_coreg = DEM(_generate("longyearbyen_tba_dem_coreg", test=False, output_dir=output_dir))
+        ddem = ref.copy(new_array=ref.data - tba_coreg.data.to(ref.data.device))
+        if test:
+            r0, r1, c0, c1 = _TEST_ICROP
+            ddem = ddem.icrop((r0, r1), (c0, c1))
+        ddem.save(path)
+    elif name == "longyearbyen_tba_dem_coreg":
+        # Nuth & Kaab with xdem_tpu's settings; its subsample is torch's draw, not jax.random's,
+        # so the file agrees with xdem_tpu's to the coregistration's tolerance, not its bits.
+        from xdem_tpu_torch import coreg
+
+        ref, tba = get_ref_dem(), get_tba_dem()
+        nk = coreg.NuthKaab(offset_threshold=0.005)
+        aligned = nk.fit_and_apply(ref, tba, inlier_mask=~get_glacier_mask(), random_state=42)
+        if test:
+            r0, r1, c0, c1 = _TEST_ICROP
+            aligned = aligned.icrop((r0, r1), (c0, c1))
+        aligned.save(path)
     return path
 
 
 def get_all_data(output_dir: str | None = None) -> str:
-    """Generate (and cache) every ported example dataset; return the directory holding them.
+    """Generate (and cache) every example dataset; return the directory holding them.
 
     Upstream xdem downloads the pinned data tarball; here the datasets are synthesized
-    deterministically (the names in ``_NOT_PORTED`` are skipped). With ``output_dir`` the
-    cached files are copied there.
+    deterministically. With ``output_dir`` the cached files are copied there.
     """
     import shutil
 
-    paths = [_generate(name) for name in available if name not in _NOT_PORTED]
+    paths = [_generate(name) for name in available]
     if output_dir is not None:
         _os.makedirs(output_dir, exist_ok=True)
         for p in paths:

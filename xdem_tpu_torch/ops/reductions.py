@@ -38,13 +38,14 @@ def _median_where(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return binned_median(flat, torch.zeros_like(flat, dtype=torch.long), keep.reshape(-1), 1)[0]
 
 
-def masked_median(x: torch.Tensor) -> torch.Tensor:
-    """Median over the finite entries of `x` (0-dim tensor; NaN when none is finite)."""
-    return _median_where(x, torch.isfinite(x))
+def masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Median over the non-NaN entries of `x` where `valid` (0-dim tensor; NaN when none)."""
+    return _median_where(x, valid.reshape(x.shape) & ~torch.isnan(x))
 
 
-def nanmean(x: torch.Tensor) -> torch.Tensor:
-    return torch.nanmean(x)
+def nanmean(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """Mean over the non-NaN entries, along `axis` or of all of `x`."""
+    return torch.nanmean(x, dim=axis)
 
 
 def nanstd(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
@@ -53,13 +54,23 @@ def nanstd(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
     return torch.sqrt(torch.nanmean((x - mean) ** 2, dim=axis))
 
 
-def nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """Median over the non-NaN entries, as 0.5 * (lo + hi) of the middle pair.
+def nanmedian(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """Median over the non-NaN entries, along `axis` or of all of `x`, as 0.5 * (lo + hi) of
+    the middle pair (NaN where a slice has none).
 
     >>> float(nanmedian(torch.tensor([1.0, 2.0, 3.0, 4.0, float("nan")])))
     2.5
+    >>> nanmedian(torch.tensor([[1.0, 2.0], [3.0, float("nan")]]), axis=1).tolist()
+    [1.5, 3.0]
     """
-    return _median_where(x, ~torch.isnan(x))
+    if axis is None:
+        return _median_where(x, ~torch.isnan(x))
+    moved = torch.movedim(x, axis, -1)
+    ordered = torch.sort(moved, dim=-1).values  # NaN sorts last
+    n = (~torch.isnan(moved)).sum(dim=-1, keepdim=True)
+    lo = torch.gather(ordered, -1, torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0))
+    hi = torch.gather(ordered, -1, torch.div(n, 2, rounding_mode="floor").clamp(max=moved.shape[-1] - 1))
+    return torch.where(n > 0, 0.5 * (lo + hi), torch.nan).squeeze(-1)
 
 
 def nmad(x: torch.Tensor) -> torch.Tensor:

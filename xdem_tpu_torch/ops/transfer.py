@@ -28,14 +28,21 @@ def host_array(x: Any, dtype: Any = None) -> np.ndarray:
     return np.asarray(x, dtype=dtype)
 
 
-def device_mask(mask: Any, shape: tuple[int, ...], device: torch.device | str) -> torch.Tensor:
-    """`mask` as a bool tensor of `shape` on `device`; `mask=None` means all True."""
+def device_mask(mask: Any, shape: tuple[int, ...] | None = None, device: torch.device | str | None = None) -> torch.Tensor:
+    """`mask` as a bool tensor on `device` (by default a tensor's own device, else the default
+    device), checked against `shape` when given; `mask=None` with a `shape` means all True."""
+    if device is None:
+        from xdem_tpu_torch._device import default_device
+
+        device = mask.device if isinstance(mask, torch.Tensor) else default_device()
     if mask is None:
+        if shape is None:
+            raise ValueError("device_mask(None) needs an explicit shape.")
         return torch.ones(shape, dtype=torch.bool, device=device)
     if isinstance(mask, torch.Tensor):
         out = mask.to(device=device, dtype=torch.bool)
     else:
         out = torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)).to(device)
-    if tuple(out.shape) != tuple(shape):
+    if shape is not None and tuple(out.shape) != tuple(shape):
         raise ValueError(f"Mask shape {tuple(out.shape)} does not match the raster shape {tuple(shape)}.")
     return out

@@ -25,7 +25,7 @@ import itertools
 import logging
 import math
 import warnings
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Sequence, TypedDict
 
 import numpy as np
 import torch
@@ -1434,6 +1434,18 @@ def _point_pairs(points: _ValidPoints, pos1: np.ndarray, pos2: np.ndarray | None
     if pos2 is None:
         dists = torch.where(torch.triu(torch.ones_like(dists, dtype=torch.bool), diagonal=1), dists, torch.nan)
     return diffs, dists
+
+
+class EmpiricalVariogramKArgs(TypedDict, total=False):
+    """Optional keyword arguments of sample_empirical_variogram, for forwarding through
+    higher-level wrappers (a copy of xdem_tpu's)."""
+
+    runs: int
+    samples: int
+    nb_rings: int
+    maxlag: float
+    bin_func: Sequence[float]
+    estimator: str
 
 
 def sample_empirical_variogram(

@@ -1,4 +1,5 @@
-"""Terrain attributes: surface fit (K1), windowed indexes (K2) and fractal roughness (K3)."""
+"""Terrain attributes: surface fit (K1), windowed indexes (K2) and fractal roughness (K3), in memory
+or out of core by row bands (`tiled_terrain_attribute`)."""
 
 from xdem_tpu_torch.terrain.terrain import (
     ALL_ATTRS,
@@ -20,6 +21,7 @@ from xdem_tpu_torch.terrain.terrain import (
     texture_shading,
     topographic_position_index,
 )
+from xdem_tpu_torch.terrain.tiled import TilingConfig, tiled_terrain_attribute
 
 __all__ = [
     "ALL_ATTRS",
@@ -40,4 +42,6 @@ __all__ = [
     "rugosity",
     "fractal_roughness",
     "texture_shading",
+    "TilingConfig",
+    "tiled_terrain_attribute",
 ]

@@ -81,7 +81,9 @@ def get_terrain_attribute(
     tensor the attributes come from the hand-written kernels, on a CPU tensor from their
     plain PyTorch versions. ``engine`` is validated but does not pick the path. Returns a
     tensor, or a list of tensors in request order; for a Raster input, Rasters on its grid
-    with nodata -99999. A Raster's resolution comes from its transform, and one in a
+    with nodata -99999. ``tiled=`` (a `terrain.TilingConfig`; ``mp_config=`` with
+    ``tile_rows`` is its alias) streams row bands into one GeoTIFF per attribute and
+    returns their paths (`terrain.tiled_terrain_attribute`); any other ``mp_config`` raises. A Raster's resolution comes from its transform, and one in a
     geographic CRS warns that the surface-fit attributes may be wrong.
 
     The device sets one limit: ``window_size_fractal`` 3 or 4 warns and then, on a CPU
@@ -92,11 +94,31 @@ def get_terrain_attribute(
     engine = normalize_engine(engine)
     if mesh is not None:
         raise NotImplementedError("mesh= (device sharding) is not ported to xdem_tpu_torch; run on one device.")
-    if tiled is not None or mp_config is not None:
-        raise NotImplementedError("tiled= / mp_config= (out-of-core row bands) are not ported to xdem_tpu_torch yet.")
+    if mp_config is not None:
+        if not hasattr(mp_config, "tile_rows"):
+            raise ValueError(
+                "mp_config process-pool tiling does not exist on this backend (one device "
+                "streams fixed-shape row bands): pass tiled=terrain.TilingConfig(...) for "
+                "out-of-core streaming, or mesh= to shard across devices."
+            )
+        if tiled is not None:
+            raise ValueError("Pass only one of mp_config= and tiled= (they are aliases here).")
+        tiled = mp_config
     if slope_method is not None:
         warnings.warn("'slope_method' is deprecated, use 'surface_fit' instead.", DeprecationWarning, stacklevel=2)
         surface_fit = slope_method
+
+    if tiled is not None:
+        from xdem_tpu_torch.terrain.tiled import tiled_terrain_attribute
+
+        return tiled_terrain_attribute(
+            dem, attribute, tiled, resolution=resolution,
+            surface_fit=surface_fit, curv_method=curv_method, tri_method=tri_method,
+            window_size=window_size, window_size_fractal=window_size_fractal,
+            degrees=degrees, hillshade_altitude=hillshade_altitude,
+            hillshade_azimuth=hillshade_azimuth, hillshade_z_factor=hillshade_z_factor,
+            engine=engine, out_dtype=out_dtype,
+        )
 
     single = isinstance(attribute, str)
     attrs = [attribute] if single else list(attribute)

@@ -158,8 +158,11 @@ def fractal_scales(window_size: int) -> tuple[list[int], list[float], float, flo
     return qs, [float(v) for v in log_q], float(mx), float(ss_xx)
 
 
-def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
+def fractal_roughness(dem: torch.Tensor, window_size: int = 13, engine: str | None = None) -> torch.Tensor:
     """Taud & Parrot (2005) fractal roughness of an (H, W) f32 DEM by box counting.
+
+    ``engine`` is validated as xdem_tpu validates it; this is the plain version whatever it
+    names (the kernel runs through `cuda_kernels.fractal_roughness`).
 
     For each divisor q of w//2 the per-window voxel count is
       Ns(q) = sum over ((w-1)//q)^2 boxes of clip(max_box(z) - z_centre, 0, w) / q,
@@ -167,6 +170,7 @@ def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
     the slope of log Ns against log q. Box maxima are built once per q, separably, from the
     largest already-built divisor of q. w = 3 has one scale and gives NaN.
     """
+    normalize_engine(engine)
     w = window_size
     if w < 3:
         raise ValueError("Fractal roughness requires window size >= 3.")
