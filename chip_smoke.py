@@ -123,6 +123,16 @@ Phases:
      each attribute's statistics table equals get_stats of the attribute computed directly. Each
      workflow's time is split into loading, host statistics, plots (or their absence without
      matplotlib) and the rest.
+ 13. the multi-device path at 10 000 x 10 000 (parallel/): a mesh over every card, or where there is
+     one card 2 x 2 shards of it. The 14-attribute suite of phase 4's DEM with mesh= launches K1, K2
+     and K3 once per shard and equals phase 4's whole-array planes to the bit (NaN masks included),
+     as does a 2047 x 2061 DEM with NaN holes over 2 x 2 and 1 x 4. VerticalShift, NuthKaab,
+     DhMinimize and ICP with mesh= on phase 4's pair equal their single-device fits to the bit, LZD
+     and CPD within 1e-3, BlockwiseNuthKaab (phase 9's 400 tiles) within 2e-3; estimate_uncertainty
+     (mesh=) on phase 5's pair gives the single-device sigma and rho to the bit; launch_local_cluster
+     (2, 2) runs two processes (gloo on the CPU: one card cannot hold two NCCL ranks) and prints its
+     route. First and steady times beside the single-device ones; the halo exchange, the assembly
+     of K1's planes and each kernel on one shard's block by CUDA events.
 The line before the last is a JSON summary of the kernels (with their launches on each path) and of
 the phases; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
@@ -183,6 +193,9 @@ TILED_DISK_BYTES = 6_400_000_000  # phase 11's source file and its three attribu
 TOPO_ATTRS = ("slope", "aspect", "max_curvature", "terrain_ruggedness_index", "fractal_roughness")
 DDEM_CROP = 1024  # side of phase 10's card-against-CPU collection
 DDEM_VOID_PX = 16  # side of phase 10's voids: square blocks, as clouds and shadows leave them
+MESH_SHARDS = (2, 2)  # phase 13's mesh on a one-card machine: four shards of cuda:0
+MESH_SMALL = (2047, 2061)  # phase 13's ragged DEM, sharded 2 x 2 and 1 x 4
+MESH_LAGS = (20.0, 200.0, 2000.0)  # phase 13's rho comparison lags (m)
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -2245,6 +2258,185 @@ def phase_workflows(dev, n: int, folder: str) -> dict:
     return out
 
 
+def mesh_for(dev, shape: tuple[int, int]):
+    """A mesh of the given shape over every card, each card repeated in turn (one card: all
+    shards on `dev`)."""
+    import torch
+
+    from xdem_tpu_torch.parallel import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)] if n_cards > 1 else [dev]
+    return make_mesh(devices=[cards[i % len(cards)] for i in range(shape[0] * shape[1])], shape=shape)
+
+
+def equal_planes(got, want) -> bool:
+    """Identical NaN masks and identical values elsewhere (infinities included)."""
+    import torch
+
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
+
+
+def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict:
+    """The multi-device path at n x n: the sharded suite, the sharded fits, the sharded
+    uncertainty call and a two-process cluster, each held to its single-device result."""
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch import DEM, Affine, coreg, terrain, uncertainty
+    from xdem_tpu_torch.parallel import halo, make_mesh
+    from xdem_tpu_torch.parallel.distributed import launch_local_cluster
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit
+
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh() if n_cards >= 2 else mesh_for(dev, MESH_SHARDS)
+    shards = mesh.devices.size
+    distinct = sorted({str(d) for d in mesh.devices.flat})
+    print(f"  mesh {tuple(mesh.devices.shape)}: {shards} shards on {len(distinct)} card(s) {distinct}; {card}")
+    out: dict = {"shape": list(mesh.devices.shape), "shards": shards, "cards": len(distinct)}
+
+    # The sharded suite on phase 4's DEM, held to the whole-array planes to the bit.
+    ref, tba = main_pair(dev, n)
+    whole = terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
+    ck.reset_launch_counts()
+    sharded, t_first = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
+    launches = dict(ck.LAUNCHES)
+    print(f"  launches on the sharded suite: {launches}")
+    for k, v in launches.items():
+        check(v == shards, f"kernel {k} launched {v} times on the sharded suite, not once per shard ({shards})")
+    for a, s_, w in zip(SUITE, sharded, whole):
+        check(equal_planes(s_, w), f"sharded {a} differs from the whole-array plane")
+    del sharded
+    steady = []
+    for _ in range(3):
+        _, secs = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
+        steady.append(secs * 1e3)
+    out["suite_ms"] = {"first": t_first * 1e3, "steady": statistics.median(steady), "single": main["suite_ms"]}
+    print(f"  sharded suite: all 14 planes equal phase 4's to the bit; first {t_first * 1e3:.2f} ms, steady "
+          f"{statistics.median(steady):.2f} ms (median of 3: {[round(t, 2) for t in steady]}); whole array "
+          f"{main['suite_ms']:.2f} ms in phase 4")
+    del whole
+    torch.cuda.empty_cache()
+
+    # The decomposition's own costs, by CUDA events: the halo exchange of K1's halo, each
+    # kernel on one shard's padded block, and the assembly of K1's nine output planes.
+    center = surfit.dem_center(ref)
+    padded, _, _ = halo._pad_to_mesh(ref, 2, mesh)
+    blocks = halo._halo_blocks(padded, 2, mesh)
+    t_halo = device_ms(lambda: halo._halo_blocks(padded, 2, mesh))
+    outs = [[ck.surface_attributes(b, RES, SUITE[:9], center=center) for b in row] for row in blocks]
+    t_assemble = device_ms(lambda: halo._assemble(outs, 2, (n, n), dev))
+    del outs
+    b1 = blocks[0][0]
+    b6 = halo._halo_blocks(halo._pad_to_mesh(ref, 6, mesh)[0], 6, mesh)[0][0]
+    per_shard = {"surface_fit": device_ms(lambda: ck.surface_attributes(b1, RES, SUITE[:9], center=center), calls=5),
+                 "windowed": device_ms(lambda: ck.windowed_indexes(b1, RES, SUITE[9:13], 3), calls=5),
+                 "fractal": device_ms(lambda: ck.fractal_roughness(b6, 13), calls=5)}
+    halo_gb = sum(b.numel() for row in blocks for b in row) * 4 / 1e9
+    print(f"  halo exchange (K1's halo 2, {halo_gb:.2f} GB of padded blocks) {t_halo:.3f} ms; assembly of 9 planes "
+          f"({9 * 4 * n * n / 1e9:.1f} GB) {t_assemble:.3f} ms; per shard ({tuple(b1.shape)} block): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in per_shard.items()))
+    out.update(halo_ms=t_halo, assemble_ms=t_assemble, per_shard_ms=per_shard)
+    del blocks, padded, b1, b6
+    torch.cuda.empty_cache()
+
+    # A ragged DEM with NaN holes over 2 x 2 and 1 x 4.
+    h, w = MESH_SMALL
+    rng = np.random.default_rng(13)
+    z = spectral_dem(max(MESH_SMALL), 13, device=dev)[0][:h, :w].float().contiguous()
+    for _ in range(12):
+        r, c = int(rng.integers(0, h - 40)), int(rng.integers(0, w - 40))
+        z[r:r + int(rng.integers(1, 40)), c:c + int(rng.integers(1, 40))] = float("nan")
+    z_whole = terrain.get_terrain_attribute(z, list(SUITE), resolution=RES)
+    for shape in ((2, 2), (1, 4)):
+        ck.reset_launch_counts()
+        got = terrain.get_terrain_attribute(z, list(SUITE), resolution=RES, mesh=mesh_for(dev, shape))
+        check(all(v == 4 for v in ck.LAUNCHES.values()), f"{shape}: launches {dict(ck.LAUNCHES)}")
+        for a, s_, w_ in zip(SUITE, got, z_whole):
+            check(equal_planes(s_, w_), f"{h}x{w} over {shape}: sharded {a} differs from the whole-array plane")
+    print(f"  {h}x{w} with NaN holes over 2 x 2 and 1 x 4: every plane equal to the whole array's, each kernel once a shard")
+    del z, z_whole, got
+
+    # The sharded fits on phase 4's pair against the single-device fits.
+    transform = Affine.from_origin(*RASTER_ORIGIN, RES, RES)
+    kw = dict(transform=transform, crs=32633, random_state=42)
+    fits = (("VerticalShift", lambda: coreg.VerticalShift(), None),
+            ("NuthKaab", lambda: coreg.NuthKaab(subsample=5e5), None),
+            ("DhMinimize", lambda: coreg.DhMinimize(), None),
+            ("ICP", lambda: coreg.ICP(subsample=5e4, nn_method="brute"), None),
+            ("LZD", lambda: coreg.LZD(), 1e-3),
+            ("CPD", lambda: coreg.CPD(), 1e-3))
+    earlier = {"NuthKaab": main["fit_ms"] / 1e3}  # phase 4's steady fit; the rigid fits' are phase 6's
+    earlier.update({k: v["steady_s"] for k, v in cor["fits"].items() if isinstance(v, dict) and "steady_s" in v})
+    out["fits"] = {}
+    for name, make, tol in fits:
+        one, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
+        got, t_m1 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
+        _, t_m2 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
+        dev_max = float(np.abs(got - one).max())
+        if tol is None:
+            check(np.array_equal(got, one), f"{name}: the sharded fit is not the single-device fit to the bit "
+                                            f"(max |d| {dev_max:.3e})")
+        else:
+            check(np.allclose(got, one, rtol=tol, atol=tol), f"{name}: sharded fit departs by {dev_max:.3e}")
+        out["fits"][name] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2, "max_abs_diff": dev_max}
+        phase_s = f"{earlier[name]:.3f} s" if name in earlier else "not timed there"
+        print(f"  {name:13s} sharded first {t_m1:.3f} s, steady {t_m2:.3f} s; single-device {t_one:.3f} s here, "
+              f"steady in phase 4 or 6 {phase_s}; "
+              f"{'equal to the bit' if tol is None else f'max |d| {dev_max:.3e} (rtol = atol = {tol})'}; "
+              f"translation {[round(float(v), 4) for v in got[:3, 3]]}")
+
+    bs, picks = BLOCK
+    ref_d, tba_d = DEM.from_array(ref, transform, 32633), DEM.from_array(tba, transform, 32633)
+    bw = lambda m: coreg.BlockwiseNuthKaab(block_size_fit=bs, subsample_per_tile=picks, random_state=42,  # noqa: E731
+                                           mesh=m).fit(ref_d, tba_d)
+    one, t_one = _synced(lambda: bw(None))
+    got, t_m1 = _synced(lambda: bw(mesh))
+    _, t_m2 = _synced(lambda: bw(mesh))
+    for a in ("shifts_x", "shifts_y", "shifts_z"):
+        x, y = getattr(got, a), getattr(one, a)
+        check(np.array_equal(np.isnan(x), np.isnan(y)) and np.allclose(x, y, rtol=2e-3, atol=2e-3, equal_nan=True),
+              f"BlockwiseNuthKaab {a}: sharded tiles depart from the single-device tiles")
+    exact = all(np.array_equal(getattr(got, a), getattr(one, a), equal_nan=True) for a in ("shifts_x", "shifts_y", "shifts_z"))
+    out["fits"]["BlockwiseNuthKaab"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2, "bitwise": exact}
+    print(f"  BlockwiseNuthKaab ({(n // bs) ** 2} tiles) sharded first {t_m1:.3f} s, steady {t_m2:.3f} s; single-device "
+          f"{t_one:.3f} s; tiles within 2e-3 ({'equal to the bit' if exact else 'not all to the bit'})")
+    del ref, tba, ref_d, tba_d
+    torch.cuda.empty_cache()
+
+    # estimate_uncertainty on phase 5's pair, with and without the mesh.
+    dem = spectral_dem(n, 11, device=dev)[0].float().contiguous()
+    other = (dem + 0.004 * spectral_dem(n, 12, device=dev)[0]).float().contiguous()
+    ukw = dict(transform=Affine(20.0, 0.0, 4e5, 0.0, -20.0, 9e6), crs=32633, subsample=10000, random_state=42)
+    lags = np.array(MESH_LAGS)
+    (sig1, rho1), t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
+    ck.reset_launch_counts()
+    (sig2, rho2), t_m1 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
+    unc_launches = dict(ck.LAUNCHES)
+    check(unc_launches["surface_fit"] == shards, f"K1 launched {unc_launches['surface_fit']} times in the sharded "
+                                                 f"uncertainty call, not once per shard")
+    check(equal_planes(sig2, sig1), "sharded sigma differs from the single-device sigma")
+    check(np.array_equal(rho2(lags), rho1(lags)), f"sharded rho {rho2(lags)} != single-device {rho1(lags)}")
+    _, t_m2 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
+    out["uncertainty"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2, "phase5_steady_s": unc["steady_s"]}
+    print(f"  estimate_uncertainty sharded first {t_m1:.3f} s, steady {t_m2:.3f} s (single-device {t_one:.3f} s here, "
+          f"{unc['steady_s']:.3f} s steady in phase 5): sigma and rho({list(MESH_LAGS)} m) equal to the bit; "
+          f"launches {unc_launches}")
+    del dem, other, sig1, sig2
+    torch.cuda.empty_cache()
+
+    # Two processes of two shards each; one card cannot hold two NCCL ranks, so gloo on the CPU.
+    cluster, t_cluster = _synced(lambda: launch_local_cluster(num_processes=2, local_devices=2, timeout=300.0))
+    route = cluster.strip().splitlines()[-1]
+    check("DISTRIBUTED OK" in route and "4 global devices" in route, f"the cluster did not report success: {route}")
+    out["cluster"] = {"s": t_cluster, "route": route}
+    print(f"  launch_local_cluster(2, 2) in {t_cluster:.2f} s: {route}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2257,7 +2449,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/12] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"[1/13] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} visible)")
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
     print(card)
@@ -2266,7 +2458,7 @@ def main() -> int:
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/12] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/13] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -2278,26 +2470,26 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/12] kernels against their plain versions on the card (2047 x 2061):")
+    print("[3/13] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/12] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/13] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/12] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/13] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/12] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/13] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[7/12] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[7/13] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
     vol = phase_volume(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[8/12] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[8/13] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs")  # git-ignored
     os.makedirs(scratch, exist_ok=True)
     # Phase 8's two files stay until phase 12 has read them.
@@ -2305,26 +2497,30 @@ def main() -> int:
         ras = phase_raster(dev, MAIN_SIZE, raster_folder)
         torch.cuda.empty_cache()
 
-        print(f"[9/12] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
+        print(f"[9/13] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             pts = phase_points(dev, MAIN_SIZE, POINTS, folder)
         torch.cuda.empty_cache()
 
-        print(f"[10/12] dDEM and DEMCollection at {MAIN_SIZE} x {MAIN_SIZE} ({card}):")
+        print(f"[10/13] dDEM and DEMCollection at {MAIN_SIZE} x {MAIN_SIZE} ({card}):")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             ddm = phase_ddem(dev, MAIN_SIZE, folder)
         torch.cuda.empty_cache()
 
-        print(f"[11/12] terrain attributes out of core at {TILED_SIZE} x {TILED_SIZE} ({card}):")
+        print(f"[11/13] terrain attributes out of core at {TILED_SIZE} x {TILED_SIZE} ({card}):")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             til = phase_tiled(dev, TILED_SIZE, folder)
         torch.cuda.empty_cache()
 
-        print(f"[12/12] the Accuracy and Topo workflows on phase 8's files ({card}):")
+        print(f"[12/13] the Accuracy and Topo workflows on phase 8's files ({card}):")
         wfl = phase_workflows(dev, MAIN_SIZE, raster_folder)
+    torch.cuda.empty_cache()
+
+    print(f"[13/13] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    msh = phase_mesh(dev, MAIN_SIZE, card, res, unc, cor)
 
     paths = {"main": res["launches"], "raster": ras["launches"], "ddem": ddm["launches"], "tiled": til["launches"],
-             "accuracy": wfl["accuracy"]["launches"], "topo": wfl["topo"]["launches"]}
+             "accuracy": wfl["accuracy"]["launches"], "topo": wfl["topo"]["launches"], "mesh": msh["launches"]}
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": res["launches"][k],
          "launches_by_path": {p: counts[k] for p, counts in paths.items()},
@@ -2335,7 +2531,7 @@ def main() -> int:
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
         "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts,
-        "ddem": ddm, "tiled": til, "workflows": wfl}
+        "ddem": ddm, "tiled": til, "workflows": wfl, "mesh": msh}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -36,6 +36,7 @@ from xdem_tpu_torch import DEM, coreg
 from xdem_tpu_torch.coreg import affine, blockwise
 from xdem_tpu_torch.georef import Affine
 from xdem_tpu_torch.io import read_raster
+from xdem_tpu_torch.parallel import make_mesh
 
 RES = 20.0
 ORIGIN = (502810.0, 8674030.0)  # the examples' upper-left corner: float32 northings round to 1 m
@@ -145,8 +146,12 @@ def test_blockwise_nuth_kaab_own_draw_recovers_the_shift(dems):
     np.testing.assert_allclose(np.nanmedian(p.shifts_y), SHIFT_PX[0] * RES, rtol=0.05)
     with pytest.raises(ValueError, match="smaller than block_size_fit"):
         coreg.BlockwiseNuthKaab(block_size_fit=1024).fit(ref, tba)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        coreg.BlockwiseNuthKaab(mesh=object())
+    # mesh= splits the tile axis over 8 CPU shards (padded with NaN tiles): tiles are
+    # independent, so every tile's shift is the single-device one.
+    q = coreg.BlockwiseNuthKaab(block_size_fit=BS, subsample_per_tile=K, random_state=7,
+                                mesh=make_mesh(devices=[torch.device("cpu")] * 8)).fit(ref, tba)
+    for k in ("shifts_x", "shifts_y", "shifts_z"):
+        np.testing.assert_array_equal(getattr(q, k), getattr(p, k))
 
 
 # ---------------------------------------------------------------------- RANSAC

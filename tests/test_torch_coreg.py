@@ -26,6 +26,7 @@ from xdem_tpu_torch import coreg
 from xdem_tpu_torch.coreg import affine, base
 from xdem_tpu_torch.georef import Affine
 from xdem_tpu_torch.ops import interp, reductions, transfer
+from xdem_tpu_torch.parallel import make_mesh
 
 RES = 20.0
 SHIFT = (6.0, -3.0, 1.5)  # (east, north, up) metres the terrain is moved by in tba
@@ -254,17 +255,21 @@ def test_geographic_and_unported_crs_raise(pair):
 @pytest.mark.parametrize("kwargs,err", [
     (dict(), ValueError),
     (dict(transform=TRANSFORM, weights=np.ones(3)), NotImplementedError),
-    (dict(transform=TRANSFORM, mesh=object()), NotImplementedError),
+    (dict(transform=TRANSFORM, mesh=make_mesh(devices=[torch.device("cpu")] * 4)), None),
     (dict(transform=TRANSFORM, bias_vars={"x": np.ones((256, 256), np.float32)}), None),
 ])
 def test_fit_refuses_what_is_not_ported(pair, kwargs, err):
     """What is not ported raises; bias_vars= is ported, and an affine method ignores it as
-    xdem_tpu does."""
+    xdem_tpu does; mesh= is ported, and the sharded fit is the single-device fit to the bit."""
     ref, tba = pair
     if err is None:
         got = coreg.NuthKaab().fit(ref, tba, random_state=42, **kwargs).to_translations()
-        want = jcoreg.NuthKaab().fit(ref, tba, random_state=42, **dict(kwargs, transform=JAX_TRANSFORM))
+        jkw = {k: v for k, v in kwargs.items() if k != "mesh"}
+        want = jcoreg.NuthKaab().fit(ref, tba, random_state=42, **dict(jkw, transform=JAX_TRANSFORM))
         np.testing.assert_allclose(got[:2], want.to_translations()[:2], rtol=0.01)
+        if "mesh" in kwargs:
+            one = coreg.NuthKaab().fit(ref, tba, random_state=42, transform=TRANSFORM).to_translations()
+            np.testing.assert_array_equal(got, one)
     else:
         with pytest.raises(err):
             coreg.NuthKaab().fit(ref, tba, **kwargs)

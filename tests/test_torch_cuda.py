@@ -3,7 +3,8 @@ the uncertainty path's device functions on the card against the CPU, and the vol
 shading, convolution, patches and Genton paths on the card against the CPU at 512^2, and the
 DEM path (reprojection, the vertical CRS, a DEM's attributes), the raster-point fits, the
 matrix apply to an EPC and the batched blockwise Nuth & Kääb solve (the card's picks solved
-on both) on the card against the CPU.
+on both) on the card against the CPU, and mesh= over four shards of one card against the
+whole-array planes and the single-device fits.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -784,3 +785,38 @@ def test_topo_on_the_card_launches_each_kernel(cuda_device, tmp_path):
           "outputs": {"path": str(tmp_path / "out"), "level": 1}}).run()
     assert ck.LAUNCHES == {"surface_fit": 3, "windowed": 1, "fractal": 1}
     assert (tmp_path / "out" / "tables" / "fractal_roughness_stats.csv").exists()
+
+
+# ---------------------------------------------------------------------- the mesh on one card
+
+
+def test_sharded_suite_on_the_card_launches_each_kernel_once_a_shard(cuda_device):
+    """mesh= over four shards of one card: K1, K2 and K3 launch once per shard and the planes
+    equal the whole-array planes to the bit."""
+    from xdem_tpu_torch.parallel import make_mesh
+
+    dem = _dem(cuda_device)
+    attrs = ["slope", "aspect", "hillshade", "max_curvature", "topographic_position_index",
+             "terrain_ruggedness_index", "roughness", "rugosity", "fractal_roughness"]
+    whole = terrain.get_terrain_attribute(dem, attrs, resolution=20.0)
+    for shape in ((2, 2), (1, 4)):
+        ck.reset_launch_counts()
+        got = terrain.get_terrain_attribute(dem, attrs, resolution=20.0,
+                                            mesh=make_mesh(devices=[cuda_device] * 4, shape=shape))
+        assert dict(ck.LAUNCHES) == {"surface_fit": 4, "windowed": 4, "fractal": 4}
+        for a, g, w in zip(attrs, got, whole):
+            _bit_equal(g, w, a)
+
+
+def test_sharded_fits_on_the_card_equal_the_single_device_fits(cuda_device):
+    from xdem_tpu_torch.parallel import make_mesh
+
+    ref = _dem(cuda_device, shape=(384, 384), holes=False)
+    tba = torch.roll(ref, (1, -2), dims=(0, 1)) + 1.0
+    t = Affine.from_origin(5e5, 8e6, 20.0, 20.0)
+    mesh = make_mesh(devices=[cuda_device] * 4)
+    kw = dict(transform=t, crs=32633, random_state=1)
+    for make in (lambda: coreg.VerticalShift(), lambda: coreg.NuthKaab(subsample=20000),
+                 lambda: coreg.DhMinimize(subsample=20000), lambda: coreg.ICP(subsample=3000, nn_method="brute")):
+        np.testing.assert_array_equal(make().fit(ref, tba, mesh=mesh, **kw).to_matrix(),
+                                      make().fit(ref, tba, **kw).to_matrix())

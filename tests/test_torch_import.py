@@ -38,7 +38,9 @@ def test_import_loads_neither_jax_nor_xdem_tpu():
         "xdem_tpu_torch.io, xdem_tpu_torch.geoid, xdem_tpu_torch.vcrs, xdem_tpu_torch.vector, xdem_tpu_torch._misc, "
         "xdem_tpu_torch.raster, xdem_tpu_torch.dem, xdem_tpu_torch.examples, xdem_tpu_torch.pointcloud, "
         "xdem_tpu_torch.epc, xdem_tpu_torch.ddem, xdem_tpu_torch.demcollection, xdem_tpu_torch.terrain.tiled, "
-        "xdem_tpu_torch.workflows, xdem_tpu_torch.cli; "
+        "xdem_tpu_torch.workflows, xdem_tpu_torch.cli, xdem_tpu_torch.parallel, xdem_tpu_torch.parallel.coreg, "
+        "xdem_tpu_torch.parallel.selection, xdem_tpu_torch.parallel.variogram, xdem_tpu_torch.parallel.distributed, "
+        "xdem_tpu_torch.profiler; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.', 'sklearn')) "
         "or m in ('xdem_tpu', 'pandas')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -412,8 +414,8 @@ def test_codec_build_names_what_is_missing(monkeypatch, tmp_path):
 
 
 def test_copied_genton_constants_and_fft_sizes_equal_originals():
-    """The port keeps its own copy of the Genton reservoir's cap and pair keys (the rest of
-    xdem_tpu/parallel stays unported) and of next_fast_fft_size."""
+    """The port keeps its own copy of the Genton reservoir's cap and pair keys (which its
+    parallel/variogram.py shares) and of next_fast_fft_size."""
     import jax.numpy as jnp
 
     from xdem_tpu.parallel import variogram as jvario
@@ -572,6 +574,47 @@ def test_default_device_and_dtype():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert float(xdem_tpu_torch.as_tensor(read_only)[3]) == 3.0
+
+
+def test_near_square_factors_equal_original():
+    """parallel/mesh.py keeps its own copy of xdem_tpu's mesh factoring."""
+    from xdem_tpu.parallel import mesh as jmesh
+    from xdem_tpu_torch.parallel import mesh as tmesh
+
+    for n in range(1, 130):
+        assert tmesh._near_square_factors(n) == jmesh._near_square_factors(n), n
+
+
+def test_mesh_paths_and_profiler_run_without_pandas_or_sklearn(tmp_path):
+    """The sharded terrain suite, a sharded Nuth & Kääb fit, estimate_uncertainty(mesh=) and
+    the profiler's summary import and run with pandas and scikit-learn unavailable and without
+    JAX or xdem_tpu in the process, as on the card's machine."""
+    code = (
+        "import sys; sys.modules['pandas'] = None; sys.modules['sklearn'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from xdem_tpu_torch import coreg, examples, terrain\n"
+        "from xdem_tpu_torch.parallel import make_mesh\n"
+        "from xdem_tpu_torch.profiler import Profiler\n"
+        f"d = {str(tmp_path)!r}\n"
+        "mesh = make_mesh(devices=[torch.device('cpu')] * 4)\n"
+        "ref, tba = examples.get_ref_dem().icrop((0, 256), (0, 320)), examples.get_tba_dem().icrop((0, 256), (0, 320))\n"
+        "Profiler.enable(save_raw_data=True)\n"
+        "a = terrain.get_terrain_attribute(ref, ['slope', 'roughness', 'fractal_roughness'], mesh=mesh)\n"
+        "b = terrain.get_terrain_attribute(ref, ['slope', 'roughness', 'fractal_roughness'])\n"
+        "assert all(torch.equal(torch.nan_to_num(x.data, 1e9), torch.nan_to_num(y.data, 1e9)) for x, y in zip(a, b))\n"
+        "nk = coreg.NuthKaab(subsample=5000).fit(ref, tba, random_state=1, mesh=mesh)\n"
+        "assert nk.to_translations() == coreg.NuthKaab(subsample=5000).fit(ref, tba, random_state=1).to_translations()\n"
+        "sig, rho = ref.estimate_uncertainty(tba, subsample=100, random_state=1, mesh=mesh)\n"
+        "assert np.isfinite(sig.get_nanarray()).mean() > 0.9\n"
+        "out = Profiler.generate_summary(d); Profiler.disable()\n"
+        "assert (out / 'profiling_summary.csv').exists() and (out / 'profiling_raw.csv').exists()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'xdem_tpu.')) or m == 'xdem_tpu']\n"
+        "assert not bad and sys.modules['pandas'] is None and sys.modules['sklearn'] is None, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=str(PKG.parent), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_top_level_lists_every_ported_module():

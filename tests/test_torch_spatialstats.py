@@ -21,6 +21,7 @@ import xdem_tpu.spatialstats as jss
 import xdem_tpu_torch.spatialstats as tss
 from xdem_tpu.ops import reductions as jred
 from xdem_tpu_torch.ops import reductions as tred
+from xdem_tpu_torch.parallel import make_mesh
 
 MODELS = ("spherical", "gaussian", "exponential", "cubic", "stable", "matern")
 
@@ -484,11 +485,15 @@ class _VectorLike:
         return None
 
 
+_MESH2 = make_mesh(devices=[torch.device("cpu")] * 2)
+
+
 @pytest.mark.parametrize("call,exc,match", [
     (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, n_jobs=2), NotImplementedError, "n_jobs"),
-    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, mesh=object()), NotImplementedError, "mesh"),
-    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="cdist_point", mesh=object()),
-     NotImplementedError, "mesh"),
+    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="pdist_disk", mesh=_MESH2),
+     ValueError, "cdist_equidistant"),
+    (lambda f: tss.sample_empirical_variogram(f, gsd=10.0, subsample_method="cdist_point", mesh=_MESH2),
+     ValueError, "cdist_equidistant"),
     (lambda f: tss.sample_empirical_variogram(torch.where(torch.arange(f.numel()).reshape(f.shape) == 0, f, torch.nan),
                                               gsd=10.0, subsample_method="pdist_ring"),
      ValueError, "Not enough valid points"),
@@ -500,11 +505,12 @@ class _VectorLike:
      ValueError, "raster is needed"),
     (lambda f: tss.infer_heteroscedasticity_from_stable(f, [f], stable_mask=_VectorLike(), subsample=100),
      ValueError, "raster is needed"),
-    (lambda f: tss.infer_heteroscedasticity_from_stable(f, [f], subsample=100, mesh=object()),
-     NotImplementedError, "mesh"),
+    (lambda f: tss.infer_heteroscedasticity_from_stable(f.numpy(), [f.numpy()], subsample=100, mesh=_MESH2),
+     ValueError, "device path"),
     (lambda f: tss.spatial_error_propagation(["1 km2"], f, PARAMS), ValueError, "Area must be"),
     (lambda f: tss.number_effective_samples("1 km2", PARAMS), ValueError, "Area must be"),
-    (lambda f: tss.neff_exact(np.zeros((3, 2)), np.ones(3), PARAMS, mesh=object()), NotImplementedError, "mesh"),
+    (lambda f: tss.neff_exact(np.zeros((3, 2)), np.ones(3), dict(PARAMS, range=-PARAMS["range"]), mesh=_MESH2),
+     ValueError, "non-negative"),
 ])
 def test_refusals(call, exc, match):
     with pytest.raises(exc, match=match):

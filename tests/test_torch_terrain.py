@@ -17,6 +17,7 @@ from torch_port_helpers import assert_plane_close, example_dem, to_np
 
 from xdem_tpu import terrain as jterrain
 from xdem_tpu_torch import terrain
+from xdem_tpu_torch.parallel import make_mesh
 
 SUITE = ["slope", "aspect", "hillshade", "profile_curvature", "tangential_curvature",
          "planform_curvature", "flowline_curvature", "max_curvature", "min_curvature",
@@ -125,15 +126,16 @@ def test_validation_errors_match_jax(kwargs):
 
 
 @pytest.mark.parametrize("call, err, match", [
-    (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mesh=object()), NotImplementedError,
-     "not ported"),
+    (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mesh=make_mesh(
+        devices=[torch.device("cpu")] * 8, shape=(8, 1))), ValueError, "too small to halo-shard"),
     (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, tiled=terrain.TilingConfig()), ValueError,
      "needs `outdir`"),
     (lambda d: terrain.get_terrain_attribute(d, "slope", resolution=1.0, mp_config=object()), ValueError,
      "process-pool tiling does not exist"),
 ], ids=["mesh", "tiled", "mp_config"])
 def test_not_ported_paths_raise(call, err, match):
-    """mesh= (sharding over devices) is not ported; tiled= and mp_config= are routed to
+    """mesh= refuses a mesh whose blocks are narrower than the stencil's halo (the sharded path
+    itself is held in test_torch_parallel.py); tiled= and mp_config= are routed to
     tiled_terrain_attribute and refuse what xdem_tpu refuses, with its messages."""
     with pytest.raises(err, match=match):
         call(np.zeros((6, 6), np.float32))

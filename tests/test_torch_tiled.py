@@ -19,9 +19,11 @@ from torch_port_helpers import assert_plane_close
 from xdem_tpu import examples as jex
 from xdem_tpu import terrain as jterrain
 from xdem_tpu.io import read_raster as jread_raster
+from xdem_tpu.parallel import mesh as jmesh
 from xdem_tpu.terrain import tiled as jtiled
 from xdem_tpu_torch import Affine, Raster, io, terrain
 from xdem_tpu_torch.terrain import tiled
+from xdem_tpu_torch.parallel import make_mesh
 
 ATTRS = ["slope", "aspect", "hillshade", "max_curvature", "topographic_position_index", "roughness",
          "fractal_roughness"]
@@ -148,9 +150,16 @@ def test_refusals_match_xdem_tpu(case, tmp_path):
 
 
 def test_mesh_stays_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        terrain.get_terrain_attribute(np.zeros((8, 8), np.float32), "slope", resolution=1.0, mesh=object(),
+    """tiled= (out-of-core streaming) and mesh= (device sharding) are exclusive, with
+    xdem_tpu's ValueError."""
+    arr = np.zeros((8, 8), np.float32)
+    with pytest.raises(ValueError) as theirs:
+        jterrain.get_terrain_attribute(arr, "slope", resolution=1.0, mesh=jmesh.make_mesh(2),
+                                       tiled=jtiled.TilingConfig(outdir=str(tmp_path)))
+    with pytest.raises(ValueError) as got:
+        terrain.get_terrain_attribute(arr, "slope", resolution=1.0, mesh=make_mesh(devices=[torch.device("cpu")] * 2),
                                       tiled=terrain.TilingConfig(outdir=str(tmp_path)))
+    assert str(got.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("attrs", [["slope"], ["slope", "roughness"], ["fractal_roughness"], ["rugosity"],

@@ -19,6 +19,7 @@ import xdem_tpu.spatialstats as jss
 import xdem_tpu_torch.spatialstats as tss
 from xdem_tpu import examples
 from xdem_tpu_torch import Affine, uncertainty
+from xdem_tpu_torch.parallel import make_mesh
 
 APPROACHES = ("H2022", "R2009", "Basic")
 LAGS = np.array([20.0, 200.0, 2000.0])
@@ -122,7 +123,8 @@ class _VectorLike:
 @pytest.mark.parametrize("change,exc,match", [
     (dict(other=pd.DataFrame({"x": [0.0], "y": [0.0], "z": [1.0]})), ValueError, "Too few stable"),
     (dict(stable_terrain=_VectorLike()), ValueError, "raster is needed"),
-    (dict(mesh=object()), NotImplementedError, "mesh"),
+    (dict(other=pd.DataFrame({"x": [0.0], "y": [0.0], "z": [1.0]}), mesh=make_mesh(devices=[torch.device("cpu")] * 2)),
+     ValueError, "point-cloud uncertainty"),
     (dict(other=np.zeros((10, 12), np.float32)), ValueError, "not on the grid"),
     (dict(transform=None), ValueError, "transform="),
     (dict(crs=3.5), TypeError, "Cannot build a CRS"),

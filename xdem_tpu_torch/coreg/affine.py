@@ -25,6 +25,7 @@ iteration.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import warnings
@@ -39,7 +40,6 @@ from xdem_tpu_torch.coreg.base import (
     _check_matrix,
     _grid_side,
     _make_matrix_valid,
-    _refuse_mesh,
     invert_matrix,
     matrix_from_translations_rotations,
     translations_rotations_from_matrix,
@@ -322,6 +322,25 @@ def _rigid_step(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 # ======================================================================================
 
 
+def _cosine_normal_equations(Gm: torch.Tensor, yv: torch.Tensor, ok: torch.Tensor):
+    """float64 normal equations (G^T G, G^T y) of y = A cos + B sin + C over the `ok` rows;
+    leading batch axes allowed. Float64, so that the float32 answer does not depend on how a
+    batch is cut: the library picks its matmul kernel by batch size, and mesh= splits batches
+    and sums partial equations."""
+    Gw = (Gm * ok.to(Gm.dtype)[..., None]).double()
+    lhs = Gw.transpose(-1, -2) @ Gm.double()
+    rhs = (Gw.transpose(-1, -2) @ torch.where(ok, yv, 0.0).double()[..., None])[..., 0]
+    return lhs, rhs
+
+
+def _solve_cosine(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The float32 solution of the normal equations with a 1e-12 ridge. ``solve_ex``:
+    ``linalg.solve``'s own singularity check would read the answer back every step (the ridge
+    keeps each system regular)."""
+    ridge = 1e-12 * torch.eye(3, dtype=torch.float64, device=lhs.device)
+    return torch.linalg.solve_ex(lhs + ridge, rhs).result.to(torch.float32)
+
+
 def _nuth_kaab_solve(
     pts_z: torch.Tensor,
     rows: torch.Tensor,
@@ -348,12 +367,6 @@ def _nuth_kaab_solve(
     bin_width = 2 * math.pi / n_bins
     bin_centers = (torch.arange(n_bins, dtype=f32, device=dev) + 0.5) * bin_width
     G = torch.stack([torch.cos(bin_centers), torch.sin(bin_centers), torch.ones(n_bins, dtype=f32, device=dev)], 1)
-    ridge = 1e-12 * torch.eye(3, dtype=f32, device=dev)
-
-    def lstsq(Gm: torch.Tensor, yv: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-        """Solve the normal equations of y = A cos x + B sin x + C over the `ok` rows."""
-        Gw = Gm * ok.to(f32)[:, None]
-        return torch.linalg.solve(Gw.T @ Gm + ridge, Gw.T @ torch.where(ok, yv, 0.0))
 
     sx = torch.zeros((), dtype=f32, device=dev)
     sy = torch.zeros((), dtype=f32, device=dev)
@@ -369,10 +382,10 @@ def _nuth_kaab_solve(
         if bin_before_fit:
             bin_idx = torch.clamp((aspect / bin_width).to(torch.int32), 0, n_bins - 1)
             med = _binned_median(y, bin_idx, valid, n_bins)
-            p = lstsq(G, med, torch.isfinite(med))
+            p = _solve_cosine(*_cosine_normal_equations(G, med, torch.isfinite(med)))
         else:
             Gf = torch.stack([torch.cos(aspect), torch.sin(aspect), torch.ones_like(aspect)], 1)
-            p = lstsq(Gf, y, valid)
+            p = _solve_cosine(*_cosine_normal_equations(Gf, y, valid))
         north_px, east_px = p[0], p[1]  # a*cos(b), a*sin(b)
         sx = sx + east_px
         sy = sy + north_px
@@ -400,7 +413,18 @@ def _interp_tiles(tiles: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -
     return torch.where(inside, vals, torch.nan)
 
 
-def _nuth_kaab_solve_batched(
+def _nuth_kaab_solve_batched(*args, **kwargs) -> tuple[torch.Tensor, ...]:
+    """:func:`_nuth_kaab_solve` over a leading tile axis: (T, K) points in (T, H, W) grids;
+    the steps of :func:`_nuth_kaab_batched_steps` until no tile is active (one host read per
+    iteration). Returns float32 tensors (shift_x m, shift_y m, vshift, last step px, steps)
+    per tile."""
+    for active, out in _nuth_kaab_batched_steps(*args, **kwargs):
+        if not bool(active.any()):
+            break
+    return out
+
+
+def _nuth_kaab_batched_steps(
     pts_z: torch.Tensor,
     rows: torch.Tensor,
     cols: torch.Tensor,
@@ -413,32 +437,25 @@ def _nuth_kaab_solve_batched(
     max_iterations: int = 10,
     n_bins: int = 72,
     bin_before_fit: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """:func:`_nuth_kaab_solve` over a leading tile axis: (T, K) points in (T, H, W) grids.
+):
+    """The iterations of the batched Nuth & Kääb solve, as a generator: each step yields the
+    (T,) mask of tiles still active and the results so far, float32 tensors (shift_x m,
+    shift_y m, vshift, last step px, steps) per tile, and reads nothing back to the host, so
+    a caller can step several batches (one per device) before it waits.
 
     Every tile runs the single solve's stop rule (at least 3 steps, then the offset step below
     `tolerance` in float32); a tile that has stopped keeps its values while the others go on,
     as a vmapped while loop does. Medians are 0.5 * (lo + hi) of sorts by (tile, value) and
-    (tile, bin, value); NaN picks reach neither. One host read per iteration ("all tiles
-    done"). Returns float32 tensors (shift_x m, shift_y m, vshift, last step px, steps) per
-    tile.
+    (tile, bin, value); NaN picks reach neither.
     """
     dev, f32 = pts_z.device, torch.float32
     t, k = pts_z.shape
     bin_width = 2 * math.pi / n_bins
     bin_centers = (torch.arange(n_bins, dtype=f32, device=dev) + 0.5) * bin_width
     G = torch.stack([torch.cos(bin_centers), torch.sin(bin_centers), torch.ones(n_bins, dtype=f32, device=dev)], 1)
-    ridge = 1e-12 * torch.eye(3, dtype=f32, device=dev)
     tile_id = torch.arange(t, device=dev)[:, None].expand(t, k)
     bin_ids = tile_id * n_bins + torch.clamp((aspect / bin_width).to(torch.int32), 0, n_bins - 1).long()
     Gp = torch.stack([torch.cos(aspect), torch.sin(aspect), torch.ones_like(aspect)], -1)
-
-    def lstsq(Gm: torch.Tensor, yv: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-        # solve_ex: linalg.solve's own singularity check would read the device's answer back
-        # every step (the ridge keeps each system regular).
-        Gw = Gm * ok.to(f32)[..., None]
-        rhs = (Gw.transpose(1, 2) @ torch.where(ok, yv, 0.0)[..., None])[..., 0]
-        return torch.linalg.solve_ex(Gw.transpose(1, 2) @ Gm + ridge, rhs).result
 
     sx = torch.zeros(t, dtype=f32, device=dev)
     sy = torch.zeros(t, dtype=f32, device=dev)
@@ -447,6 +464,8 @@ def _nuth_kaab_solve_batched(
     it = torch.zeros(t, dtype=torch.int64, device=dev)
     tol32 = float(np.float32(tolerance))
     active = torch.ones(t, dtype=torch.bool, device=dev)
+    if max_iterations <= 0:  # no step: the initial state, as a while loop that never runs
+        yield torch.zeros_like(active), (sx * res_x, sy * res_y, vshift, stat, it)
     for _ in range(max_iterations):
         dh = pts_z - _interp_tiles(rasters, rows - sy[:, None], cols + sx[:, None])
         vs = _binned_median(dh.reshape(-1), tile_id.reshape(-1), torch.isfinite(dh).reshape(-1), t)
@@ -454,9 +473,9 @@ def _nuth_kaab_solve_batched(
         valid = torch.isfinite(y)
         if bin_before_fit:
             med = _binned_median(y.reshape(-1), bin_ids.reshape(-1), valid.reshape(-1), t * n_bins).reshape(t, n_bins)
-            p = lstsq(G.expand(t, n_bins, 3), med, torch.isfinite(med))
+            p = _solve_cosine(*_cosine_normal_equations(G.expand(t, n_bins, 3), med, torch.isfinite(med)))
         else:
-            p = lstsq(Gp, y, valid)
+            p = _solve_cosine(*_cosine_normal_equations(Gp, y, valid))
         north_px, east_px = p[:, 0], p[:, 1]
         sx = torch.where(active, sx + east_px, sx)
         sy = torch.where(active, sy + north_px, sy)
@@ -464,9 +483,7 @@ def _nuth_kaab_solve_batched(
         stat = torch.where(active, torch.hypot(east_px, north_px), stat)
         it = it + active.long()
         active = active & (it < max_iterations) & ~((it >= 3) & (stat < tol32))
-        if not bool(active.any()):
-            break
-    return sx * res_x, sy * res_y, vshift, stat, it
+        yield active, (sx * res_x, sy * res_y, vshift, stat, it)
 
 
 def _nk_slope_aspect_valid(ref: torch.Tensor, tba: torch.Tensor, inlier: torch.Tensor):
@@ -492,9 +509,11 @@ def _nuth_kaab_rst_rst_device(
     max_iterations: int = 10,
     n_bins: int = 72,
     bin_before_fit: bool = True,
+    mesh: Any = None,
 ) -> dict[str, float]:
     """Raster-raster Nuth & Kääb on the inputs' device: slope/aspect, seeded subsample over
-    the joint valid mask, and the iterative solve."""
+    the joint valid mask, and the iterative solve (with a `mesh`, the subsample drawn here is
+    split over the mesh for the solve: `parallel.coreg.nuth_kaab_points_sharded`)."""
     h, w = ref.shape
     slope_tan, aspect, valid = _nk_slope_aspect_valid(ref, tba, inlier)
     n_valid = int(valid.sum())
@@ -515,12 +534,22 @@ def _nuth_kaab_rst_rst_device(
     parked = torch.where(torch.isfinite(st), bin_idx.long(), n_bins)
     populated = int((torch.bincount(parked, minlength=n_bins + 1)[:n_bins] > 10).sum())
 
-    sx, sy, vshift, stat, it = _nuth_kaab_solve(
+    sx, sy, vshift, stat, it = _solver(mesh)(
         pts_z, rr, cc, tba, st, asp, res_x, res_y, tolerance,
         max_iterations=max_iterations, n_bins=n_bins, invert=False, bin_before_fit=bin_before_fit,
     )
     return {"shift_x": sx, "shift_y": sy, "vshift": vshift, "stat": stat, "iterations": it,
             "n_valid": n_valid, "count": count, "populated": populated}
+
+
+def _solver(mesh: Any) -> Callable:
+    """The Nuth & Kääb iterations: on one device, or with the points split over `mesh`."""
+    if mesh is None:
+        return _nuth_kaab_solve
+    from xdem_tpu_torch.parallel.coreg import nuth_kaab_points_sharded
+    from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+    return functools.partial(nuth_kaab_points_sharded, mesh=as_mesh_1d(mesh))
 
 
 def nuth_kaab(
@@ -540,9 +569,10 @@ def nuth_kaab(
 ) -> tuple[tuple[float, float, float], int, int]:
     """Nuth and Kääb (2011) on a raster pair; returns ((east, north, vertical) sampling
     offsets in m, final subsample count, iterations). ``z_name`` names a point cloud's
-    elevation column (a PointCloud carries its heights as ``z``); ``mesh=`` raises
-    NotImplementedError (one device)."""
-    _refuse_mesh(mesh)
+    elevation column (a PointCloud carries its heights as ``z``). With ``mesh=`` (a
+    `parallel.Mesh`), the subsample is drawn as on one device and its points are split over
+    the mesh, every median an exact distributed order statistic: the fit equals the
+    single-device fit to the bit in the default ``bin_before_fit`` mode."""
     logging.info("Running Nuth and Kääb (2011) coregistration")
     if crs is not None and not is_projected(crs):
         raise NotImplementedError(
@@ -556,12 +586,12 @@ def nuth_kaab(
         )
     if isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud):
         return _nuth_kaab_points(ref_elev, tba_elev, inlier_mask, transform, tolerance, max_iterations, subsample,
-                                 random_state, bin_before_fit, n_bins)
+                                 random_state, bin_before_fit, n_bins, mesh)
     inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
     out = _nuth_kaab_rst_rst_device(
         ref_elev, tba_elev, inlier, seed_from(random_state), subsample,
         transform.xres, transform.yres, tolerance,
-        max_iterations=int(max_iterations), n_bins=int(n_bins), bin_before_fit=bin_before_fit,
+        max_iterations=int(max_iterations), n_bins=int(n_bins), bin_before_fit=bin_before_fit, mesh=mesh,
     )
     sx, sy, vshift = out["shift_x"], out["shift_y"], out["vshift"]
     if out["n_valid"] == 0:
@@ -601,7 +631,7 @@ def _grad_slope_aspect(grid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _nuth_kaab_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine, tolerance: float,
                       max_iterations: int, subsample: float | int, random_state: Any, bin_before_fit: bool,
-                      n_bins: int) -> tuple[tuple[float, float, float], int, int]:
+                      n_bins: int, mesh: Any = None) -> tuple[tuple[float, float, float], int, int]:
     """Nuth and Kääb on a raster-point pair: slope and aspect of the grid side, the points'
     subsample (numpy's draw, as xdem_tpu's), and the iterative solve with the grid as the
     reference when it is one (`invert`)."""
@@ -612,7 +642,7 @@ def _nuth_kaab_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform:
     asp, st = sub["aux"]["aspect"], sub["aux"]["slope_tan"]
     hist = torch.histc(asp[torch.isfinite(asp)], bins=n_bins, min=0.0, max=2 * math.pi)
     populated = int((hist > 10).sum())
-    sx, sy, vshift, stat, it = _nuth_kaab_solve(
+    sx, sy, vshift, stat, it = _solver(mesh)(
         sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], st, asp, transform.xres, transform.yres, tolerance,
         max_iterations=int(max_iterations), n_bins=int(n_bins), invert=bool(sub["invert"]),
         bin_before_fit=bin_before_fit,
@@ -705,26 +735,49 @@ def vertical_shift(
 
     The default (every valid pixel, median) is one device reduction. A subsample or another
     reductor draws pixels with numpy's generator from `random_state`, the same draw as
-    xdem_tpu, evaluates dh on the device and reduces on the host. ``z_name`` and ``mesh`` as
-    in `nuth_kaab`.
+    xdem_tpu, evaluates dh on the device and reduces on the host. ``z_name`` as in
+    `nuth_kaab`. With ``mesh=``, the default path splits the rows of the pair over the mesh
+    and the median is the exact distributed order statistic (equal to the single-device fit
+    to the bit); a subsample is drawn as on one device and its gathers are split, a median
+    reductor reducing across the shards and any other on the host.
     """
-    _refuse_mesh(mesh)
     logging.info("Running vertical shift coregistration")
+    m1 = None
+    if mesh is not None:
+        from xdem_tpu_torch.parallel import coreg as pcoreg
+        from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+        m1 = as_mesh_1d(mesh)
     points = isinstance(ref_elev, PointCloud) or isinstance(tba_elev, PointCloud)
     if (isinstance(subsample, float) and subsample == 1.0 and vshift_reduc_func in (np.median, np.nanmedian)
             and not points):
         inlier = device_mask(inlier_mask, tuple(ref_elev.shape), ref_elev.device)
-        med, n_valid = _masked_median_diff(ref_elev, tba_elev, inlier)
+        if m1 is None:
+            med, n_valid = _masked_median_diff(ref_elev, tba_elev, inlier)
+        else:
+            med, n_valid = pcoreg.masked_median_diff_sharded(ref_elev, tba_elev, inlier, m1)
         if n_valid == 0:
             raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
         return med, n_valid
     sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
-    dh = _dh_device(sub["pts_z"], sub["rows"], sub["cols"], sub["raster"], 0.0, 0.0, sub["invert"]).cpu().numpy()
+    args = (sub["pts_z"], sub["rows"], sub["cols"], sub["raster"])
+    if m1 is None:
+        dh = _dh_device(*args, 0.0, 0.0, sub["invert"])
+    elif vshift_reduc_func in (np.median, np.nanmedian):
+        med, n_fin = pcoreg.dh_median_points_sharded(*args, m1, invert=sub["invert"])
+        if n_fin == 0:
+            raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
+        return med, sub["count"]
+    else:
+        dh = pcoreg.dh_shifted_points_sharded(*args, 0.0, 0.0, m1, invert=sub["invert"])
+    dh = dh.cpu().numpy()
     return float(vshift_reduc_func(dh[np.isfinite(dh)])), sub["count"]
 
 
 class VerticalShift(AffineCoreg):
     """Vertical translation alignment. Default reductor: median."""
+
+    _supports_mesh_fit = True  # fit(..., mesh=): exact distributed median (parallel/coreg.py)
 
     def __init__(self, vshift_reduc_func: Callable[[np.ndarray], Any] = np.median,
                  subsample: float | int = 1.0, initial_shift: tuple | None = None):
@@ -735,7 +788,7 @@ class VerticalShift(AffineCoreg):
         p = self._meta["inputs"]["random"]
         vshift, count = vertical_shift(
             ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"],
-            vshift_reduc_func=self._meta["inputs"]["affine"]["vshift_reduc_func"],
+            vshift_reduc_func=self._meta["inputs"]["affine"]["vshift_reduc_func"], mesh=kwargs.get("mesh"),
         )
         self._meta["outputs"]["affine"] = {"shift_z": vshift}
         self._meta["outputs"]["random"] = {"subsample_final": count}
@@ -748,6 +801,8 @@ class VerticalShift(AffineCoreg):
 
 class NuthKaab(AffineCoreg):
     """Nuth and Kääb (2011) iterative slope/aspect alignment."""
+
+    _supports_mesh_fit = True  # fit(..., mesh=): point-sharded iterations, exact medians
 
     def __init__(
         self,
@@ -779,7 +834,7 @@ class NuthKaab(AffineCoreg):
             tolerance=self._meta["inputs"]["iterative"]["tolerance"],
             max_iterations=self._meta["inputs"]["iterative"]["max_iterations"],
             subsample=p["subsample"], random_state=p["random_state"],
-            bin_before_fit=fb["fit_or_bin"] == "bin_and_fit", n_bins=n_bins,
+            bin_before_fit=fb["fit_or_bin"] == "bin_and_fit", n_bins=n_bins, mesh=kwargs.get("mesh"),
         )
         # Sampling offsets convert to apply-translations with a sign flip.
         self._meta["outputs"]["affine"] = {
@@ -883,29 +938,41 @@ def dh_minimize(
 ) -> tuple[tuple[float, float, float], int]:
     """Elevation-difference minimisation: minimise a dispersion loss (default NMAD) of dh
     over a 2-D shift. Returns ((east, north, vertical) offsets in m, subsample count).
-    ``z_name`` and ``mesh`` as in `nuth_kaab`."""
-    _refuse_mesh(mesh)
+    ``z_name`` as in `nuth_kaab`. With ``mesh=``, the subsample's points are split over the
+    mesh: the default Nelder-Mead reduces its NMAD with exact distributed medians (equal to
+    the single-device fit to the bit), a host minimizer reads dh gathered from the shards."""
     shifts, count, _ = _dh_minimize(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state,
-                                    fit_minimizer, fit_loss_func)
+                                    fit_minimizer, fit_loss_func, mesh)
     return shifts, count
 
 
 def _dh_minimize(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, fit_minimizer,
-                 fit_loss_func) -> tuple[tuple[float, float, float], int, int]:
+                 fit_loss_func, mesh=None) -> tuple[tuple[float, float, float], int, int]:
     """`dh_minimize`, also returning the Nelder-Mead iterations (0 for a host minimizer)."""
     logging.info("Running dh minimization coregistration.")
     sub = _subsample_pair(ref_elev, tba_elev, inlier_mask, transform, subsample, random_state)
     args = (sub["pts_z"], sub["rows"], sub["cols"], sub["raster"])
     invert = sub["invert"]
     res_x, res_y = transform.xres, transform.yres
+    m1 = None
+    if mesh is not None:
+        from xdem_tpu_torch.parallel import coreg as pcoreg
+        from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+        m1 = as_mesh_1d(mesh)
     if fit_minimizer is None and fit_loss_func is None:
-        x_best, _, it, vshift = _dh_minimize_nm_device(*args, res_x, res_y, invert)
+        if m1 is None:
+            x_best, _, it, vshift = _dh_minimize_nm_device(*args, res_x, res_y, invert)
+        else:
+            x_best, _, it, vshift = pcoreg.dh_minimize_nm_sharded(*args, res_x, res_y, m1, invert=invert)
         east, north = (-float(v) for v in x_best)
         return (east, north, float(vshift)), sub["count"], int(it)
 
     from scipy.optimize import minimize
 
     def dh_at(v) -> torch.Tensor:
+        if m1 is not None:
+            return pcoreg.dh_shifted_points_sharded(*args, v[0] / res_x, v[1] / res_y, m1, invert=invert)
         return _dh_device(*args, v[0] / res_x, v[1] / res_y, invert)
 
     if fit_loss_func is None:
@@ -927,6 +994,8 @@ def _dh_minimize(ref_elev, tba_elev, inlier_mask, transform, subsample, random_s
 class DhMinimize(AffineCoreg):
     """Direct 2-D minimisation of a dispersion loss of dh (default: Nelder-Mead on NMAD)."""
 
+    _supports_mesh_fit = True  # fit(..., mesh=): point-sharded NM with distributed medians
+
     def __init__(self, fit_minimizer: Any = None, fit_loss_func: Callable | None = None,
                  subsample: int | float = 5e5, initial_shift: tuple | None = None):
         super().__init__(subsample=subsample, initial_shift=initial_shift)
@@ -937,7 +1006,7 @@ class DhMinimize(AffineCoreg):
         fb = self._meta["inputs"]["fitorbin"]
         (east, north, vshift), count, n_it = _dh_minimize(
             ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"],
-            fb["fit_minimizer"], fb["fit_loss_func"],
+            fb["fit_minimizer"], fb["fit_loss_func"], kwargs.get("mesh"),
         )
         self._meta["outputs"]["affine"] = {"shift_x": east, "shift_y": north, "shift_z": vshift}
         self._meta["outputs"]["random"] = {"subsample_final": count}
@@ -1147,12 +1216,21 @@ def icp(
     there (a callable ``fit_minimizer`` needs it). ``"auto"`` picks brute on a CUDA tensor
     when the minimizer is built in and N x M <= 1e10 with a 2048-block of distances within
     1.5 GB, and kdtree otherwise (always on the CPU, where the KD-tree is faster).
+
+    With ``mesh=``, the registration runs the brute path with the REFERENCE cloud split over
+    the mesh (`parallel.coreg.icp_solve_sharded`; equal to the single-device brute fit to the
+    bit); an explicit ``nn_method="kdtree"`` or a callable minimizer refuses a mesh.
     """
-    _refuse_mesh(mesh)
-    if callable(fit_minimizer) and nn_method == "brute":
+    if callable(fit_minimizer) and (nn_method == "brute" or mesh is not None):
         raise ValueError(
             'A custom fit_minimizer runs on the host: it cannot drive the nn_method="brute" device '
-            'loop. Use nn_method="kdtree" for a callable minimizer, or fit_minimizer="lsq_approx".'
+            'loop (which mesh= shards). Use nn_method="kdtree" without mesh= for a callable minimizer, '
+            'or fit_minimizer="lsq_approx".'
+        )
+    if nn_method == "kdtree" and mesh is not None:
+        raise ValueError(
+            'nn_method="kdtree" queries a host KD-tree, which cannot be sharded over a mesh. Drop '
+            'mesh= to keep the kdtree path, or use nn_method="brute"/"auto" with mesh=.'
         )
     logging.info("Running ICP coregistration")
     from scipy.spatial import KDTree
@@ -1171,6 +1249,8 @@ def icp(
     ref_epc, tba_epc, centroid, std_fac = _standardize_epc(ref_epc, tba_epc, scale_std=standardize)
     tolerance = tolerance / std_fac
 
+    if mesh is not None:
+        nn_method = "brute"
     if nn_method == "auto":
         n_pts = ref_epc.shape[1]
         fits = (float(n_pts) * float(tba_epc.shape[1]) <= 1e10) and (2048 * n_pts * 4 <= 1.5e9)
@@ -1183,7 +1263,13 @@ def icp(
         dev = grid.device
         norms_dev = torch.from_numpy(
             (norms.T if norms is not None else np.zeros((ref_epc.shape[1], 3))).astype(np.float32)).to(dev)
-        matrix_dev, n_it, _stat = _icp_solve_device(
+        solve = _icp_solve_device
+        if mesh is not None:
+            from xdem_tpu_torch.parallel.coreg import icp_solve_sharded
+            from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+            solve = functools.partial(icp_solve_sharded, mesh=as_mesh_1d(mesh))
+        matrix_dev, n_it, _stat = solve(
             torch.from_numpy(ref_epc.T.astype(np.float32)).to(dev),
             torch.from_numpy(tba_epc.T.astype(np.float32)).to(dev),
             norms_dev, np.float32(tolerance), max_iterations=int(max_iterations), method=method,
@@ -1234,6 +1320,8 @@ class ICP(AffineCoreg):
     """Iterative closest point registration. Defaults: point-to-plane with Picky duplicate
     removal and the Low (2004) linearised solve; the neighbour search picked by device."""
 
+    _supports_mesh_fit = True  # fit(..., mesh=): reference cloud sharded over the brute path
+
     def __init__(
         self,
         method: Literal["point-to-point", "point-to-plane"] = "point-to-plane",
@@ -1267,7 +1355,7 @@ class ICP(AffineCoreg):
             method=s["icp_method"], picky=s["icp_picky"], only_translation=s["only_translation"],
             standardize=s["standardize"], fit_minimizer=self._meta["inputs"]["fitorbin"]["fit_minimizer"],
             fit_loss_func=self._meta["inputs"]["fitorbin"]["fit_loss_func"],
-            nn_method=s.get("nn_method", "auto"),
+            nn_method=s.get("nn_method", "auto"), mesh=kwargs.get("mesh"),
         )
         _store_rigid(self, matrix, centroid, count)
 
@@ -1370,8 +1458,9 @@ def cpd(
     mesh: Any = None,
 ) -> tuple[np.ndarray, tuple[float, float, float], int]:
     """Coherent Point Drift rigid registration of a raster pair on the device of the inputs;
-    returns (matrix, centroid, point count)."""
-    _refuse_mesh(mesh)
+    returns (matrix, centroid, point count). With ``mesh=``, the reference cloud is split over
+    the mesh (`parallel.cpd.cpd_solve_sharded`): each shard holds its columns of the (M, N)
+    responsibilities and the M-step moments are summed."""
     logging.info("Running CPD coregistration")
     sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
                                                        random_state)
@@ -1385,8 +1474,15 @@ def cpd(
     # Initial variance: the mean pairwise squared distance.
     diff2 = float(torch.mean(torch.sum(Y * Y, dim=1)) + torch.mean(torch.sum(X * X, dim=1))
                   - 2 * float(torch.mean(Y @ torch.mean(X, dim=0))))
-    R, t, n_it, degenerate = _cpd_solve(X, Y, float(weight_cpd), diff2, float(sigma2_min), float(tolerance),
-                                        int(max_iterations), bool(only_translation))
+    args = (X, Y, float(weight_cpd), diff2, float(sigma2_min), float(tolerance), int(max_iterations),
+            bool(only_translation))
+    if mesh is None:
+        R, t, n_it, degenerate = _cpd_solve(*args)
+    else:
+        from xdem_tpu_torch.parallel.cpd import cpd_solve_sharded
+        from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+        R, t, n_it, degenerate = cpd_solve_sharded(*args, as_mesh_1d(mesh))
     if degenerate:
         logging.warning("CPD EM step became degenerate (variance collapsed) at iteration %d; "
                         "stopping with the previous estimate.", n_it)
@@ -1401,6 +1497,8 @@ def cpd(
 
 class CPD(AffineCoreg):
     """Coherent Point Drift rigid registration."""
+
+    _supports_mesh_fit = True  # fit(..., mesh=): reference cloud sharded across the mesh
 
     def __init__(
         self,
@@ -1426,7 +1524,7 @@ class CPD(AffineCoreg):
             ref_elev, tba_elev, inlier_mask, transform, crs,
             subsample=p["subsample"], random_state=p["random_state"],
             weight_cpd=s["weight_cpd"], max_iterations=it["max_iterations"], tolerance=it["tolerance"],
-            only_translation=s["only_translation"], standardize=s["standardize"],
+            only_translation=s["only_translation"], standardize=s["standardize"], mesh=kwargs.get("mesh"),
         )
         _store_rigid(self, matrix, centroid, count)
 
@@ -1504,8 +1602,9 @@ def lzd(
 ) -> tuple[np.ndarray, tuple[float, float, float], int]:
     """Least Z-difference coregistration (Rosenholm & Torlegård 1988) of a raster pair;
     returns (matrix, centroid, point count). The linearised model is linear in the 6
-    parameters, so each iteration is one least-squares solve on the device."""
-    _refuse_mesh(mesh)
+    parameters, so each iteration is one least-squares solve on the device. With ``mesh=``, the
+    points are split over the mesh and the normal equations summed across the shards
+    (`parallel.coreg.lzd_solve_sharded`)."""
     logging.info("Running LZD coregistration")
     if crs is not None and not is_projected(crs):
         raise NotImplementedError(
@@ -1532,7 +1631,13 @@ def lzd(
     cc = inv.a * cx + inv.b * cy + inv.c - 0.5
     cf = inv.d * cx + inv.e * cy + inv.f - 0.5
     dev = raster.device
-    matrix_dev, n_it, stat, nvalid = _lzd_solve_device(
+    solve = _lzd_solve_device
+    if mesh is not None:
+        from xdem_tpu_torch.parallel.coreg import lzd_solve_sharded
+        from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+        solve = functools.partial(lzd_solve_sharded, mesh=as_mesh_1d(mesh))
+    matrix_dev, n_it, stat, nvalid = solve(
         raster, gradx, grady,
         torch.from_numpy(np.asarray(x - cx, np.float32)).to(dev),
         torch.from_numpy(np.asarray(y - cy, np.float32)).to(dev),
@@ -1555,6 +1660,8 @@ def lzd(
 class LZD(AffineCoreg):
     """Least Z-difference coregistration."""
 
+    _supports_mesh_fit = True  # fit(..., mesh=): normal equations summed across the shards
+
     def __init__(
         self,
         only_translation: bool = False,
@@ -1576,6 +1683,6 @@ class LZD(AffineCoreg):
             ref_elev, tba_elev, inlier_mask, transform, crs,
             subsample=p["subsample"], random_state=p["random_state"],
             max_iterations=it["max_iterations"], tolerance=it["tolerance"],
-            only_translation=self._meta["inputs"]["specific"]["only_translation"],
+            only_translation=self._meta["inputs"]["specific"]["only_translation"], mesh=kwargs.get("mesh"),
         )
         _store_rigid(self, matrix, centroid, count)

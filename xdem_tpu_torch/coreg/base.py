@@ -37,6 +37,7 @@ from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.interp import interp_rowcol
 from xdem_tpu_torch.pointcloud import PointCloud
+from xdem_tpu_torch.profiler import profile as _profile
 from xdem_tpu_torch.raster import Raster, mask_on
 
 
@@ -46,13 +47,6 @@ class NotImplementedCoregFit(NotImplementedError):
 
 class NotImplementedCoregApply(NotImplementedError):
     """Raised when a Coreg does not implement a given apply input."""
-
-
-def _refuse_mesh(mesh: Any) -> None:
-    """Raise the port's error for ``mesh=``: xdem_tpu shards fits over a JAX device mesh, and
-    this package fits on one device."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device fitting) is not ported to xdem_tpu_torch; fit on one device.")
 
 
 # ------------------------------------------------------------------ matrix toolbox
@@ -688,6 +682,7 @@ class Coreg:
 
     _fit_called = False
     _is_affine: bool | None = None
+    _supports_mesh_fit = False  # True on methods whose fit() honours mesh= (parallel/coreg.py)
 
     # Known meta keys route to their section; anything else lands in "specific".
     _META_KEY_SECTIONS: dict[str, str] = {
@@ -752,6 +747,7 @@ class Coreg:
 
     # ------------------------------- fit / apply
 
+    @_profile("xdem_tpu_torch.coreg.Coreg.fit", memprof=True)
     def fit(
         self,
         reference_elev: Any,
@@ -773,7 +769,13 @@ class Coreg:
         (PointCloud/EPC, moved to the grid's CRS)."""
         if weights is not None:
             raise NotImplementedError(f"{type(self).__name__} does not support weighted fitting yet; leave weights=None.")
-        _refuse_mesh(kwargs.pop("mesh", None))
+        if kwargs.get("mesh") is not None and not self._supports_mesh_fit:
+            # A mesh= the method cannot honour would otherwise look like a working sharded fit.
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support mesh= fitting; mesh= is available on "
+                "every affine method (NuthKaab, VerticalShift, DhMinimize, ICP, CPD, LZD; "
+                "BlockwiseCoreg takes mesh= at construction)."
+            )
         ref, tba, mask, transform, crs, area_or_point = _preprocess_coreg_fit(
             reference_elev, to_be_aligned_elev, inlier_mask, transform, crs, area_or_point)
         if subsample is not None:
@@ -848,6 +850,7 @@ class Coreg:
     def _fit_pts_pts(self, **kwargs: Any) -> None:
         raise NotImplementedCoregFit(f"{type(self).__name__} does not implement point-point fit.")
 
+    @_profile("xdem_tpu_torch.coreg.Coreg.apply", memprof=True)
     def apply(
         self,
         elev: Any,
@@ -1063,7 +1066,13 @@ class CoregPipeline(Coreg):
         for i, step in enumerate(self.pipeline):
             logging.info("Running pipeline step: %d / %d", i + 1, len(self.pipeline))
             step_bias = self._parse_bias_vars(i, bias_vars)
-            step.fit(reference_elev, tba, inlier_mask=inlier_mask, bias_vars=step_bias, **kwargs)
+            step_kwargs = kwargs
+            if kwargs.get("mesh") is not None and not step._supports_mesh_fit:
+                # mesh= applies to the steps that can shard their fit; the others run on one device.
+                logging.info("Pipeline step %d (%s) has no mesh= fit path; running single-device.",
+                             i + 1, type(step).__name__)
+                step_kwargs = {k: v for k, v in kwargs.items() if k != "mesh"}
+            step.fit(reference_elev, tba, inlier_mask=inlier_mask, bias_vars=step_bias, **step_kwargs)
             tba = step.apply(tba, bias_vars=step_bias, **apply_kw)
             if isinstance(tba, tuple):  # an array gives (tensor, transform)
                 tba, apply_kw["transform"] = tba

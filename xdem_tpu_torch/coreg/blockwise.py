@@ -13,6 +13,7 @@ on the device, in row bands.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import os
@@ -427,9 +428,6 @@ class BlockwiseNuthKaab(BlockwiseCoreg):
                  parent_path: str | None = None):
         from xdem_tpu_torch.coreg.affine import NuthKaab
 
-        if mesh is not None:
-            raise NotImplementedError("mesh= (tile solves across devices) is not ported to xdem_tpu_torch; "
-                                      "the tiles are solved together on one device.")
         super().__init__(NuthKaab(max_iterations=max_iterations, offset_threshold=tolerance),
                          block_size_fit=block_size_fit, block_size_apply=block_size_apply,
                          mp_config=mp_config, parent_path=parent_path)
@@ -439,6 +437,7 @@ class BlockwiseNuthKaab(BlockwiseCoreg):
 
     def fit(self, reference_elev: Raster, to_be_aligned_elev: Raster, inlier_mask: Any = None) -> "BlockwiseNuthKaab":
         from xdem_tpu_torch.coreg.affine import _nuth_kaab_solve_batched
+        from xdem_tpu_torch.parallel.coreg import nuth_kaab_batched_sharded
 
         ref = reference_elev
         tba = self._on_ref_grid(ref, to_be_aligned_elev)
@@ -460,7 +459,9 @@ class BlockwiseNuthKaab(BlockwiseCoreg):
         tiles = _blockwise_nuth_kaab_inputs(ref.data.to(torch.float32), tba.data.to(torch.float32), inlier,
                                             seed_from(self.random_state), bs, n_rows, n_cols,
                                             min(self.subsample_per_tile, bs * bs))
-        sx, sy, vs, _stat, _it = _nuth_kaab_solve_batched(
+        solve = _nuth_kaab_solve_batched if self.mesh is None else functools.partial(nuth_kaab_batched_sharded,
+                                                                                        mesh=self.mesh)
+        sx, sy, vs, _stat, _it = solve(
             tiles["pts_z"], tiles["rows"], tiles["cols"], tiles["rasters"], tiles["slope_tan"], tiles["aspect"],
             res_x, res_y, it_cfg["tolerance"], max_iterations=int(it_cfg["max_iterations"]))
         sx, sy, vs, n_valid_t = (torch.stack([sx, sy, vs, tiles["n_valid"].to(torch.float32)])

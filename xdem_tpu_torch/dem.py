@@ -348,7 +348,8 @@ class DEM(Raster):
         Basic = NMAD + single-range. ``other_elev`` is a DEM/Raster (reprojected onto this
         DEM's grid when they differ) or an elevation point cloud (EPC/PointCloud, or a data
         frame with x/y columns and ``z_name``). ``spread_estimator``
-        defaults to the NMAD and ``variogram_estimator`` to Dowd. ``mesh`` is not ported.
+        defaults to the NMAD and ``variogram_estimator`` to Dowd. ``mesh`` (a `parallel.Mesh`)
+        shards the raster pipeline (see `uncertainty.estimate_uncertainty`).
         """
         from xdem_tpu_torch import uncertainty as _unc
 

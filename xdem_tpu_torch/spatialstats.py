@@ -465,10 +465,28 @@ def _two_step_scale_core(gathered: torch.Tensor, mids_ext: Sequence[np.ndarray],
 
 
 def _scale_and_sigma_device(gathered: torch.Tensor, mids_ext: Sequence[np.ndarray], grid_ext: np.ndarray,
-                            fac_spread_outliers: float, vars_full: Sequence[torch.Tensor]):
+                            fac_spread_outliers: float, vars_full: Sequence[torch.Tensor], mesh: Any = None):
     """The standardization scale and the sigma raster over the full extent, on the device."""
     scale = _two_step_scale_core(gathered, mids_ext, grid_ext, fac_spread_outliers)
-    return scale, scale * _interp_grid_device(mids_ext, grid_ext, vars_full)
+    return scale, _sigma_grid(scale, mids_ext, grid_ext, vars_full, mesh)
+
+
+def _sigma_grid(scale: torch.Tensor | float, mids_ext: Sequence[np.ndarray], grid_ext: np.ndarray,
+                vars_full: Sequence[torch.Tensor], mesh: Any = None) -> torch.Tensor:
+    """`scale` times the binned error function over the full extent, on the variables' device.
+    With a `mesh`, the rows are split over it (the interpolation is elementwise, so the
+    result is the single-device one to the bit) and assembled back."""
+    if mesh is None:
+        return scale * _interp_grid_device(mids_ext, grid_ext, vars_full)
+    from xdem_tpu_torch.parallel._collectives import all_gather, replicate, scatter
+    from xdem_tpu_torch.parallel.mesh import as_mesh_1d
+
+    m1 = as_mesh_1d(mesh)
+    h, w = vars_full[0].shape
+    parts = zip(*(scatter(v, m1, math.nan) for v in vars_full))
+    scales = replicate(scale, m1) if isinstance(scale, torch.Tensor) else [scale] * m1.devices.size
+    sig = [s * _interp_grid_device(mids_ext, grid_ext, list(vs)) for s, vs in zip(scales, parts)]
+    return all_gather(sig, m1).reshape(-1, w)[:h].to(vars_full[0].device)
 
 
 def two_step_standardization(
@@ -603,10 +621,10 @@ def infer_heteroscedasticity_from_stable(
     integer bins, outlier clipping) never bring more than the per-bin tables to the host.
     Otherwise the inputs are host arrays and the error is a numpy array. Raster inputs give
     their data (a Raster `dvalues` its grid to Vector masks), and then the error is a Raster
-    on the grid of `dvalues`.
+    on the grid of `dvalues`. ``mesh=`` (a `parallel.Mesh`) splits the rows of the
+    full-extent error over the mesh; it needs the device path (tensor or Raster inputs and an
+    absolute `subsample`), and the result equals the single-device one to the bit.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
     if list_var_names is None:
         list_var_names = [f"var{i+1}" for i in range(len(list_var))]
     dvalues, ref = _raster_data(dvalues)
@@ -617,12 +635,15 @@ def infer_heteroscedasticity_from_stable(
             unstable_mask=_mask_on(unstable_mask, ref, dvalues.shape, dvalues.device),
             list_var_names=list_var_names, spread_statistic=spread_statistic, list_var_bins=list_var_bins,
             min_count=min_count, fac_spread_outliers=fac_spread_outliers, subsample=subsample,
-            random_state=random_state)
+            random_state=random_state, mesh=mesh)
         error = error if isinstance(error, torch.Tensor) else torch.from_numpy(np.asarray(error, np.float32))
         return Raster(error.to(torch.float32), ref.transform, ref.crs), df, error_fun
 
     device_ok = (subsample is not None and isinstance(dvalues, torch.Tensor)
                  and all(isinstance(v, torch.Tensor) for v in list_var))
+    if mesh is not None and not device_ok:
+        raise ValueError("mesh= requires the device path: a tensor or Raster `dvalues`, tensor or Raster "
+                         "`list_var` entries, and an absolute `subsample` count.")
     if device_ok:
         d = dvalues.to(torch.float32)
         vars_t = [v.to(device=d.device, dtype=torch.float32) for v in list_var]
@@ -643,7 +664,7 @@ def infer_heteroscedasticity_from_stable(
             unscaled = interp_nd_binning(df, list_var_names=list(list_var_names),
                                          statistic=spread_statistic.__name__, min_count=min_count)
             scale_dev, sig = _scale_and_sigma_device(gathered, unscaled.mids_ext, unscaled.grid_ext,
-                                                     float(fac_spread_outliers), vars_t)
+                                                     float(fac_spread_outliers), vars_t, mesh)
             scale = float(scale_dev)
 
             def error_fun(*args: np.ndarray) -> np.ndarray:
@@ -660,7 +681,7 @@ def infer_heteroscedasticity_from_stable(
             list_var_bins=list_var_bins, min_count=min_count, fac_spread_outliers=fac_spread_outliers,
         )
         unscaled = error_fun.unscaled
-        sig = error_fun.scale * _interp_grid_device(unscaled.mids_ext, unscaled.grid_ext, vars_t)
+        sig = _sigma_grid(error_fun.scale, unscaled.mids_ext, unscaled.grid_ext, vars_t, mesh)
         return sig, df, error_fun
 
     all_arrays, _ = _preprocess_values_with_mask_to_array(
@@ -1486,13 +1507,18 @@ def sample_empirical_variogram(
     dowd (default), matheron, cressie and genton; Genton's Qn is reduced on the host from at
     most 400 pairs per bin, so its device grid mode gathers the samples and goes through
     the pair path. Returns a table with ``exp``, ``lags``, ``count`` and ``err_exp``.
+
+    ``mesh=`` (a `parallel.Mesh`, with "cdist_equidistant" only) draws the runs as without
+    it and splits them over the mesh (`parallel.variogram.sharded_variogram_bins`): counts and
+    the Dowd and Genton estimates are the same for any sharding.
     """
     if n_jobs != 1:
         raise NotImplementedError(
             "n_jobs process parallelism does not exist on this backend (one device computes "
             "all runs in a single pass).")
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
+    if mesh is not None and subsample_method != "cdist_equidistant":
+        raise ValueError("mesh= sharding is only implemented for subsample_method="
+                         "'cdist_equidistant' (the reference's default scheme).")
     if subsample_method != "cdist_equidistant" and subsample_method not in _POINT_METHODS:
         raise TypeError(
             'The subsampling method must be one of "cdist_equidistant, "cdist_point", "pdist_point", '
@@ -1594,6 +1620,11 @@ def sample_empirical_variogram(
                                             nx, ny, float(np.float32(radius0 / gsd)), 8 * samples_)
             total_pairs = ija.shape[0] * ija.shape[1] * ijb.shape[1]
             _check_pair_count(total_pairs)
+            if mesh is not None:
+                # float32 index * gsd coordinates, as the one-pass grid route forms its lags
+                (za_g, ci_a, cj_a), (zb_g, ci_b, cj_b) = _gather_grid(arr_dev, ija, gsd), _gather_grid(arr_dev, ijb, gsd)
+                return sharded_variogram_bins(za_g, zb_g, torch.stack([ci_a, cj_a], -1), torch.stack([ci_b, cj_b], -1),
+                                              bin_edges, mesh, estimator=estimator)
             if estimator != _GENTON:
                 edges_t = torch.from_numpy(bin_edges.astype(np.float32)).to(arr_dev.device)
                 if total_pairs > _PAIR_CHUNK_BUDGET:
@@ -1647,6 +1678,8 @@ def sample_empirical_variogram(
 
         total_pairs = za_t.shape[0] * za_t.shape[1] * zb_t.shape[1]
         _check_pair_count(total_pairs)
+        if mesh is not None:
+            return sharded_variogram_bins(za_t, zb_t, ca_t, cb_t, bin_edges, mesh, estimator=estimator)
         if total_pairs > _PAIR_CHUNK_BUDGET:
             chunk = max(1, _PAIR_CHUNK_BUDGET // (8 * za_t.shape[1] * zb_t.shape[1]))
             pad = (-za_t.shape[0]) % chunk
@@ -1663,6 +1696,8 @@ def sample_empirical_variogram(
         dists = torch.where(dists <= 0, torch.nan, dists)  # self-pairs of the duplicated disk block
         return _binned_pair_estimator(diffs, dists, bin_edges, estimator)
 
+    if mesh is not None:
+        from xdem_tpu_torch.parallel.variogram import sharded_variogram_bins
     rng_master = np.random.default_rng(random_state)
     gammas, counts = [], []
     for _ in range(n_variograms):
@@ -1906,6 +1941,19 @@ def _chunked_weighted_rho_sum(c1: Any, e1: Any, c2: Any, e2: Any, params_variogr
     return float(acc)
 
 
+def _weighted_rho_sum(c1: Any, e1: Any, c2: Any, e2: Any, params_variogram_model: Any, mesh: Any) -> float:
+    """The double covariance sum on one device, or with its rows split over `mesh`."""
+    if mesh is not None:
+        if any(name == "matern" for name, *_ in _variogram_rows(params_variogram_model)):
+            logging.warning("A Matern model's n_eff runs on the host in float64 (no Bessel K on the "
+                            "device): mesh= is ignored for it.")
+        else:
+            from xdem_tpu_torch.parallel.neff import weighted_rho_sum_sharded
+
+            return weighted_rho_sum_sharded(c1, e1, c2, e2, params_variogram_model, mesh)
+    return _chunked_weighted_rho_sum(c1, e1, c2, e2, params_variogram_model)
+
+
 def _centred_f32(coords: Any) -> np.ndarray:
     """Coordinates mean-centred in float64, then cast to float32 (distances are
     translation-invariant; centring keeps float32 headroom at UTM magnitudes)."""
@@ -1916,13 +1964,13 @@ def _centred_f32(coords: Any) -> np.ndarray:
 def neff_exact(coords: Any, errors: Any, params_variogram_model: Any, vectorized: bool = True,
                mesh: Any = None) -> float:
     """Exact n_eff from the double covariance sum over all pixel pairs. ``vectorized`` is
-    kept for signature parity; both values run the same chunked sum."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
+    kept for signature parity; both values run the same chunked sum. ``mesh=`` (a
+    `parallel.Mesh`) splits the rows of the sum over the mesh
+    (`parallel.neff.weighted_rho_sum_sharded`); a Matern model runs on the host."""
     _check_validity_params_variogram(params_variogram_model)
     coords = _centred_f32(coords)
     errors = _host(errors, np.float32)
-    var = _chunked_weighted_rho_sum(coords, errors, coords, errors, params_variogram_model)
+    var = _weighted_rho_sum(coords, errors, coords, errors, params_variogram_model, mesh)
     return float(np.mean(errors)) ** 2 / (var / len(errors) ** 2)
 
 
@@ -1936,9 +1984,7 @@ def neff_hugonnet_approx(
     mesh: Any = None,
 ) -> float:
     """Hugonnet et al. (2022) n_eff: one of the two sums over a random subset of `subsample`
-    pixels (numpy draw, identical to xdem_tpu's)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device sharding) is not ported to xdem_tpu_torch; run on one device.")
+    pixels (numpy draw, identical to xdem_tpu's); ``mesh=`` as in `neff_exact`."""
     _check_validity_params_variogram(params_variogram_model)
     rng = np.random.default_rng(random_state)
     n = len(coords)
@@ -1946,7 +1992,7 @@ def neff_hugonnet_approx(
     sel = rng.choice(n, size=subsample, replace=False)
     coords = _centred_f32(coords)
     errors = _host(errors, np.float32)
-    var = _chunked_weighted_rho_sum(coords, errors, coords[sel], errors[sel], params_variogram_model)
+    var = _weighted_rho_sum(coords, errors, coords[sel], errors[sel], params_variogram_model, mesh)
     return float(np.mean(errors)) ** 2 / (var / (n * subsample))
 
 

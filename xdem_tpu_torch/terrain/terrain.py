@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch._device import as_tensor
+from xdem_tpu_torch.profiler import profile as _profile
+from xdem_tpu_torch.parallel.halo import sharded_stencil, sharded_surface_attributes
 from xdem_tpu_torch.raster import Raster
 from xdem_tpu_torch.terrain import cuda_kernels, freq
 from xdem_tpu_torch.terrain.surfit import SURFACE_FIT_ATTRS
@@ -53,6 +55,7 @@ def _terrain_epilog(plane: torch.Tensor, attr: str, degrees: bool, dtype: torch.
     return plane.to(dtype)
 
 
+@_profile("xdem_tpu_torch.terrain.get_terrain_attribute", memprof=True)
 def get_terrain_attribute(
     dem: Any,
     attribute: str | Sequence[str],
@@ -83,7 +86,11 @@ def get_terrain_attribute(
     tensor, or a list of tensors in request order; for a Raster input, Rasters on its grid
     with nodata -99999. ``tiled=`` (a `terrain.TilingConfig`; ``mp_config=`` with
     ``tile_rows`` is its alias) streams row bands into one GeoTIFF per attribute and
-    returns their paths (`terrain.tiled_terrain_attribute`); any other ``mp_config`` raises. A Raster's resolution comes from its transform, and one in a
+    returns their paths (`terrain.tiled_terrain_attribute`); any other ``mp_config`` raises.
+    ``mesh=`` (a `parallel.Mesh`) shards the stencils over the mesh's devices with halo
+    exchange (`parallel.sharded_stencil`): the kernels launch once per shard and the planes
+    equal the single-device planes to the bit; texture shading stays whole. ``tiled=`` and
+    ``mesh=`` are exclusive. A Raster's resolution comes from its transform, and one in a
     geographic CRS warns that the surface-fit attributes may be wrong.
 
     The device sets one limit: ``window_size_fractal`` 3 or 4 warns and then, on a CPU
@@ -92,8 +99,6 @@ def get_terrain_attribute(
     does, because the fractal kernel takes windows of 5 and more.
     """
     engine = normalize_engine(engine)
-    if mesh is not None:
-        raise NotImplementedError("mesh= (device sharding) is not ported to xdem_tpu_torch; run on one device.")
     if mp_config is not None:
         if not hasattr(mp_config, "tile_rows"):
             raise ValueError(
@@ -109,6 +114,8 @@ def get_terrain_attribute(
         surface_fit = slope_method
 
     if tiled is not None:
+        if mesh is not None:
+            raise ValueError("tiled= (out-of-core streaming) and mesh= (device sharding) are exclusive.")
         from xdem_tpu_torch.terrain.tiled import tiled_terrain_attribute
 
         return tiled_terrain_attribute(
@@ -183,29 +190,39 @@ def get_terrain_attribute(
     arr = as_tensor(dem).contiguous()
     out_dtype = torch.float32 if out_dtype is None else _torch_dtype(out_dtype)
 
+    def stencil(fn, halo: int) -> torch.Tensor:
+        """`fn` of the whole DEM, or of each halo-padded block of a mesh."""
+        return fn(arr) if mesh is None else sharded_stencil(fn, arr, halo=halo, mesh=mesh)
+
     planes: dict[str, torch.Tensor] = {}
     if sf_attrs:
-        stack = cuda_kernels.surface_attributes(
-            arr, resolution, tuple(sf_attrs), surface_fit=surface_fit, curv_method=curv_method,
-            hillshade_altitude=float(hillshade_altitude), hillshade_azimuth=float(hillshade_azimuth),
-            hillshade_z_factor=float(hillshade_z_factor),
-        )
+        kwargs = dict(surface_fit=surface_fit, curv_method=curv_method,
+                      hillshade_altitude=float(hillshade_altitude), hillshade_azimuth=float(hillshade_azimuth),
+                      hillshade_z_factor=float(hillshade_z_factor))
+        if mesh is None:
+            stack = cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs)
+        else:
+            stack = sharded_surface_attributes(arr, resolution, mesh, tuple(sf_attrs), **kwargs)
         planes.update(zip(sf_attrs, stack))
 
     # Rugosity is defined on a 3x3 window only (Jenness 2004): with window_size != 3 it
     # takes its own 3x3 pass, so [roughness@5x5, rugosity@3x3] matches the reference.
+    def windowed(attrs_w: tuple[str, ...], wsize: int) -> torch.Tensor:
+        return stencil(lambda a: cuda_kernels.windowed_indexes(a, resolution, attrs_w, window_size=wsize,
+                                                               tri_method=tri_method), wsize // 2)
+
     if win_attrs:
         shared = [a for a in win_attrs if not (a == "rugosity" and window_size != 3)]
         if shared:
-            stack = cuda_kernels.windowed_indexes(arr, resolution, tuple(shared),
-                                                  window_size=window_size, tri_method=tri_method)
-            planes.update(zip(shared, stack))
+            planes.update(zip(shared, windowed(tuple(shared), window_size)))
         if "rugosity" in win_attrs and window_size != 3:
-            planes["rugosity"] = cuda_kernels.windowed_indexes(arr, resolution, ("rugosity",), window_size=3)[0]
+            planes["rugosity"] = windowed(("rugosity",), 3)[0]
 
     if "fractal_roughness" in attrs:
-        planes["fractal_roughness"] = cuda_kernels.fractal_roughness(arr, window_size=window_size_fractal)
+        planes["fractal_roughness"] = stencil(
+            lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal), window_size_fractal // 2)
 
+    # Texture shading is a global FFT filter: it is not sharded.
     if "texture_shading" in attrs:
         planes["texture_shading"] = freq.texture_shading(arr, alpha=texture_alpha)
 

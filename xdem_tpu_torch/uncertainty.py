@@ -13,7 +13,7 @@ coregistration takes them):
 
 The input's device runs the whole path; on a CUDA tensor nothing larger than per-bin tables
 leaves the card. A Raster ``other_elev`` on another grid is reprojected onto the DEM's, and a
-stable-terrain mask may be an array, a tensor, a Raster or a Vector. ``mesh=`` is not ported.
+stable-terrain mask may be an array, a tensor, a Raster or a Vector. ``mesh=`` shards the raster pipeline.
 
 ``other_elev`` may also be an elevation point cloud (PointCloud/EPC, moved to the DEM's CRS,
 or a data frame with x/y columns and the elevation in ``z_name``, read by column): dh is read
@@ -88,11 +88,14 @@ def estimate_uncertainty(
     :param transform: The grid's affine transform for an array `dem` (its pixel size sets the
         terrain attributes and the variogram lags); a Raster `dem` brings its own.
     :param crs: The grid's CRS for an array `dem`: checked, and the CRS point input is moved to.
+    :param mesh: A `parallel.Mesh` to run the raster pipeline over several shards: the terrain
+        attributes by halo-sharded stencils, the error over the full extent with its rows
+        split, and the variogram runs split with their bins summed; sigma equals the
+        single-device result to the bit, and so does rho with the Dowd estimator. Point input
+        refuses it.
     :returns: sigma (a Raster on the grid of a Raster `dem`, else a float32 tensor, on the DEM's
         device) and rho as a function of lags in m.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device uncertainty) is not ported to xdem_tpu_torch; run on one device.")
     if spread_estimator is None:
         spread_estimator = spatialstats._stat_nmad
     if not isinstance(other_elev, (np.ndarray, torch.Tensor, Raster)):
@@ -100,6 +103,12 @@ def estimate_uncertainty(
             if transform is None or crs is None:
                 raise ValueError("transform= and crs= are needed to read point elevations on an array `dem`.")
             dem = Raster(dem, transform, crs)
+        if mesh is not None:
+            raise ValueError(
+                "mesh= supports the raster pipeline (halo-sharded stencils + grid-mode "
+                "variogram runs); point-cloud uncertainty samples explicit coordinate pairs on "
+                "one device. Pass a Raster other_elev to run multi-chip."
+            )
         return _estimate_uncertainty_points(
             dem, other_elev, stable_terrain=stable_terrain, approach=approach, precision_of_other=precision_of_other,
             spread_estimator=spread_estimator, variogram_estimator=variogram_estimator, list_vars=list_vars,
@@ -126,17 +135,18 @@ def estimate_uncertainty(
     stable = mask_on(stable_terrain, dem_r, dh.shape, dh.device)
 
     if approach == "H2022":
-        attrs = terrain.get_terrain_attribute(dem_t, list(list_vars), resolution=(transform.xres, transform.yres))
+        attrs = terrain.get_terrain_attribute(dem_t, list(list_vars), resolution=(transform.xres, transform.yres),
+                                              mesh=mesh)
         if not isinstance(attrs, list):
             attrs = [attrs]
         # The spread is binned on at most 5e6 stable samples; sigma covers the full extent.
         sig, _df, _err_fun = spatialstats.infer_heteroscedasticity_from_stable(
             dvalues=dh, list_var=attrs, list_var_names=list(list_vars), stable_mask=stable,
-            spread_statistic=spread_estimator, subsample=5_000_000, random_state=random_state,
+            spread_statistic=spread_estimator, subsample=5_000_000, random_state=random_state, mesh=mesh,
         )
         _emp, _params, rho = spatialstats.infer_spatial_correlation_from_stable(
             dvalues=dh, list_models=list(list_vario_models), stable_mask=stable, errors=sig,
-            estimator=variogram_estimator, gsd=gsd, subsample=subsample, random_state=random_state,
+            estimator=variogram_estimator, gsd=gsd, subsample=subsample, random_state=random_state, mesh=mesh,
         )
     elif approach in ("R2009", "Basic"):
         sigma = _stable_spread(dh, stable, spread_estimator)
@@ -144,7 +154,7 @@ def estimate_uncertainty(
         models = list(list_vario_models) if approach == "R2009" else _single_range_models(list_vario_models)
         _emp, _params, rho = spatialstats.infer_spatial_correlation_from_stable(
             dvalues=dh, list_models=models, stable_mask=stable, estimator=variogram_estimator, gsd=gsd,
-            subsample=subsample, random_state=random_state,
+            subsample=subsample, random_state=random_state, mesh=mesh,
         )
     else:
         raise ValueError(f"Unknown uncertainty approach: {approach} (use 'H2022', 'R2009' or 'Basic').")
