@@ -130,8 +130,8 @@ Phases:
      DhMinimize and ICP with mesh= on phase 4's pair equal their single-device fits to the bit, LZD
      and CPD within 1e-3, BlockwiseNuthKaab (phase 9's 400 tiles) within 2e-3; estimate_uncertainty
      (mesh=) on phase 5's pair gives the single-device sigma and rho to the bit; launch_local_cluster
-     (2, 2) runs two processes (gloo on the CPU: one card cannot hold two NCCL ranks) and prints its
-     route. First and steady times beside the single-device ones; the halo exchange, the assembly
+     (2, 2) runs two processes (NCCL on a card each where there are two cards; on one card, which
+     cannot hold two NCCL ranks, XDEM_TPU_PLATFORM=cpu asks for gloo) and prints its route. First and steady times beside the single-device ones; the halo exchange, the assembly
      of K1's planes and each kernel on one shard's block by CUDA events.
 The line before the last is a JSON summary of the kernels (with their launches on each path) and of
 the phases; the last line is
@@ -2427,12 +2427,22 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     del dem, other, sig1, sig2
     torch.cuda.empty_cache()
 
-    # Two processes of two shards each; one card cannot hold two NCCL ranks, so gloo on the CPU.
-    cluster, t_cluster = _synced(lambda: launch_local_cluster(num_processes=2, local_devices=2, timeout=300.0))
+    # Two processes of two shards each: NCCL with a card per process where there are two cards;
+    # one card cannot hold two NCCL ranks, so there the CPU (gloo) is asked for.
+    platform = "cuda" if n_cards >= 2 else "cpu"
+    saved = os.environ.get("XDEM_TPU_PLATFORM")
+    os.environ["XDEM_TPU_PLATFORM"] = platform
+    try:
+        cluster, t_cluster = _synced(lambda: launch_local_cluster(num_processes=2, local_devices=2, timeout=300.0))
+    finally:
+        if saved is None:
+            del os.environ["XDEM_TPU_PLATFORM"]
+        else:
+            os.environ["XDEM_TPU_PLATFORM"] = saved
     route = cluster.strip().splitlines()[-1]
     check("DISTRIBUTED OK" in route and "4 global devices" in route, f"the cluster did not report success: {route}")
-    out["cluster"] = {"s": t_cluster, "route": route}
-    print(f"  launch_local_cluster(2, 2) in {t_cluster:.2f} s: {route}")
+    out["cluster"] = {"s": t_cluster, "platform": platform, "route": route}
+    print(f"  launch_local_cluster(2, 2) with XDEM_TPU_PLATFORM={platform} in {t_cluster:.2f} s: {route}")
     out["launches"] = launches
     return out
 

@@ -83,6 +83,22 @@ def test_sharded_bins_are_mesh_invariant_and_match(estimator, runs):
     assert np.allclose(g8[c8 > 500], 4.0, rtol=0.25)  # white noise: the sill is sigma^2
 
 
+@pytest.mark.parametrize("shards, budget", [(8, 115_200), (8, 115_199), (1, 72_000), (1, 71_999)])
+def test_sharded_bins_refuse_past_the_pair_budget(runs, monkeypatch, shards, budget):
+    """The shards of one device hold their pairs together: 10 runs of 60 x 120 pairs are
+    72 000 pairs on one shard, and 16 runs (NaN-padded) or 115 200 pairs over 8 shards of the
+    CPU. Up to the budget the call runs; past it, it refuses."""
+    monkeypatch.setattr(tss, "_PAIR_CHUNK_BUDGET", budget)
+    za, zb, ca, cb = runs
+    held = 115_200 if shards == 8 else 72_000
+    if held > budget:
+        with pytest.raises(ValueError, match="pairs on one device"):
+            sharded_variogram_bins(za, zb, ca, cb, [0.0, 1500.0], cpu_mesh(shards))
+    else:
+        _, counts = sharded_variogram_bins(za, zb, ca, cb, [0.0, 1500.0], cpu_mesh(shards))
+        assert 0 < counts.sum() <= 72_000
+
+
 @pytest.mark.parametrize("estimator", ["dowd", "matheron", "genton"])
 def test_sample_empirical_variogram_mesh(estimator, pair):
     """The device grid route: mesh-invariant and, for Dowd and Matheron, the single-device

@@ -362,11 +362,32 @@ def _nuth_kaab_solve(
     binned by aspect (or fitted directly), closed-form cosine fit, pixel-offset increment.
     Stops after at least 3 steps once the offset step drops below `tolerance`.
     """
-    dev = pts_z.device
+    from xdem_tpu_torch.parallel.mesh import _one_shard
+
+    def binned(ys, bins, valids):
+        return _binned_median(ys[0], bins[0], valids[0], n_bins)
+
+    return _nuth_kaab_iterations([pts_z], [rows], [cols], [raster], [slope_tan], [aspect], res_x, res_y, tolerance,
+                                 max_iterations, n_bins, invert, bin_before_fit, _one_shard(pts_z.device),
+                                 lambda xs: _finite_median(xs[0]), binned)
+
+
+def _nuth_kaab_iterations(z: list, r: list, c: list, rasters: list, slope_tan: list, aspect: list, res_x: float,
+                          res_y: float, tolerance: float, max_iterations: int, n_bins: int, invert: bool,
+                          bin_before_fit: bool, mesh: Any, median: Callable, binned_median: Callable):
+    """The loop of :func:`_nuth_kaab_solve` over the shards of a 1-D `mesh`: one list entry
+    per shard (its points and its copy of the raster). The reductions are given:
+    ``median(dh)`` (the finite median of the shards' values, on the root) and
+    ``binned_median(y, bin_idx, valid)`` (the per-aspect-bin medians); the point-sum mode's
+    normal equations are summed across the shards."""
+    from xdem_tpu_torch.parallel._collectives import psum, replicate
+
+    dev = mesh.root
     f32 = torch.float32
     bin_width = 2 * math.pi / n_bins
     bin_centers = (torch.arange(n_bins, dtype=f32, device=dev) + 0.5) * bin_width
     G = torch.stack([torch.cos(bin_centers), torch.sin(bin_centers), torch.ones(n_bins, dtype=f32, device=dev)], 1)
+    bin_idx = [torch.clamp((a / bin_width).to(torch.int32), 0, n_bins - 1) for a in aspect]
 
     sx = torch.zeros((), dtype=f32, device=dev)
     sy = torch.zeros((), dtype=f32, device=dev)
@@ -375,17 +396,17 @@ def _nuth_kaab_solve(
     tol32 = float(np.float32(tolerance))  # the stop rule compares in f32
     it = 0
     while it < max_iterations and not (it >= 3 and stat < tol32):
-        dh = _dh_device(pts_z, rows, cols, raster, sx, sy, invert)
-        vshift = _finite_median(dh)
-        y = (dh - vshift) / slope_tan
-        valid = torch.isfinite(y)
+        dh = [_dh_device(*a, invert) for a in zip(z, r, c, rasters, replicate(sx, mesh), replicate(sy, mesh))]
+        vshift = median(dh)
+        y = [(d - v) / s for d, v, s in zip(dh, replicate(vshift, mesh), slope_tan)]
+        valid = [torch.isfinite(v) for v in y]
         if bin_before_fit:
-            bin_idx = torch.clamp((aspect / bin_width).to(torch.int32), 0, n_bins - 1)
-            med = _binned_median(y, bin_idx, valid, n_bins)
+            med = binned_median(y, bin_idx, valid)
             p = _solve_cosine(*_cosine_normal_equations(G, med, torch.isfinite(med)))
         else:
-            Gf = torch.stack([torch.cos(aspect), torch.sin(aspect), torch.ones_like(aspect)], 1)
-            p = _solve_cosine(*_cosine_normal_equations(Gf, y, valid))
+            eqs = [_cosine_normal_equations(torch.stack([torch.cos(a), torch.sin(a), torch.ones_like(a)], 1), yv, ok)
+                   for a, yv, ok in zip(aspect, y, valid)]
+            p = _solve_cosine(psum([e[0] for e in eqs], mesh), psum([e[1] for e in eqs], mesh))
         north_px, east_px = p[0], p[1]  # a*cos(b), a*sin(b)
         sx = sx + east_px
         sy = sy + north_px
@@ -1421,7 +1442,16 @@ def _cpd_solve(X: torch.Tensor, Y: torch.Tensor, weight_cpd: float, sigma2_init:
     """The CPD EM iterations (each step re-fits the whole transform). A step whose R or t is
     not finite keeps the previous estimate and stops the loop after the third step.
     Returns (R, t, iterations, degenerate)."""
-    dev, dt = X.device, X.dtype
+    def em_step(TY: torch.Tensor, s2: torch.Tensor):
+        return _cpd_em_step(X, Y, TY, weight_cpd, s2, sigma2_min, only_translation=only_translation)
+
+    return _cpd_iterations(em_step, Y, sigma2_init, tolerance, max_iterations)
+
+
+def _cpd_iterations(em_step: Callable, Y: torch.Tensor, sigma2_init: float, tolerance: float, max_iterations: int):
+    """The loop of :func:`_cpd_solve` around ``em_step(TY, sigma2) -> (R, t, sigma2, q)``, the
+    EM step of one device or of a mesh; the state lies on the device of `Y`."""
+    dev, dt = Y.device, Y.dtype
     R = torch.eye(3, dtype=dt, device=dev)
     t = torch.zeros(3, dtype=dt, device=dev)
     s2 = torch.tensor(sigma2_init, dtype=dt, device=dev)
@@ -1431,7 +1461,7 @@ def _cpd_solve(X: torch.Tensor, Y: torch.Tensor, weight_cpd: float, sigma2_init:
     while it < max_iterations and not (it > 2 and stat < tol32):
         # TY = R^T (y + t) for row vectors: the rigid inverse of the previous step's [R | -t].
         TY = (Y + t[None, :]) @ R
-        Rn, tn, s2n, qn = _cpd_em_step(X, Y, TY, weight_cpd, s2, sigma2_min, only_translation=only_translation)
+        Rn, tn, s2n, qn = em_step(TY, s2)
         ok = torch.isfinite(Rn).all() & torch.isfinite(tn).all()
         ok_f, stat_f = torch.stack([ok.to(dt), torch.abs(qn - q)]).tolist()
         if ok_f:
@@ -1536,7 +1566,7 @@ class CPD(AffineCoreg):
 
 def _lzd_solve_device(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Tensor, xc0: torch.Tensor,
                       yc0: torch.Tensor, zc0: torch.Tensor, cz: float, inv_transform: list[float], tolerance: float,
-                      max_iterations: int, only_translation: bool = False):
+                      max_iterations: int, only_translation: bool = False, mesh: Any = None):
     """The LZD iterations on the device of the raster: transform the points by the running
     matrix (rotation about the centroid), interpolate the DEM and its gradients there, and
     solve the linearised 6-parameter model by column-equilibrated masked normal equations
@@ -1546,10 +1576,18 @@ def _lzd_solve_device(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Te
     inverted georeferencing with the centroid folded into c and f: col = a*xc + b*yc + c,
     row = d*xc + e*yc + f. Points of zero weight get zero coordinates, so a NaN height never
     reaches the sums. Stops after the third step once the translation statistic drops below
-    `tolerance`, or when no point is valid. Returns (matrix, iterations, statistic, valid
-    count of the last step)."""
-    dev, dt = raster.device, raster.dtype
-    pts = torch.stack([xc0, yc0, zc0])
+    `tolerance`, or when no point is valid. With a 1-D `mesh`, the points are split over its
+    shards, each with its own copy of the grids, and the column scales and the normal
+    equations are summed across the shards on the mesh's root for the solve; without one,
+    the same loop runs on one shard. Returns (matrix, iterations, statistic, valid count of
+    the last step)."""
+    from xdem_tpu_torch.parallel._collectives import psum, replicate, scatter
+    from xdem_tpu_torch.parallel.mesh import _one_shard
+
+    mesh = _one_shard(raster.device) if mesh is None else mesh
+    dev, dt = mesh.root, raster.dtype
+    grids = list(zip(replicate(raster, mesh), replicate(gradx, mesh), replicate(grady, mesh)))
+    pts = [torch.stack(p) for p in zip(scatter(xc0, mesh, 0.0), scatter(yc0, mesh, 0.0), scatter(zc0, mesh, math.nan))]
     n_total = torch.tensor(float(xc0.shape[0]), dtype=dt, device=dev)
     a, b, c, d, e, f = (float(v) for v in np.asarray(inv_transform, np.float32))
     cz = float(np.float32(cz))
@@ -1558,31 +1596,39 @@ def _lzd_solve_device(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Te
     matrix = torch.eye(4, dtype=dt, device=dev)
     it, stat, nvalid = 0, math.inf, 1.0
     while it < max_iterations and (it <= 2 or stat >= tol32) and (it == 0 or nvalid > 0):
-        trans = matrix[:3, :3] @ pts + matrix[:3, 3][:, None]
-        xc, yc, zc = trans
-        cols = a * xc + b * yc + c
-        rows = d * xc + e * yc + f
-        z_rst = interp_rowcol(raster, rows, cols, method="linear")
-        gx = interp_rowcol(gradx, rows, cols, method="linear")
-        gy = interp_rowcol(grady, rows, cols, method="linear")
-        dh = z_rst - (zc + cz)
-        ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
-        w = ok.to(dt)
-        dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
-        xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
-        ones = torch.ones_like(gx)
-        if only_translation:
-            A = torch.stack([-gx, -gy, ones], dim=1)
-        else:
-            A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
-        scale = torch.sqrt(torch.clamp((A * A * w[:, None]).sum(dim=0) / n_total, min=1e-12))
-        As = A / scale[None, :]
-        Aw = As * w[:, None]
-        sol = torch.linalg.solve(Aw.T @ As + 1e-7 * eye, Aw.T @ dh) / scale
+        systems = []
+        for (rst, gxr, gyr), p, m in zip(grids, pts, replicate(matrix, mesh)):
+            xc, yc, zc = m[:3, :3] @ p + m[:3, 3][:, None]
+            cols = a * xc + b * yc + c
+            rows = d * xc + e * yc + f
+            z_rst = interp_rowcol(rst, rows, cols, method="linear")
+            gx = interp_rowcol(gxr, rows, cols, method="linear")
+            gy = interp_rowcol(gyr, rows, cols, method="linear")
+            dh = z_rst - (zc + cz)
+            ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
+            w = ok.to(dt)
+            dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
+            xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
+            ones = torch.ones_like(gx)
+            if only_translation:
+                A = torch.stack([-gx, -gy, ones], dim=1)
+            else:
+                A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
+            systems.append((A, w, dh))
+        scale = torch.sqrt(torch.clamp(psum([(A * A * w[:, None]).sum(dim=0) for A, w, _ in systems], mesh)
+                                       / n_total, min=1e-12))
+        lhs, rhs, wsum = [], [], []
+        for (A, w, dh), s in zip(systems, replicate(scale, mesh)):
+            As = A / s[None, :]
+            Aw = As * w[:, None]
+            lhs.append(Aw.T @ As)
+            rhs.append(Aw.T @ dh)
+            wsum.append(w.sum())
+        sol = torch.linalg.solve(psum(lhs, mesh) + 1e-7 * eye, psum(rhs, mesh)) / scale
         R = torch.eye(3, dtype=dt, device=dev) if only_translation else _rotation_xyz(sol[3], sol[4], sol[5])
         step = _rigid_step(R, sol[:3])
         matrix = step @ matrix
-        stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), w.sum()]).tolist()
+        stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), psum(wsum, mesh)]).tolist()
         it += 1
     return matrix, it, stat, nvalid
 
@@ -1603,8 +1649,7 @@ def lzd(
     """Least Z-difference coregistration (Rosenholm & Torlegård 1988) of a raster pair;
     returns (matrix, centroid, point count). The linearised model is linear in the 6
     parameters, so each iteration is one least-squares solve on the device. With ``mesh=``, the
-    points are split over the mesh and the normal equations summed across the shards
-    (`parallel.coreg.lzd_solve_sharded`)."""
+    points are split over the mesh and the normal equations summed across the shards."""
     logging.info("Running LZD coregistration")
     if crs is not None and not is_projected(crs):
         raise NotImplementedError(
@@ -1631,19 +1676,17 @@ def lzd(
     cc = inv.a * cx + inv.b * cy + inv.c - 0.5
     cf = inv.d * cx + inv.e * cy + inv.f - 0.5
     dev = raster.device
-    solve = _lzd_solve_device
     if mesh is not None:
-        from xdem_tpu_torch.parallel.coreg import lzd_solve_sharded
         from xdem_tpu_torch.parallel.mesh import as_mesh_1d
 
-        solve = functools.partial(lzd_solve_sharded, mesh=as_mesh_1d(mesh))
-    matrix_dev, n_it, stat, nvalid = solve(
+        mesh = as_mesh_1d(mesh)
+    matrix_dev, n_it, stat, nvalid = _lzd_solve_device(
         raster, gradx, grady,
         torch.from_numpy(np.asarray(x - cx, np.float32)).to(dev),
         torch.from_numpy(np.asarray(y - cy, np.float32)).to(dev),
         torch.from_numpy(np.asarray(sub_pts - cz, np.float32)).to(dev),
         cz, [inv.a, inv.b, cc, inv.d, inv.e, cf], tolerance,
-        max_iterations=int(max_iterations), only_translation=only_translation,
+        max_iterations=int(max_iterations), only_translation=only_translation, mesh=mesh,
     )
     if nvalid == 0.0:
         raise ValueError(

@@ -9,16 +9,16 @@ equal the single-device fits to the bit; the LZD normal equations as sums across
 (float32 reassociation, held at 1e-3 like xdem_tpu's); the ICP neighbours as the per-shard
 winners merged by (distance, lowest index), which is the single-device argmin's tie-break.
 
-The solvers' steps mirror the single-device ones in coreg/affine.py op for op, and their
-scalar algebra runs on the mesh's root; each iteration reads one value back to the host, as
-on one device.
+The fits run the single-device loops of coreg/affine.py (Nuth & Kääb's, LZD's and ICP's,
+DhMinimize's Nelder-Mead), given the shards' lists and the distributed reductions; their
+scalar algebra runs on the mesh's root, and each iteration reads one value back to the host,
+as on one device.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from xdem_tpu_torch.parallel._collectives import all_gather, psum, replicate, scatter, to
@@ -59,44 +59,20 @@ def nuth_kaab_points_sharded(
     and the per-aspect-bin medians are exact distributed order statistics, so the fit equals
     the single-device fit to the bit; the point-sum mode sums the float64 normal equations
     across the shards (reassociation)."""
-    from xdem_tpu_torch.coreg.affine import _cosine_normal_equations, _solve_cosine
+    from xdem_tpu_torch.coreg.affine import _nuth_kaab_iterations
 
-    dev = mesh.root
-    f32 = torch.float32
+    def median(xs: list[torch.Tensor]) -> torch.Tensor:
+        return masked_median_distributed(xs, _finite(xs), mesh)[0]
+
+    def binned(ys: list[torch.Tensor], bins: list[torch.Tensor], valids: list[torch.Tensor]) -> torch.Tensor:
+        parked = [torch.where(v, b.long(), n_bins) for v, b in zip(valids, bins)]
+        counts = psum([_histogram(p, v, n_bins) for p, v in zip(parked, valids)], mesh).long()
+        return signed_median_by_bin(ys, parked, counts, n_bins, mesh)
+
     z, r, c = scatter(pts_z, mesh, math.nan), scatter(rows, mesh, 0.0), scatter(cols, mesh, 0.0)
-    st, asp = scatter(slope_tan, mesh, math.nan), scatter(aspect, mesh, 0.0)
-    rasters = replicate(raster, mesh)
-    bin_width = 2 * math.pi / n_bins
-    bin_centers = (torch.arange(n_bins, dtype=f32, device=dev) + 0.5) * bin_width
-    G = torch.stack([torch.cos(bin_centers), torch.sin(bin_centers), torch.ones(n_bins, dtype=f32, device=dev)], 1)
-    bin_idx = [torch.clamp((a / bin_width).to(torch.int32), 0, n_bins - 1).long() for a in asp]
-
-    sx = torch.zeros((), dtype=f32, device=dev)
-    sy = torch.zeros((), dtype=f32, device=dev)
-    vshift = torch.zeros((), dtype=f32, device=dev)
-    stat = math.inf
-    tol32 = float(np.float32(tolerance))
-    it = 0
-    while it < max_iterations and not (it >= 3 and stat < tol32):
-        dh = _dh_shards(z, r, c, rasters, replicate(sx, mesh), replicate(sy, mesh), invert)
-        vshift, _ = masked_median_distributed(dh, _finite(dh), mesh)
-        y = [(d - v) / s for d, v, s in zip(dh, replicate(vshift, mesh), st)]
-        valid = _finite(y)
-        if bin_before_fit:
-            parked = [torch.where(v, b, n_bins) for v, b in zip(valid, bin_idx)]
-            counts = psum([_histogram(p, v, n_bins) for p, v in zip(parked, valid)], mesh).long()
-            med = signed_median_by_bin(y, parked, counts, n_bins, mesh)
-            p = _solve_cosine(*_cosine_normal_equations(G, med, torch.isfinite(med)))
-        else:
-            eqs = [_cosine_normal_equations(torch.stack([torch.cos(a), torch.sin(a), torch.ones_like(a)], 1), yv, ok)
-                   for a, yv, ok in zip(asp, y, valid)]
-            p = _solve_cosine(psum([e[0] for e in eqs], mesh), psum([e[1] for e in eqs], mesh))
-        north_px, east_px = p[0], p[1]
-        sx = sx + east_px
-        sy = sy + north_px
-        stat = float(torch.hypot(east_px, north_px))
-        it += 1
-    return float(sx * res_x), float(sy * res_y), float(vshift), stat, it
+    return _nuth_kaab_iterations(z, r, c, replicate(raster, mesh), scatter(slope_tan, mesh, math.nan),
+                                 scatter(aspect, mesh, 0.0), res_x, res_y, tolerance, max_iterations, n_bins, invert,
+                                 bin_before_fit, mesh, median, binned)
 
 
 def masked_median_diff_sharded(ref: torch.Tensor, tba: torch.Tensor, inlier: torch.Tensor,
@@ -195,59 +171,14 @@ def icp_solve_sharded(ref: torch.Tensor, tba: torch.Tensor, norms: torch.Tensor,
 def lzd_solve_sharded(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Tensor, xc0: torch.Tensor,
                       yc0: torch.Tensor, zc0: torch.Tensor, cz: float, inv_transform, tolerance, mesh: Mesh,
                       max_iterations: int, only_translation: bool = False):
-    """``_lzd_solve_device`` with the points split over the mesh: per shard the interpolation
-    and the partial sums of the column scales and of the normal equations, summed on the
-    root for the solve. Returns (matrix, iterations, statistic, valid count of the last
-    step)."""
-    from xdem_tpu_torch.coreg.affine import _rigid_step, _rotation_xyz
-    from xdem_tpu_torch.ops.interp import interp_rowcol
+    """``coreg.affine._lzd_solve_device`` with the points split over the 1-D `mesh`: per shard
+    the interpolation and the partial sums of the column scales and of the normal equations,
+    summed on the root for the solve. Returns (matrix, iterations, statistic, valid count of
+    the last step)."""
+    from xdem_tpu_torch.coreg.affine import _lzd_solve_device
 
-    dev, dt = mesh.root, raster.dtype
-    grids = list(zip(replicate(raster, mesh), replicate(gradx, mesh), replicate(grady, mesh)))
-    pts = [torch.stack(p) for p in zip(scatter(xc0, mesh, 0.0), scatter(yc0, mesh, 0.0), scatter(zc0, mesh, math.nan))]
-    n_total = torch.tensor(float(xc0.shape[0]), dtype=dt, device=dev)
-    a, b, c, d, e, f = (float(v) for v in np.asarray(inv_transform, np.float32))
-    cz = float(np.float32(cz))
-    tol32 = float(np.float32(tolerance))
-    eye = torch.eye(3 if only_translation else 6, dtype=dt, device=dev)
-    matrix = torch.eye(4, dtype=dt, device=dev)
-    it, stat, nvalid = 0, math.inf, 1.0
-    while it < max_iterations and (it <= 2 or stat >= tol32) and (it == 0 or nvalid > 0):
-        systems = []
-        for (rst, gxr, gyr), p, m in zip(grids, pts, replicate(matrix, mesh)):
-            xc, yc, zc = m[:3, :3] @ p + m[:3, 3][:, None]
-            cols = a * xc + b * yc + c
-            rows = d * xc + e * yc + f
-            z_rst = interp_rowcol(rst, rows, cols, method="linear")
-            gx = interp_rowcol(gxr, rows, cols, method="linear")
-            gy = interp_rowcol(gyr, rows, cols, method="linear")
-            dh = z_rst - (zc + cz)
-            ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
-            w = ok.to(dt)
-            dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
-            xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
-            ones = torch.ones_like(gx)
-            if only_translation:
-                A = torch.stack([-gx, -gy, ones], dim=1)
-            else:
-                A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
-            systems.append((A, w, dh))
-        scale = torch.sqrt(torch.clamp(psum([(A * A * w[:, None]).sum(dim=0) for A, w, _ in systems], mesh)
-                                       / n_total, min=1e-12))
-        lhs, rhs, wsum = [], [], []
-        for (A, w, dh), s in zip(systems, replicate(scale, mesh)):
-            As = A / s[None, :]
-            Aw = As * w[:, None]
-            lhs.append(Aw.T @ As)
-            rhs.append(Aw.T @ dh)
-            wsum.append(w.sum())
-        sol = torch.linalg.solve(psum(lhs, mesh) + 1e-7 * eye, psum(rhs, mesh)) / scale
-        R = torch.eye(3, dtype=dt, device=dev) if only_translation else _rotation_xyz(sol[3], sol[4], sol[5])
-        step = _rigid_step(R, sol[:3])
-        matrix = step @ matrix
-        stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), psum(wsum, mesh)]).tolist()
-        it += 1
-    return matrix, it, stat, nvalid
+    return _lzd_solve_device(raster, gradx, grady, xc0, yc0, zc0, cz, inv_transform, tolerance, max_iterations,
+                             only_translation, mesh=mesh)
 
 
 def nuth_kaab_batched_sharded(pts_z: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, rasters: torch.Tensor,

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from xdem_tpu_torch.parallel._collectives import psum, replicate, scatter
@@ -93,28 +92,16 @@ def cpd_em_step_sharded(
 def cpd_solve_sharded(X: torch.Tensor, Y: torch.Tensor, weight_cpd: float, sigma2_init: float, sigma2_min: float,
                       tolerance: float, max_iterations: int, only_translation: bool, mesh: Mesh,
                       n_true: int | None = None):
-    """``coreg.affine._cpd_solve`` with the reference cloud split over the 1-D `mesh`: the same
-    stop rule and degenerate-EM bailout, one value read back per iteration. Returns (R, t,
-    iterations, degenerate) on the root."""
-    root = mesh.root
+    """``coreg.affine._cpd_solve`` with the reference cloud split over the 1-D `mesh`: its loop
+    (the same stop rule and degenerate-EM bailout, one value read back per iteration) around
+    the sharded EM step. Returns (R, t, iterations, degenerate) on the root."""
+    from xdem_tpu_torch.coreg.affine import _cpd_iterations
+
     Xs = scatter(X, mesh, math.nan)
     n_eff = float(n_true if n_true is not None else X.shape[0])
-    Y = Y.to(root)
-    dt = Y.dtype
-    R = torch.eye(3, dtype=dt, device=root)
-    t = torch.zeros(3, dtype=dt, device=root)
-    s2 = torch.tensor(sigma2_init, dtype=dt, device=root)
-    q = torch.tensor(math.inf, dtype=dt, device=root)
-    tol32 = float(np.float32(tolerance))
-    it, stat = 0, math.inf
-    while it < max_iterations and not (it > 2 and stat < tol32):
-        TY = (Y + t[None, :]) @ R
-        Rn, tn, s2n, qn = _cpd_em_local(Xs, Y, TY, weight_cpd, s2, sigma2_min, mesh, only_translation, n_eff)
-        ok = torch.isfinite(Rn).all() & torch.isfinite(tn).all()
-        ok_f, stat_f = torch.stack([ok.to(dt), torch.abs(qn - q)]).tolist()
-        if ok_f:
-            R, t, s2, q, stat = Rn, tn, s2n, qn, stat_f
-        else:  # degenerate EM (variance collapse)
-            stat = -math.inf
-        it += 1
-    return R, t, it, stat == -math.inf
+    Y = Y.to(mesh.root)
+
+    def em_step(TY: torch.Tensor, s2: torch.Tensor):
+        return _cpd_em_local(Xs, Y, TY, weight_cpd, s2, sigma2_min, mesh, only_translation, n_eff)
+
+    return _cpd_iterations(em_step, Y, sigma2_init, tolerance, max_iterations)

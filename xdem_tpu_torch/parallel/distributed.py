@@ -4,8 +4,9 @@ Counterpart of xdem_tpu/parallel/distributed.py. Each process holds some shards 
 devices) of a mesh that spans the cluster; the collectives of ``parallel._collectives`` sum
 and gather across the processes of such a mesh with ``torch.distributed``, so the sharded
 variogram and the halo-exchange stencils run unchanged over every shard of every process.
-The platform is the CPU (gloo) unless ``XDEM_TPU_PLATFORM`` says ``cuda`` (NCCL, one card per
-process: NCCL cannot put two ranks on one card). On one machine:
+The platform is the card when one is present (NCCL, one card per process: NCCL cannot put two
+ranks on one card), or what ``XDEM_TPU_PLATFORM`` says: ``cpu`` runs gloo over CPU shards, and is
+the only way to run without a card. On one machine:
 
     python -m xdem_tpu_torch.parallel.distributed --coordinator 127.0.0.1:9876 \
         --num-processes 2 --process-id 0 --local-devices 4
@@ -25,33 +26,42 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch.parallel._collectives import to
-from xdem_tpu_torch.parallel.mesh import Mesh, _device_array
+from xdem_tpu_torch.parallel.mesh import Mesh, _device_array, _one_shard
 
 # This process's place in the cluster, set by initialize_multihost (the process group itself
 # is torch.distributed's process-wide state).
 _CLUSTER: dict = {}
 
 
-def _platform() -> str:
-    return os.environ.get("XDEM_TPU_PLATFORM", "cpu")
+def _platform(num_processes: int) -> str:
+    """``XDEM_TPU_PLATFORM`` when it is set, else ``cuda``; ``cuda`` needs a card for each of the
+    `num_processes` processes of this machine."""
+    platform = os.environ.get("XDEM_TPU_PLATFORM", "cuda")
+    if platform == "gpu":
+        platform = "cuda"
+    if platform not in ("cpu", "cuda"):
+        raise ValueError(f"XDEM_TPU_PLATFORM={platform!r}: use 'cpu' (gloo) or 'cuda' (NCCL).")
+    if platform == "cuda" and torch.cuda.device_count() < num_processes:
+        raise RuntimeError(
+            f"A cluster of {num_processes} processes on the card needs {num_processes} CUDA devices "
+            f"(NCCL puts one process on each), found {torch.cuda.device_count()}. Set "
+            "XDEM_TPU_PLATFORM=cpu to run it with gloo over CPU shards.")
+    return platform
 
 
 def initialize_multihost(coordinator: str, num_processes: int, process_id: int,
                          local_devices: int = 1) -> None:
     """Join a cluster of `num_processes` processes as rank `process_id`, with `local_devices`
-    shards in this process. The coordinator ("host:port") hosts the rendezvous store. On the
-    CPU platform the shards are CPU shards and the collectives use gloo; on ``cuda`` they lie
-    on card ``process_id % device_count`` and the collectives use NCCL."""
+    shards in this process. The coordinator ("host:port") hosts the rendezvous store. The
+    shards lie on card ``process_id % device_count`` and the collectives use NCCL, unless
+    ``XDEM_TPU_PLATFORM=cpu``: then they are CPU shards and the collectives use gloo."""
     import torch.distributed as dist
 
-    platform = _platform()
-    if platform == "cpu":
+    if _platform(1) == "cpu":
         backend, device = "gloo", torch.device("cpu")
-    elif platform in ("cuda", "gpu"):
+    else:
         backend, device = "nccl", torch.device("cuda", process_id % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    else:
-        raise ValueError(f"XDEM_TPU_PLATFORM={platform!r}: use 'cpu' (gloo) or 'cuda' (NCCL).")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}", world_size=num_processes, rank=process_id)
     _CLUSTER.update(devices=[device] * local_devices, n_processes=num_processes, rank=process_id, backend=backend)
 
@@ -155,8 +165,7 @@ def _worker_main(coordinator: str, num_processes: int, process_id: int, local_de
     hi = (process_id + 1) * (za.shape[0] // num_processes)
     gamma, counts = multihost_variogram_bins(za[lo:hi], zb[lo:hi], ca[lo:hi], cb[lo:hi], edges, mesh,
                                              estimator="dowd")
-    one = Mesh(_device_array([mesh.root], (1,)), ("q",))
-    g1, c1 = sharded_variogram_bins(za, zb, ca, cb, edges, one, estimator="dowd")
+    g1, c1 = sharded_variogram_bins(za, zb, ca, cb, edges, _one_shard(mesh.root), estimator="dowd")
     if not (np.array_equal(counts, c1) and np.array_equal(gamma, g1, equal_nan=True)):
         raise AssertionError(f"cluster variogram {gamma, counts} != single-process {g1, c1}")
 
@@ -186,17 +195,20 @@ def _worker_main(coordinator: str, num_processes: int, process_id: int, local_de
 
 def launch_local_cluster(num_processes: int = 2, local_devices: int = 4, timeout: float = 600.0) -> str:
     """Spawn a cluster of `num_processes` local processes with `local_devices` shards each,
-    running the distributed check (on the platform of ``XDEM_TPU_PLATFORM``, default the CPU).
+    running the distributed check: on one card per process (NCCL), or on the CPU (gloo) when
+    ``XDEM_TPU_PLATFORM=cpu``. Raises before starting anything when the machine has fewer
+    cards than processes and the CPU was not asked for.
 
     Returns process 0's standard output (it contains 'DISTRIBUTED OK' and the route); raises
     on any failure, after ending every worker."""
     import socket
 
+    platform = _platform(num_processes)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ)
-    env.setdefault("XDEM_TPU_PLATFORM", "cpu")
+    env["XDEM_TPU_PLATFORM"] = platform
     env["OMP_NUM_THREADS"] = "1"
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")

@@ -64,6 +64,12 @@ class Mesh:
         return f"Mesh(shape={self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"
 
 
+def _one_shard(device: torch.device, axis_name: str = "p") -> Mesh:
+    """A 1-D mesh of one shard on `device`: the single-device case of a sharded loop, whose
+    collectives then add nothing and move nothing."""
+    return Mesh(_device_array([device], (1,)), (axis_name,))
+
+
 def make_mesh(
     n_devices: int | None = None,
     axis_names: Sequence[str] = ("ry", "rx"),

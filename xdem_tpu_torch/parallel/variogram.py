@@ -17,6 +17,7 @@ and partial sums, which are summed on the root before the estimator is finalised
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Sequence
 
 import numpy as np
@@ -54,10 +55,14 @@ def sharded_variogram_bins(
 
     Any mesh shape is accepted: it is viewed as 1-D over all its devices, so the Genton pair
     keys number the runs of every shard.
+
+    Each shard holds every pair of its runs at once (about 40 B a pair). A call whose shards
+    would hold more than ``spatialstats._PAIR_CHUNK_BUDGET`` pairs on one device raises a
+    ``ValueError``: the single-device route takes such a call in chunks.
     """
     from xdem_tpu_torch.spatialstats import (
-        _dowd_gamma, _gamma_from_sums, _genton_local_topcap, _genton_merge_topcap, _genton_pair_keys,
-        _genton_qn_from_reservoir, _lag_bins, _pair_weights)
+        _PAIR_CHUNK_BUDGET, _dowd_gamma, _gamma_from_sums, _genton_local_topcap, _genton_merge_topcap,
+        _genton_pair_keys, _genton_qn_from_reservoir, _lag_bins, _pair_weights)
 
     if estimator not in _ESTIMATORS:
         raise ValueError(f"Estimator '{estimator}' not supported for the sharded variogram.")
@@ -67,6 +72,12 @@ def sharded_variogram_bins(
     edges = torch.from_numpy(np.asarray(bin_edges, dtype=np.float32))
     n_local_runs, n_pts = za_s[0].shape
     m_pts = zb_s[0].shape[1]
+    per_device = max(Counter(m1.devices.flat).values()) * n_local_runs * n_pts * m_pts
+    if per_device > _PAIR_CHUNK_BUDGET:
+        raise ValueError(
+            f"The sharded variogram would hold {per_device:.2e} pairs on one device at once (limit "
+            f"{_PAIR_CHUNK_BUDGET:.0e}). Reduce `subsample`, spread the mesh over more devices, or drop "
+            "mesh= to take the pairs in chunks on one device.")
 
     pairs = []
     for a, b, c_a, c_b, e in zip(za_s, zb_s, ca_s, cb_s, replicate(edges, m1)):
