@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Drive xdem_tpu_torch's main path once on one NVIDIA GPU and check every step.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py   (phases 1-13 on one card)
+                               python3 chip_smoke.py --cards 4
+The second needs four cards (it exits 1 before doing anything with fewer) and runs the build,
+phase 3 on each of the four cards, phase 13 over them and phase 14. Both end with the same
+last line, whose "count" is the number of cards the run used.
 
 Phases:
   1. device: the card's name and power limit; exits non-zero without CUDA;
@@ -123,16 +127,28 @@ Phases:
      each attribute's statistics table equals get_stats of the attribute computed directly. Each
      workflow's time is split into loading, host statistics, plots (or their absence without
      matplotlib) and the rest.
- 13. the multi-device path at 10 000 x 10 000 (parallel/): a mesh over every card, or where there is
-     one card 2 x 2 shards of it. The 14-attribute suite of phase 4's DEM with mesh= launches K1, K2
-     and K3 once per shard and equals phase 4's whole-array planes to the bit (NaN masks included),
-     as does a 2047 x 2061 DEM with NaN holes over 2 x 2 and 1 x 4. VerticalShift, NuthKaab,
-     DhMinimize and ICP with mesh= on phase 4's pair equal their single-device fits to the bit, LZD
-     and CPD within 1e-3, BlockwiseNuthKaab (phase 9's 400 tiles) within 2e-3; estimate_uncertainty
-     (mesh=) on phase 5's pair gives the single-device sigma and rho to the bit; launch_local_cluster
-     (2, 2) runs two processes (NCCL on a card each where there are two cards; on one card, which
-     cannot hold two NCCL ranks, XDEM_TPU_PLATFORM=cpu asks for gloo) and prints its route. First and steady times beside the single-device ones; the halo exchange, the assembly
-     of K1's planes and each kernel on one shard's block by CUDA events.
+ 13. the multi-device path at 10 000 x 10 000 (parallel/): a 2 x 2 mesh of four cards with --cards 4,
+     else four shards of one card. The 14-attribute suite of phase 4's DEM with mesh= launches K1, K2
+     and K3 once per shard, leaves every plane on its shards' cards, and once assembled equals the
+     whole-array planes to the bit (NaN masks included), as does a 2047 x 2061 DEM with NaN holes
+     over 2 x 2 and 1 x 4. VerticalShift, NuthKaab, DhMinimize and ICP with mesh= on phase 4's pair
+     equal their single-device fits to the bit, LZD and CPD within 1e-3, BlockwiseNuthKaab (phase 9's
+     400 tiles) within 2e-3; estimate_uncertainty(mesh=) on phase 5's pair gives the single-device
+     sigma and rho to the bit. A cluster: on four cards launch_local_cluster(4, 1) on its default
+     route (NCCL, a card a process); on one card, which cannot hold two NCCL ranks,
+     launch_local_cluster(2, 2) with XDEM_TPU_PLATFORM=cpu (gloo); its Dowd bins and K1 planes
+     equal one process's to the bit. First and steady times beside the single-device ones; the one
+     scatter of the DEM, the exchange of K1's halo and the assembly of K1's planes on one card; each
+     kernel on each card's block by CUDA events on that card's stream, beside the plain versions on
+     the first block; on several cards, peer access between each pair and one 2.5 GB peer copy.
+ 14. (--cards 4 only) the 14-attribute suite at 50 000 x 50 000 float32 (20 m) over a 2 x 2 mesh of
+     four cards: 140 GB of planes that no one card holds. A seeded spectral DEM with NaN voids, some
+     across every seam, made on the first card. Every plane stays on the four cards (any assembly
+     during the suite fails the phase), each kernel launches once a card, each card's peak memory is
+     printed; a 1024^2 crop around the middle of each seam segment and the central corner, computed
+     whole on one card with the whole DEM's centre, equals the sharded window to the bit with
+     identical NaN masks. First and steady suite times on the host clock between waits on every
+     card, the one scatter, each halo exchange, dem_center, and each kernel on each card's block.
 The line before the last is a JSON summary of the kernels (with their launches on each path) and of
 the phases; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
@@ -196,6 +212,10 @@ DDEM_VOID_PX = 16  # side of phase 10's voids: square blocks, as clouds and shad
 MESH_SHARDS = (2, 2)  # phase 13's mesh on a one-card machine: four shards of cuda:0
 MESH_SMALL = (2047, 2061)  # phase 13's ragged DEM, sharded 2 x 2 and 1 x 4
 MESH_LAGS = (20.0, 200.0, 2000.0)  # phase 13's rho comparison lags (m)
+BIG_SIZE = 50_000  # side of phase 14's DEM: 100 km x 100 km at 2 m, here read at 20 m pixels
+BIG_CROP = 1024  # side of phase 14's crops around the seams
+BIG_MARGIN = 8  # their margin: at least the largest halo (6, fractal roughness at w = 13)
+BIG_VOIDS = 200  # seeded NaN voids of 1-63 px in phase 14's DEM
 KERNELS = {
     "surface_fit": ("xdem_tpu_torch/csrc/surface_fit.cu", "xdem_tpu/terrain/pallas_kernels.py:219"),
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
@@ -212,22 +232,56 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def device_ms(fn, reps: int = 3, calls: int = 1) -> float:
-    """Median device time of one fn() in ms, by CUDA events around `calls` calls in a row,
-    after one warm-up call. With several calls the host's work on each hides behind the
-    device's work on the one before, so the figure is the device's time alone."""
+def sync_all() -> None:
+    """Wait for every visible card (torch.cuda.synchronize() waits for the current one only)."""
+    from xdem_tpu_torch._device import synchronize
+
+    synchronize()
+
+
+def empty_all() -> None:
+    """Return every card's cached blocks (torch.cuda.empty_cache() frees the current card's)."""
     import torch
 
+    for i in range(torch.cuda.device_count()):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
+
+
+def device_ms(fn, reps: int = 3, calls: int = 1, device=None) -> float:
+    """Median device time of one fn() in ms, by CUDA events on `device`'s current stream
+    (default: the current card) around `calls` calls in a row, after one warm-up call. With
+    several calls the host's work on each hides behind the device's work on the one before,
+    so the figure is the device's time alone. Every card is waited for after each round."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    fn()
+    times = []
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(calls):
+                fn()
+            end.record(stream)
+            sync_all()
+            times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def mesh_ms(fn, mesh, reps: int = 3) -> float:
+    """Median time of one fn() over `mesh` in ms, after a warm-up call: by CUDA events when
+    every shard lies on one card, else on the host clock between waits on every card."""
+    devices = {d for d in mesh.devices.flat}
+    if len(devices) == 1:
+        return device_ms(fn, reps=reps, device=next(iter(devices)))
     fn()
     times = []
     for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
+        _, secs = _synced(fn)
+        times.append(secs * 1e3)
     return statistics.median(times)
 
 
@@ -316,8 +370,9 @@ def kernel_bounds(pixels: int, sf_attrs, windowed_attrs, fractal_w: int) -> dict
     return out
 
 
-def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
-    """Each kernel against its plain version on the card; returns max abs error per kernel."""
+def phase_kernels(dev, shape=(2047, 2061), seed=7, verbose: bool = True) -> dict[str, float]:
+    """Each kernel against its plain version on the card `dev`; returns max abs error per
+    kernel. Every case is printed when `verbose`, else one line for the card."""
     import numpy as np
     import torch
 
@@ -333,6 +388,7 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
         z[r:r + int(rng.integers(1, 40)), c:c + int(rng.integers(1, 40))] = float("nan")
     z[:, -3:] = float("nan")  # NaN border strip
     max_err = {k: 0.0 for k in KERNELS}
+    counted = {k: 0 for k in KERNELS}
 
     def compare_exact(kernel: str, label: str, names, got, want) -> None:
         for i, a in enumerate(names):
@@ -341,7 +397,10 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
             err = float((got[i][fin].double() - want[i][fin].double()).abs().max()) if bool(fin.any()) else 0.0
             exact = bool(torch.equal(got[i][num], want[i][num]))  # infinite values too
             finite = int(torch.isfinite(want[i]).sum())
-            print(f"  {kernel:11s} {label:38s} {a:28s} max_abs={err:.3e} bit_equal={exact} nan_mask_equal={same} finite={finite}")
+            if verbose:
+                print(f"  {kernel:11s} {label:38s} {a:28s} max_abs={err:.3e} bit_equal={exact} nan_mask_equal={same} "
+                      f"finite={finite}")
+            counted[kernel] += 1
             check(same and exact, f"{kernel} {label} {a}: not bit-equal to the plain version (max abs {err:.3e}, NaN masks equal {same})")
             check(finite > 10000, f"{kernel} {label} {a}: too few finite pixels to compare")
             max_err[kernel] = max(max_err[kernel], err)
@@ -401,7 +460,10 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7) -> dict[str, float]:
         want = window.fractal_roughness(zz, ws)
         compare_exact("fractal", f"w={ws} ({tuple(zz.shape)[0]}x{tuple(zz.shape)[1]})", ("fractal_roughness",),
                       got[None], want[None])
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
+    check(got.device == torch.device(dev), f"the kernels' outputs are not on {dev}")
+    if not verbose:
+        print(f"  {dev}: " + ", ".join(f"{k} {counted[k]} planes bit-equal (max abs {max_err[k]:.1e})" for k in KERNELS))
     return max_err
 
 
@@ -790,13 +852,11 @@ def phase_uncertainty(dev, n: int) -> dict:
 
 
 def _synced(fn):
-    """(fn(), seconds) on the host clock between two torch.cuda.synchronize()."""
-    import torch
-
-    torch.cuda.synchronize()
+    """(fn(), seconds) on the host clock between two waits on every card."""
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -2258,15 +2318,11 @@ def phase_workflows(dev, n: int, folder: str) -> dict:
     return out
 
 
-def mesh_for(dev, shape: tuple[int, int]):
-    """A mesh of the given shape over every card, each card repeated in turn (one card: all
-    shards on `dev`)."""
-    import torch
-
+def mesh_for(cards, shape: tuple[int, int]):
+    """A mesh of the given shape over `cards`, each card repeated in turn (one card: every
+    shard on it)."""
     from xdem_tpu_torch.parallel import make_mesh
 
-    n_cards = torch.cuda.device_count()
-    cards = [torch.device("cuda", i) for i in range(n_cards)] if n_cards > 1 else [dev]
     return make_mesh(devices=[cards[i % len(cards)] for i in range(shape[0] * shape[1])], shape=shape)
 
 
@@ -2278,28 +2334,59 @@ def equal_planes(got, want) -> bool:
     return bool(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan]))
 
 
-def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict:
-    """The multi-device path at n x n: the sharded suite, the sharded fits, the sharded
-    uncertainty call and a two-process cluster, each held to its single-device result."""
+def on_their_cards(plane, mesh) -> bool:
+    """True where `plane` is a ShardedArray whose every block lies on its shard's device."""
+    from xdem_tpu_torch.parallel import ShardedArray
+
+    return isinstance(plane, ShardedArray) and all(
+        b.device == mesh.devices[iy, ix] for iy, row in enumerate(plane.blocks) for ix, b in enumerate(row))
+
+
+def first_shards(mesh) -> dict:
+    """{card: (iy, ix) of its first shard} in mesh order."""
+    import numpy as np
+
+    out = {}
+    for (iy, ix), d in np.ndenumerate(mesh.devices):
+        out.setdefault(d, (iy, ix))
+    return out
+
+
+def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor: dict | None, cards) -> dict:
+    """The multi-device path at n x n over `cards` (a 2 x 2 mesh of them, or of four shards of
+    one card): the sharded suite, the sharded fits, the sharded uncertainty call and a
+    cluster, each held to its single-device result. `main`, `unc` and `cor` are phases 4-6's
+    results where they ran (their single-device times are printed beside)."""
     import numpy as np
     import torch
 
     from xdem_tpu_torch import DEM, Affine, coreg, terrain, uncertainty
-    from xdem_tpu_torch.parallel import halo, make_mesh
+    from xdem_tpu_torch.parallel import halo, shard
+    from xdem_tpu_torch.parallel._collectives import to
     from xdem_tpu_torch.parallel.distributed import launch_local_cluster
     from xdem_tpu_torch.terrain import cuda_kernels as ck
-    from xdem_tpu_torch.terrain import surfit
+    from xdem_tpu_torch.terrain import surfit, window
 
-    n_cards = torch.cuda.device_count()
-    mesh = make_mesh() if n_cards >= 2 else mesh_for(dev, MESH_SHARDS)
+    mesh = mesh_for(cards, MESH_SHARDS)
     shards = mesh.devices.size
     distinct = sorted({str(d) for d in mesh.devices.flat})
     print(f"  mesh {tuple(mesh.devices.shape)}: {shards} shards on {len(distinct)} card(s) {distinct}; {card}")
     out: dict = {"shape": list(mesh.devices.shape), "shards": shards, "cards": len(distinct)}
+    if len(cards) > 1:
+        ids = [d.index for d in cards]
+        peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j) for i in ids for j in ids if i != j}
+        block = torch.empty(625_000_000, dtype=torch.float32, device=cards[0])  # one 25 000^2 block, 2.5 GB
+        t_peer = mesh_ms(lambda: block.to(cards[1]), mesh_for(cards[:2], (1, 2)))
+        del block
+        out.update(peer_access=peer, peer_copy_ms=t_peer)
+        print(f"  peer access: {peer}; one peer copy of a 2.5 GB block {cards[0]} -> {cards[1]}: {t_peer:.3f} ms "
+              f"({2.5e3 / t_peer:.1f} GB/s; host clock between waits on every card)")
 
     # The sharded suite on phase 4's DEM, held to the whole-array planes to the bit.
     ref, tba = main_pair(dev, n)
-    whole = terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES)
+    whole, t_whole = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
+    if main is None:  # phase 4 did not run: a second, steady whole-array call
+        _, t_whole = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
     ck.reset_launch_counts()
     sharded, t_first = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
     launches = dict(ck.LAUNCHES)
@@ -2307,40 +2394,62 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     for k, v in launches.items():
         check(v == shards, f"kernel {k} launched {v} times on the sharded suite, not once per shard ({shards})")
     for a, s_, w in zip(SUITE, sharded, whole):
-        check(equal_planes(s_, w), f"sharded {a} differs from the whole-array plane")
+        check(on_their_cards(s_, mesh), f"sharded {a}: a block is not on its shard's card")
+        check(equal_planes(s_.to(dev), w), f"sharded {a} differs from the whole-array plane")
     del sharded
     steady = []
     for _ in range(3):
         _, secs = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
         steady.append(secs * 1e3)
-    out["suite_ms"] = {"first": t_first * 1e3, "steady": statistics.median(steady), "single": main["suite_ms"]}
-    print(f"  sharded suite: all 14 planes equal phase 4's to the bit; first {t_first * 1e3:.2f} ms, steady "
-          f"{statistics.median(steady):.2f} ms (median of 3: {[round(t, 2) for t in steady]}); whole array "
-          f"{main['suite_ms']:.2f} ms in phase 4")
+    single_ms = main["suite_ms"] if main else t_whole * 1e3
+    out["suite_ms"] = {"first": t_first * 1e3, "steady": statistics.median(steady), "single": single_ms}
+    print(f"  sharded suite: all 14 planes left on their shards' cards, equal to the whole array's to the bit once "
+          f"assembled; first {t_first * 1e3:.2f} ms, steady {statistics.median(steady):.2f} ms (median of 3: "
+          f"{[round(t, 2) for t in steady]}); whole array {single_ms:.2f} ms "
+          f"({'phase 4' if main else 'a second call here'})")
     del whole
-    torch.cuda.empty_cache()
+    empty_all()
 
-    # The decomposition's own costs, by CUDA events: the halo exchange of K1's halo, each
-    # kernel on one shard's padded block, and the assembly of K1's nine output planes.
+    # The decomposition's own costs: the one scatter of the DEM, the exchange of K1's halo
+    # between the blocks on the shards, the assembly of K1's nine planes on one card (which
+    # the suite no longer does: timed for comparison), and each kernel on each card's block
+    # (CUDA events on that card's stream) beside its plain version on the first block.
     center = surfit.dem_center(ref)
-    padded, _, _ = halo._pad_to_mesh(ref, 2, mesh)
-    blocks = halo._halo_blocks(padded, 2, mesh)
-    t_halo = device_ms(lambda: halo._halo_blocks(padded, 2, mesh))
-    outs = [[ck.surface_attributes(b, RES, SUITE[:9], center=center) for b in row] for row in blocks]
-    t_assemble = device_ms(lambda: halo._assemble(outs, 2, (n, n), dev))
-    del outs
-    b1 = blocks[0][0]
-    b6 = halo._halo_blocks(halo._pad_to_mesh(ref, 6, mesh)[0], 6, mesh)[0][0]
-    per_shard = {"surface_fit": device_ms(lambda: ck.surface_attributes(b1, RES, SUITE[:9], center=center), calls=5),
-                 "windowed": device_ms(lambda: ck.windowed_indexes(b1, RES, SUITE[9:13], 3), calls=5),
-                 "fractal": device_ms(lambda: ck.fractal_roughness(b6, 13), calls=5)}
-    halo_gb = sum(b.numel() for row in blocks for b in row) * 4 / 1e9
-    print(f"  halo exchange (K1's halo 2, {halo_gb:.2f} GB of padded blocks) {t_halo:.3f} ms; assembly of 9 planes "
-          f"({9 * 4 * n * n / 1e9:.1f} GB) {t_assemble:.3f} ms; per shard ({tuple(b1.shape)} block): "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in per_shard.items()))
-    out.update(halo_ms=t_halo, assemble_ms=t_assemble, per_shard_ms=per_shard)
-    del blocks, padded, b1, b6
-    torch.cuda.empty_cache()
+    t_scatter = mesh_ms(lambda: shard(ref, mesh), mesh)
+    src = shard(ref, mesh)
+    t_halo = mesh_ms(lambda: halo._exchange(src, 2), mesh)
+    stack = halo.sharded_surface_attributes(src, RES, mesh, SUITE[:9], center=center)
+    t_assemble = mesh_ms(lambda: stack.to(dev), mesh)
+    del stack
+    pads = {h: halo._exchange(src, h) for h in (2, 1, 6)}
+    per_card = {}
+    for d, (iy, ix) in first_shards(mesh).items():
+        c = to(center, d)
+        per_card[str(d)] = {
+            "surface_fit": device_ms(lambda: ck.surface_attributes(pads[2][iy][ix], RES, SUITE[:9], center=c),
+                                     calls=5, device=d),
+            "windowed": device_ms(lambda: ck.windowed_indexes(pads[1][iy][ix], RES, SUITE[9:13], 3), calls=5, device=d),
+            "fractal": device_ms(lambda: ck.fractal_roughness(pads[6][iy][ix], 13), calls=5, device=d)}
+    b2, b1, b6 = pads[2][0][0], pads[1][0][0], pads[6][0][0]
+    plain = {"surface_fit": device_ms(lambda: surfit.surface_attributes(b2, RES, SUITE[:9], center=center), device=dev),
+             "windowed": device_ms(lambda: window.windowed_indexes(b1, RES, SUITE[9:13], 3), device=dev),
+             "fractal": device_ms(lambda: window.fractal_roughness(b6, 13), device=dev)}
+    bounds = kernel_bounds(b2.numel(), SUITE[:9], SUITE[9:13], 13)
+    first = per_card[str(mesh.devices[0, 0])]
+    halo_gb = sum(p.numel() for row in pads[2] for p in row) * 4 / 1e9
+    print(f"  one scatter of the DEM ({n * n * 4 / 1e9:.1f} GB) {t_scatter:.3f} ms; exchange of K1's halo 2 "
+          f"({halo_gb:.2f} GB of padded blocks) {t_halo:.3f} ms; assembly of 9 planes on one card "
+          f"({9 * 4 * n * n / 1e9:.1f} GB, not part of the suite) {t_assemble:.3f} ms")
+    for d, times in per_card.items():
+        print(f"  {d} ({tuple(b2.shape)} block): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+              + f" ({card})")
+    print(f"  first block's plain versions: " + ", ".join(f"{k} {v:.3f} ms" for k, v in plain.items()) +
+          "; bounds " + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]})" for k, v in bounds.items()))
+    out.update(scatter_ms=t_scatter, halo_ms=t_halo, assemble_ms=t_assemble, per_shard_ms=first,
+               per_card_ms=per_card, plain_ms=plain, bounds={k: list(v) for k, v in bounds.items()},
+               block_pixels=b2.numel())
+    del src, pads, b2, b1, b6
+    empty_all()
 
     # A ragged DEM with NaN holes over 2 x 2 and 1 x 4.
     h, w = MESH_SMALL
@@ -2352,10 +2461,12 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     z_whole = terrain.get_terrain_attribute(z, list(SUITE), resolution=RES)
     for shape in ((2, 2), (1, 4)):
         ck.reset_launch_counts()
-        got = terrain.get_terrain_attribute(z, list(SUITE), resolution=RES, mesh=mesh_for(dev, shape))
+        m = mesh_for(cards, shape)
+        got = terrain.get_terrain_attribute(z, list(SUITE), resolution=RES, mesh=m)
         check(all(v == 4 for v in ck.LAUNCHES.values()), f"{shape}: launches {dict(ck.LAUNCHES)}")
         for a, s_, w_ in zip(SUITE, got, z_whole):
-            check(equal_planes(s_, w_), f"{h}x{w} over {shape}: sharded {a} differs from the whole-array plane")
+            check(on_their_cards(s_, m) and equal_planes(s_.to(dev), w_),
+                  f"{h}x{w} over {shape}: sharded {a} differs from the whole-array plane")
     print(f"  {h}x{w} with NaN holes over 2 x 2 and 1 x 4: every plane equal to the whole array's, each kernel once a shard")
     del z, z_whole, got
 
@@ -2368,11 +2479,14 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
             ("ICP", lambda: coreg.ICP(subsample=5e4, nn_method="brute"), None),
             ("LZD", lambda: coreg.LZD(), 1e-3),
             ("CPD", lambda: coreg.CPD(), 1e-3))
-    earlier = {"NuthKaab": main["fit_ms"] / 1e3}  # phase 4's steady fit; the rigid fits' are phase 6's
-    earlier.update({k: v["steady_s"] for k, v in cor["fits"].items() if isinstance(v, dict) and "steady_s" in v})
+    earlier = {"NuthKaab": main["fit_ms"] / 1e3} if main else {}  # phase 4's steady fit; the rigid fits' are phase 6's
+    if cor:
+        earlier.update({k: v["steady_s"] for k, v in cor["fits"].items() if isinstance(v, dict) and "steady_s" in v})
     out["fits"] = {}
     for name, make, tol in fits:
         one, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
+        if not earlier:  # phases 4 and 6 did not run: a second, steady single-device fit
+            _, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
         got, t_m1 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
         _, t_m2 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
         dev_max = float(np.abs(got - one).max())
@@ -2404,7 +2518,7 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     print(f"  BlockwiseNuthKaab ({(n // bs) ** 2} tiles) sharded first {t_m1:.3f} s, steady {t_m2:.3f} s; single-device "
           f"{t_one:.3f} s; tiles within 2e-3 ({'equal to the bit' if exact else 'not all to the bit'})")
     del ref, tba, ref_d, tba_d
-    torch.cuda.empty_cache()
+    empty_all()
 
     # estimate_uncertainty on phase 5's pair, with and without the mesh.
     dem = spectral_dem(n, 11, device=dev)[0].float().contiguous()
@@ -2412,6 +2526,8 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     ukw = dict(transform=Affine(20.0, 0.0, 4e5, 0.0, -20.0, 9e6), crs=32633, subsample=10000, random_state=42)
     lags = np.array(MESH_LAGS)
     (sig1, rho1), t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
+    if unc is None:  # phase 5 did not run: a second, steady single-device call
+        _, t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
     ck.reset_launch_counts()
     (sig2, rho2), t_m1 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
     unc_launches = dict(ck.LAUNCHES)
@@ -2420,55 +2536,238 @@ def phase_mesh(dev, n: int, card: str, main: dict, unc: dict, cor: dict) -> dict
     check(equal_planes(sig2, sig1), "sharded sigma differs from the single-device sigma")
     check(np.array_equal(rho2(lags), rho1(lags)), f"sharded rho {rho2(lags)} != single-device {rho1(lags)}")
     _, t_m2 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
-    out["uncertainty"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2, "phase5_steady_s": unc["steady_s"]}
+    out["uncertainty"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2,
+                          "phase5_steady_s": unc["steady_s"] if unc else None}
+    phase5 = f"{unc['steady_s']:.3f} s steady in phase 5" if unc else "phase 5 not run"
     print(f"  estimate_uncertainty sharded first {t_m1:.3f} s, steady {t_m2:.3f} s (single-device {t_one:.3f} s here, "
-          f"{unc['steady_s']:.3f} s steady in phase 5): sigma and rho({list(MESH_LAGS)} m) equal to the bit; "
-          f"launches {unc_launches}")
+          f"{phase5}): sigma and rho({list(MESH_LAGS)} m) equal to the bit; launches {unc_launches}")
     del dem, other, sig1, sig2
-    torch.cuda.empty_cache()
+    empty_all()
 
-    # Two processes of two shards each: NCCL with a card per process where there are two cards;
-    # one card cannot hold two NCCL ranks, so there the CPU (gloo) is asked for.
-    platform = "cuda" if n_cards >= 2 else "cpu"
-    saved = os.environ.get("XDEM_TPU_PLATFORM")
-    os.environ["XDEM_TPU_PLATFORM"] = platform
+    # A cluster: on several cards one process a card on the default route (NCCL); one card
+    # cannot hold two NCCL ranks, so there two processes of two shards ask for the CPU (gloo).
+    procs, local, platform = (len(cards), 1, None) if len(cards) > 1 else (2, 2, "cpu")
+    saved = os.environ.pop("XDEM_TPU_PLATFORM", None)
+    if platform:
+        os.environ["XDEM_TPU_PLATFORM"] = platform
     try:
-        cluster, t_cluster = _synced(lambda: launch_local_cluster(num_processes=2, local_devices=2, timeout=300.0))
+        cluster, t_cluster = _synced(lambda: launch_local_cluster(num_processes=procs, local_devices=local,
+                                                                  timeout=180.0))
     finally:
-        if saved is None:
-            del os.environ["XDEM_TPU_PLATFORM"]
-        else:
+        os.environ.pop("XDEM_TPU_PLATFORM", None)
+        if saved is not None:
             os.environ["XDEM_TPU_PLATFORM"] = saved
     route = cluster.strip().splitlines()[-1]
-    check("DISTRIBUTED OK" in route and "4 global devices" in route, f"the cluster did not report success: {route}")
-    out["cluster"] = {"s": t_cluster, "platform": platform, "route": route}
-    print(f"  launch_local_cluster(2, 2) with XDEM_TPU_PLATFORM={platform} in {t_cluster:.2f} s: {route}")
+    check("DISTRIBUTED OK" in route and f"{procs * local} global devices" in route
+          and "equal to one process's to the bit" in route, f"the cluster did not report success: {route}")
+    out["cluster"] = {"s": t_cluster, "processes": procs, "local_devices": local,
+                      "platform": platform or "default", "route": route}
+    print(f"  launch_local_cluster({procs}, {local}) with XDEM_TPU_PLATFORM={platform or '(unset: the default)'} in "
+          f"{t_cluster:.2f} s: {route}")
     out["launches"] = launches
     return out
 
 
-def main() -> int:
+def seam_points(n: int) -> dict[str, tuple[int, int]]:
+    """(row, col) of the middle of each seam segment of a 2 x 2 mesh over an n x n raster, and
+    of its central corner."""
+    h, q = n // 2, n // 4
+    return {"row seam, left": (h, q), "row seam, right": (h, h + q), "column seam, top": (q, h),
+            "column seam, bottom": (h + q, h), "central corner": (h, h)}
+
+
+def big_dem(dev, n: int, seed: int):
+    """Seeded 1/f^2.7 spectral DEM of n x n float32 pixels on `dev`, normalised to [0, 1000] m:
+    the half spectrum drawn in row bands, then inverse transforms one axis at a time in bands
+    (no single transform of n^2 points), with BIG_VOIDS seeded NaN voids and one across the
+    middle of each seam segment and the central corner of a 2 x 2 mesh."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    fy, fx = torch.fft.fftfreq(n, device=dev), torch.fft.rfftfreq(n, device=dev)
+    step = 2048
+    spec = torch.empty((n, fx.numel()), dtype=torch.complex64, device=dev)
+    for r0 in range(0, n, step):
+        amp = torch.hypot(fy[r0:r0 + step, None], fx[None, :])
+        if r0 == 0:
+            amp[0, 0] = 1.0
+        amp.pow_(-2.7)
+        if r0 == 0:
+            amp[0, 0] = 0.0
+        spec[r0:r0 + step] = torch.polar(amp, torch.rand(amp.shape, generator=g, device=dev).mul_(2 * math.pi))
+    for c0 in range(0, fx.numel(), step):
+        spec[:, c0:c0 + step] = torch.fft.ifft(spec[:, c0:c0 + step], dim=0)
+    z = torch.empty((n, n), dtype=torch.float32, device=dev)
+    for r0 in range(0, n, step):
+        z[r0:r0 + step] = torch.fft.irfft(spec[r0:r0 + step], n=n, dim=1)
+    del spec
+    zmin, zmax = z.min(), z.max()
+    z.sub_(zmin).mul_(1000.0 / (zmax - zmin))
+    rng = np.random.default_rng(seed)
+    for _ in range(BIG_VOIDS):
+        r, c = int(rng.integers(0, n - 64)), int(rng.integers(0, n - 64))
+        z[r:r + int(rng.integers(1, 64)), c:c + int(rng.integers(1, 64))] = float("nan")
+    for r, c in seam_points(n).values():
+        z[r - 5:r + 4, c - 7:c + 3] = float("nan")
+    return z
+
+
+def phase_big(cards, n: int, card_lines: list[str]) -> dict:
+    """The 14-attribute suite at n x n over a 2 x 2 mesh of four cards, whose planes no one
+    card holds: the planes stay on their cards, each kernel launches once a card, and a crop
+    around the middle of every seam segment and the central corner, computed whole on one card
+    with the whole DEM's centre, equals the sharded planes' window to the bit."""
+    import torch
+
+    from xdem_tpu_torch import terrain
+    from xdem_tpu_torch.parallel import halo, make_mesh, shard, sharded
+    from xdem_tpu_torch.parallel._collectives import to
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit
+    from xdem_tpu_torch.terrain.terrain import _terrain_epilog
+
+    dev = cards[0]
+    mesh = make_mesh(devices=cards[:4], shape=(2, 2))
+    out: dict = {"size": n, "mesh": [2, 2], "cards": [str(d) for d in cards[:4]]}
+    z, t_gen = _synced(lambda: big_dem(dev, n, seed=21))
+    finite = float(torch.isfinite(z).float().mean())
+    print(f"  DEM {n} x {n} float32 ({z.numel() * 4 / 1e9:.1f} GB) on {dev} in {t_gen:.2f} s, {finite:.6f} finite; "
+          f"planes of the suite {len(SUITE) * z.numel() * 4 / 1e9:.0f} GB")
+    empty_all()
+
+    def suite():
+        return terrain.get_terrain_attribute(z, list(SUITE), resolution=RES, mesh=mesh)
+
+    # The whole DEM's centre, as the suite removes it (taken now: its passes need ~20 GB of
+    # cuda:0, which the planes fill once they exist).
+    center = surfit.dem_center(z)
+
+    # Any gathering of blocks into one tensor during the suite's calls is counted: none may happen.
+    gathered = []
+    real_assemble = sharded._assemble
+    sharded._assemble = lambda s, *a: gathered.append(s.shape) or real_assemble(s, *a)
+    try:
+        base = []
+        for d in cards[:4]:
+            torch.cuda.reset_peak_memory_stats(d)
+            base.append(torch.cuda.memory_allocated(d))
+        ck.reset_launch_counts()
+        planes, t_first = _synced(suite)
+        launches = dict(ck.LAUNCHES)
+        peaks = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards[:4]]
+        held = [(torch.cuda.memory_allocated(d) - b) / 1e9 for d, b in zip(cards[:4], base)]
+    finally:
+        sharded._assemble = real_assemble
+    print(f"  launches on the suite: {launches}")
+    for k, v in launches.items():
+        check(v == 4, f"kernel {k} launched {v} times on the 50 000^2 suite, not once per card")
+    bh = -(-n // 2)
+    for a, p in zip(SUITE, planes):
+        check(on_their_cards(p, mesh) and p.shape == (n, n) and p.block_shape == (bh, bh),
+              f"{a}: not a ({n}, {n}) plane in blocks of {bh}^2 on their cards")
+    check(not gathered, f"a plane was assembled on one device during the suite: {gathered}")
+    for d, line, pk, hd in zip(cards[:4], card_lines, peaks, held):
+        print(f"  {d} peak {pk:.2f} GB, holding {hd:.2f} GB of planes after the call ({line})")
+    out.update(launches=launches, peak_gb=peaks, held_gb=held, first_ms=t_first * 1e3)
+
+    # Every seam and the central corner: the crop computed whole on one card with the whole
+    # DEM's centre (a margin of BIG_MARGIN >= the largest halo, 6) against the sharded window.
+    m, half = BIG_MARGIN, BIG_CROP // 2
+    for name, (rc, cc) in seam_points(n).items():
+        r0, c0 = rc - half, cc - half
+        crop = z[r0 - m:r0 + BIG_CROP + m, c0 - m:c0 + BIG_CROP + m].contiguous()
+        stack = torch.cat([ck.surface_attributes(crop, RES, SUITE[:9], center=center),
+                           ck.windowed_indexes(crop, RES, SUITE[9:13], 3), ck.fractal_roughness(crop, 13)[None]])
+        voids = 0
+        for i, a in enumerate(SUITE):
+            want = _terrain_epilog(stack[i], a, True, torch.float32)[m:-m, m:-m]
+            got = planes[i].window(slice(r0, r0 + BIG_CROP), slice(c0, c0 + BIG_CROP), dev)
+            check(equal_planes(got, want), f"{name} crop at ({rc}, {cc}): sharded {a} differs from the whole crop")
+            voids = max(voids, int(torch.isnan(want).sum()))
+        check(voids > 0 and bool(torch.isfinite(crop).any()), f"{name} crop: no void or no finite pixel")
+        print(f"  {name} crop ({BIG_CROP}^2 around ({rc}, {cc}), margin {m}): all 14 planes equal to the whole "
+              f"crop's to the bit, NaN masks included ({voids} NaN pixels at most)")
+    del planes
+    empty_all()
+
+    steady = []
+    for _ in range(2):
+        res, secs = _synced(suite)
+        del res
+        steady.append(secs * 1e3)
+    out["steady_ms"] = statistics.median(steady)
+    print(f"  suite at {n} x {n} over four cards: first {t_first * 1e3:.1f} ms, steady {statistics.median(steady):.1f} ms "
+          f"({[round(t, 1) for t in steady]}); host clock between waits on every card; {card_lines[0]}")
+    empty_all()
+
+    # The pieces: the one scatter, each family's halo exchange, dem_center on the first card,
+    # each kernel on each card's block (CUDA events on that card's stream).
+    t_scatter = mesh_ms(lambda: shard(z, mesh), mesh)
+    src = shard(z, mesh)
+    t_exchange = {h: mesh_ms(lambda: halo._exchange(src, h), mesh) for h in (2, 1, 6)}
+    t_center = device_ms(lambda: surfit.dem_center(z), device=dev)
+    pads = {h: halo._exchange(src, h) for h in (2, 1, 6)}
+    per_card = {}
+    for d, (iy, ix) in first_shards(mesh).items():
+        c = to(center, d)
+        per_card[str(d)] = {
+            "surface_fit": device_ms(lambda: ck.surface_attributes(pads[2][iy][ix], RES, SUITE[:9], center=c), device=d),
+            "windowed": device_ms(lambda: ck.windowed_indexes(pads[1][iy][ix], RES, SUITE[9:13], 3), device=d),
+            "fractal": device_ms(lambda: ck.fractal_roughness(pads[6][iy][ix], 13), device=d)}
+    bounds = kernel_bounds(pads[2][0][0].numel(), SUITE[:9], SUITE[9:13], 13)
+    print(f"  one scatter of the DEM ({z.numel() * 3 / 1e9:.1f} GB to three cards) {t_scatter:.2f} ms; halo exchanges "
+          + ", ".join(f"h={h} {t:.2f} ms" for h, t in t_exchange.items())
+          + f"; dem_center on {dev} {t_center:.2f} ms; host clock between waits on every card ({card_lines[0]})")
+    for (d, times), line in zip(per_card.items(), card_lines):
+        print(f"  {d} ({tuple(pads[2][0][0].shape)} block): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+              + f" ({line})")
+    print("  bounds per block: " + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]})" for k, v in bounds.items()))
+    out.update(scatter_ms=t_scatter, exchange_ms={str(h): t for h, t in t_exchange.items()}, dem_center_ms=t_center,
+               per_card_ms=per_card, bounds={k: list(v) for k, v in bounds.items()})
+    del src, pads, z
+    empty_all()
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive xdem_tpu_torch on the card and check every step.")
+    ap.add_argument("--cards", type=int, choices=(1, 4), default=1,
+                    help="1 (default): phases 1-13 on one card; 4: the build, phase 3 on each card, phase 13 over "
+                         "the four cards and phase 14 (50 000^2 over a 2 x 2 mesh of them)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU.", file=sys.stderr)
         return 2
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} needs {args.cards} CUDA devices, found {torch.cuda.device_count()}.",
+              file=sys.stderr)
+        return 1
     from xdem_tpu_torch import _build
 
     dev = torch.device("cuda", 0)
+    cards = [torch.device("cuda", i) for i in range(args.cards)]
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
-    print(f"[1/13] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} visible)")
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi: unavailable"
-    print(card)
+    print(f"[1/14] device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} visible, {args.cards} used)")
+    lines = smi.stdout.strip().splitlines() if smi.returncode == 0 and smi.stdout.strip() else []
+    card_lines = (lines + ["nvidia-smi: unavailable"] * args.cards)[:args.cards]
+    card = card_lines[0]
+    for line in card_lines:
+        print(line)
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
 
     lib, seconds, log = _build.build()
     _build.load()
-    print(f"[2/13] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
+    print(f"[2/14] build: {lib.relative_to(_build.PACKAGE_DIR.parent)} in {seconds:.2f} s")
     entry = spills = ""
     for line in log.splitlines():  # per nvcc job its seconds, per kernel what ptxas -v says of it
         if line.startswith("nvcc "):
@@ -2480,26 +2779,29 @@ def main() -> int:
         elif "Used" in line:
             print(f"    {entry}: {line.split(':', 1)[-1].strip()}; {spills}")
 
-    print("[3/13] kernels against their plain versions on the card (2047 x 2061):")
+    if args.cards > 1:
+        return main_cards(cards, card_lines, name)
+
+    print("[3/14] kernels against their plain versions on the card (2047 x 2061):")
     max_err = phase_kernels(dev)
 
-    print(f"[4/13] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[4/14] main path at {MAIN_SIZE} x {MAIN_SIZE}:")
     res = phase_main(dev, MAIN_SIZE, card)
     torch.cuda.empty_cache()
 
-    print(f"[5/13] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[5/14] uncertainty at {MAIN_SIZE} x {MAIN_SIZE}:")
     unc = phase_uncertainty(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[6/13] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[6/14] coregistration at {MAIN_SIZE} x {MAIN_SIZE}:")
     cor = phase_coreg(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[7/13] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[7/14] volume change and the rest of the statistics at {MAIN_SIZE} x {MAIN_SIZE}:")
     vol = phase_volume(dev, MAIN_SIZE)
     torch.cuda.empty_cache()
 
-    print(f"[8/13] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
+    print(f"[8/14] Raster and DEM from files at {MAIN_SIZE} x {MAIN_SIZE}:")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs")  # git-ignored
     os.makedirs(scratch, exist_ok=True)
     # Phase 8's two files stay until phase 12 has read them.
@@ -2507,27 +2809,29 @@ def main() -> int:
         ras = phase_raster(dev, MAIN_SIZE, raster_folder)
         torch.cuda.empty_cache()
 
-        print(f"[9/13] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
+        print(f"[9/14] point clouds and blockwise coregistration at {MAIN_SIZE} x {MAIN_SIZE} with {POINTS} points:")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             pts = phase_points(dev, MAIN_SIZE, POINTS, folder)
         torch.cuda.empty_cache()
 
-        print(f"[10/13] dDEM and DEMCollection at {MAIN_SIZE} x {MAIN_SIZE} ({card}):")
+        print(f"[10/14] dDEM and DEMCollection at {MAIN_SIZE} x {MAIN_SIZE} ({card}):")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             ddm = phase_ddem(dev, MAIN_SIZE, folder)
         torch.cuda.empty_cache()
 
-        print(f"[11/13] terrain attributes out of core at {TILED_SIZE} x {TILED_SIZE} ({card}):")
+        print(f"[11/14] terrain attributes out of core at {TILED_SIZE} x {TILED_SIZE} ({card}):")
         with tempfile.TemporaryDirectory(dir=scratch) as folder:
             til = phase_tiled(dev, TILED_SIZE, folder)
         torch.cuda.empty_cache()
 
-        print(f"[12/13] the Accuracy and Topo workflows on phase 8's files ({card}):")
+        print(f"[12/14] the Accuracy and Topo workflows on phase 8's files ({card}):")
         wfl = phase_workflows(dev, MAIN_SIZE, raster_folder)
     torch.cuda.empty_cache()
 
-    print(f"[13/13] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE}:")
-    msh = phase_mesh(dev, MAIN_SIZE, card, res, unc, cor)
+    print(f"[13/14] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE} (four shards of {dev}):")
+    msh = phase_mesh(dev, MAIN_SIZE, card, res, unc, cor, [dev])
+    print(f"[14/14] the suite at {BIG_SIZE} x {BIG_SIZE} over four cards: not run here; it needs four cards "
+          f"(python3 chip_smoke.py --cards 4)")
 
     paths = {"main": res["launches"], "raster": ras["launches"], "ddem": ddm["launches"], "tiled": til["launches"],
              "accuracy": wfl["accuracy"]["launches"], "topo": wfl["topo"]["launches"], "mesh": msh["launches"]}
@@ -2543,7 +2847,36 @@ def main() -> int:
         "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts,
         "ddem": ddm, "tiled": til, "workflows": wfl, "mesh": msh}
     print(json.dumps(summary))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
+    return 0
+
+
+def main_cards(cards, card_lines: list[str], name: str) -> int:
+    """The four-card run after the build: phase 3 on each card, phase 13 over the cards and
+    phase 14. Its main path is phase 14's suite: the kernels' launches are counted there; their
+    times beside their plain versions and bounds are phase 13's, on one shard's block."""
+    print(f"[3/14] kernels against their plain versions on each of the {len(cards)} cards (2047 x 2061):")
+    max_err = {k: 0.0 for k in KERNELS}
+    for d in cards:
+        for k, v in phase_kernels(d, verbose=False).items():
+            max_err[k] = max(max_err[k], v)
+    print("[4-12/14] not run with --cards: they run on one card (python3 chip_smoke.py)")
+    print(f"[13/14] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE} over {len(cards)} cards:")
+    msh = phase_mesh(cards[0], MAIN_SIZE, card_lines[0], None, None, None, cards)
+    empty_all()
+    print(f"[14/14] the 14-attribute suite at {BIG_SIZE} x {BIG_SIZE} over a 2 x 2 mesh of four cards:")
+    big = phase_big(cards, BIG_SIZE, card_lines)
+
+    summary = {"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": big["launches"][k],
+         "launches_by_path": {"mesh": msh["launches"][k], "big": big["launches"][k]},
+         "max_abs_err": max_err[k], "ms": msh["per_shard_ms"][k], "plain_ms": msh["plain_ms"][k],
+         "bound_ms": msh["bounds"][k][0], "bound_by": msh["bounds"][k][1], "library_ms": None,
+         "ms_by_card_at_big_size": {d: t[k] for d, t in big["per_card_ms"].items()}}
+        for k, (src, rep) in KERNELS.items()
+    ], "mesh": msh, "big": big}
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": len(cards)}}))
     return 0
 
 

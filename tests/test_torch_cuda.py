@@ -4,7 +4,8 @@ shading, convolution, patches and Genton paths on the card against the CPU at 51
 DEM path (reprojection, the vertical CRS, a DEM's attributes), the raster-point fits, the
 matrix apply to an EPC and the batched blockwise Nuth & Kääb solve (the card's picks solved
 on both) on the card against the CPU, and mesh= over four shards of one card against the
-whole-array planes and the single-device fits.
+whole-array planes and the single-device fits. K1, K2 and K3 are also checked on every
+visible card, and mesh= over every card keeps each block on its card.
 
 These tests need an NVIDIA GPU (they carry the `cuda` marker and skip elsewhere). They
 import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run with
@@ -805,7 +806,53 @@ def test_sharded_suite_on_the_card_launches_each_kernel_once_a_shard(cuda_device
                                             mesh=make_mesh(devices=[cuda_device] * 4, shape=shape))
         assert dict(ck.LAUNCHES) == {"surface_fit": 4, "windowed": 4, "fractal": 4}
         for a, g, w in zip(attrs, got, whole):
-            _bit_equal(g, w, a)
+            assert all(b.device == cuda_device for row in g.blocks for b in row)
+            _bit_equal(g.to(cuda_device), w, a)
+
+
+def _cards():
+    """Every visible card (counted when the test runs, never at import)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_each_kernel_matches_plain_on_every_card(cuda_device):
+    """K1, K2 and K3 launch on each visible card (its own stream, its context) and equal their
+    plain versions there to the bit."""
+    attrs = ("slope", "aspect", "hillshade", "max_curvature", "profile_curvature")
+    for dev in _cards():
+        dem = _dem(dev)
+        ck.reset_launch_counts()
+        k1 = ck.surface_attributes(dem, 20.0, attrs)
+        k2 = ck.windowed_indexes(dem, 20.0, _WA, 3)
+        k3 = ck.fractal_roughness(dem, 13)
+        assert dict(ck.LAUNCHES) == {"surface_fit": 1, "windowed": 1, "fractal": 1}, dev
+        assert k1.device == k2.device == k3.device == dev
+        for got, want, names in ((k1, surfit.surface_attributes(dem, 20.0, attrs), attrs),
+                                 (k2, window.windowed_indexes(dem, 20.0, _WA, 3), _WA),
+                                 (k3[None], window.fractal_roughness(dem, 13)[None], ("fractal_roughness",))):
+            for i, a in enumerate(names):
+                _bit_equal(got[i], want[i], f"{a} on {dev}")
+
+
+def test_mesh_over_every_card_keeps_each_block_on_its_card(cuda_device):
+    """mesh= over every visible card (one block a card; on one card four blocks of it): the
+    blocks stay on their cards and the assembled planes equal the whole-array planes."""
+    from xdem_tpu_torch.parallel import make_mesh
+
+    cards = _cards()
+    devices = cards if len(cards) > 1 else [cuda_device] * 4
+    mesh = make_mesh(devices=devices)
+    dem = _dem(cuda_device)
+    attrs = ["slope", "max_curvature", "terrain_ruggedness_index", "rugosity", "fractal_roughness"]
+    whole = terrain.get_terrain_attribute(dem, attrs, resolution=20.0)
+    ck.reset_launch_counts()
+    got = terrain.get_terrain_attribute(dem, attrs, resolution=20.0, mesh=mesh)
+    assert dict(ck.LAUNCHES) == {k: len(devices) for k in ("surface_fit", "windowed", "fractal")}
+    for a, g, w in zip(attrs, got, whole):
+        for iy, row in enumerate(g.blocks):
+            for ix, b in enumerate(row):
+                assert b.device == mesh.devices[iy, ix], a
+        _bit_equal(g.to(cuda_device), w, a)
 
 
 def test_sharded_fits_on_the_card_equal_the_single_device_fits(cuda_device):

@@ -1,7 +1,7 @@
-"""xdem_tpu_torch.parallel.distributed: a cluster of two local processes, two CPU shards
-each, over gloo. Each worker checks the cluster's Dowd variogram (exact, against the port's
+"""xdem_tpu_torch.parallel.distributed: clusters of local processes over gloo (two
+processes of two CPU shards, four of one). Each worker checks the cluster's Dowd variogram (exact, against the port's
 single-process result) and its cross-process halo stencil (against the port's whole-raster
-surface fit, 1e-3: the centre is summed across processes). The workers import neither JAX
+surface fit given the cluster's centre, to the bit). The workers import neither JAX
 nor xdem_tpu; xdem_tpu's own cluster is tests/test_graft_entry.py's.
 
 The platform is the card unless XDEM_TPU_PLATFORM=cpu asks for the CPU; without enough cards
@@ -19,6 +19,14 @@ def test_local_cluster_of_two_processes(monkeypatch):
     out = launch_local_cluster(num_processes=2, local_devices=2, timeout=240.0)
     assert "DISTRIBUTED OK" in out
     assert "4 global devices" in out and "gloo over cpu" in out
+
+
+def test_local_cluster_of_four_single_shard_processes(monkeypatch):
+    """The shape of the four-card cluster (one card a process under NCCL), here over gloo."""
+    monkeypatch.setenv("XDEM_TPU_PLATFORM", "cpu")
+    out = launch_local_cluster(num_processes=4, local_devices=1, timeout=240.0)
+    assert "4 processes x 1 devices = 4 global devices (gloo over cpu)" in out
+    assert "equal to one process's to the bit" in out
 
 
 @pytest.mark.parametrize(

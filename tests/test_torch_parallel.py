@@ -2,7 +2,8 @@
 selections, against the port's single-device results and xdem_tpu's mesh= results.
 
 The port's meshes are CPU shards (``make_mesh(devices=[torch.device("cpu")] * n)``); xdem_tpu
-runs on the 8 virtual CPU devices of tests/conftest.py. Tolerances: sharded terrain planes
+runs on the 8 virtual CPU devices of tests/conftest.py. A mesh= result is a ShardedArray left
+on the mesh, assembled here with ``.numpy()``. Tolerances: sharded terrain planes
 equal the port's single-device planes to the bit (NaN masks included), and xdem_tpu's mesh=
 planes within 1e-3 of the mean magnitude (the curvatures under |grad z| at the percentile
 rule of torch_port_helpers); selections are exact (order statistics).
@@ -28,6 +29,7 @@ from xdem_tpu.parallel import selection as jsel
 from xdem_tpu_torch import terrain
 from xdem_tpu_torch.parallel import _collectives, halo, make_mesh, selection
 from xdem_tpu_torch.parallel.mesh import as_mesh_1d, as_mesh_2d
+from xdem_tpu_torch.parallel.sharded import shard
 
 CPU = torch.device("cpu")
 SUITE = ["slope", "aspect", "hillshade", "profile_curvature", "tangential_curvature",
@@ -41,6 +43,7 @@ def cpu_mesh(n: int, shape=None):
 
 
 def _same(got, want, name=""):
+    """Identical NaN masks and values; a sharded result is assembled on the host here."""
     g, w = got.numpy(), np.asarray(want)
     assert np.array_equal(np.isnan(g), np.isnan(w)), f"{name}: NaN masks differ"
     assert np.array_equal(g[~np.isnan(g)], w[~np.isnan(w)]), f"{name}: values differ"
@@ -91,9 +94,12 @@ def test_halo_blocks_are_the_padded_neighbourhoods(shape, h, dem):
     included, on ragged shapes."""
     mesh = cpu_mesh(shape[0] * shape[1], shape)
     arr = torch.from_numpy(dem)
-    padded, bh, bw = halo._pad_to_mesh(arr, h, mesh)
+    src = shard(arr, mesh)
+    bh, bw = src.block_shape
+    padded = torch.nn.functional.pad(arr, (0, bw * shape[1] - arr.shape[1], 0, bh * shape[0] - arr.shape[0]),
+                                     value=float("nan"))
     ref = torch.nn.functional.pad(padded, (h, h, h, h), value=float("nan"))
-    blocks = halo._halo_blocks(padded, h, mesh)
+    blocks = halo._exchange(src, h)
     for iy in range(shape[0]):
         for ix in range(shape[1]):
             _same(blocks[iy][ix], ref[iy * bh:(iy + 1) * bh + 2 * h, ix * bw:(ix + 1) * bw + 2 * h])
@@ -125,7 +131,7 @@ def test_sharded_suite_matches_xdem_tpu_mesh(dem):
     want = jterrain.get_terrain_attribute(dem, SUITE, resolution=20.0, mesh=jmesh.make_mesh(8))
     got = terrain.get_terrain_attribute(dem, SUITE, resolution=20.0, mesh=cpu_mesh(8))
     for a, g, w in zip(SUITE, got, want):
-        assert_plane_close(g, np.asarray(w), a, tol=1e-3, circular=360.0 if a == "aspect" else None)
+        assert_plane_close(g.numpy(), np.asarray(w), a, tol=1e-3, circular=360.0 if a == "aspect" else None)
 
 
 @pytest.mark.parametrize("kw", [

@@ -2,16 +2,23 @@
 scaled-deviation measure the parity tests hold the port to.
 
 Every test_torch_*.py imports this module first. Tier-1 runs six pytest-xdist workers on
-one machine, so each worker keeps torch to one intra-op thread.
+one machine, so each worker keeps torch to one intra-op thread. Without a card the port's
+entry points refuse numpy inputs unless the CPU is asked for, so here the tests ask for it
+(``XDEM_TPU_PLATFORM=cpu``, inherited by the processes they start); on a machine with a card
+the card tests run on the card.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
+if not torch.cuda.is_available():
+    os.environ.setdefault("XDEM_TPU_PLATFORM", "cpu")
 
 # Planes whose formulas divide by powers of |grad z|: at near-flat pixels they magnify
 # last-bit differences between XLA's and PyTorch's float32 arithmetic (the mean-centring

@@ -1,14 +1,16 @@
 """Device choice and input conversion.
 
-The port runs in float32 on one device. Numpy inputs go to :func:`default_device`; a tensor
+The port runs in float32 on the card. Numpy inputs go to :func:`default_device`; a tensor
 stays on the device it already lies on, and that device decides whether the hand-written
-CUDA kernels or their plain PyTorch versions run.
+CUDA kernels or their plain PyTorch versions run. The CPU is used only where the caller asks
+for it: a CPU tensor, or ``XDEM_TPU_PLATFORM=cpu`` for numpy inputs.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any
+import os
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -20,8 +22,28 @@ DTYPE = torch.float32
 
 @functools.cache
 def default_device() -> torch.device:
-    """The first CUDA device when one is present, else the CPU; decided once per process."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The first CUDA device; the CPU only when ``XDEM_TPU_PLATFORM=cpu`` asks for it. Raises
+    RuntimeError where there is no card and the CPU was not asked for. Decided once per
+    process (``default_device.cache_clear()`` decides again)."""
+    if os.environ.get("XDEM_TPU_PLATFORM") == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "xdem_tpu_torch found no CUDA device. Set XDEM_TPU_PLATFORM=cpu to run on the CPU "
+            "(the plain PyTorch versions of the kernels), or pass CPU tensors.")
+    return torch.device("cuda", 0)
+
+
+def synchronize(devices: Iterable[torch.device] | None = None) -> None:
+    """Wait for every CUDA device among `devices` (default: every visible card), not only the
+    current one as ``torch.cuda.synchronize()`` does. CPU devices need no wait."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            return
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def as_tensor(x: Any, device: torch.device | str | None = None) -> torch.Tensor:

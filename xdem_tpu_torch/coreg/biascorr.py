@@ -32,6 +32,7 @@ from xdem_tpu_torch.fit import (
     sumsin_1d,
 )
 from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.parallel.sharded import ShardedArray
 from xdem_tpu_torch.pointcloud import PointCloud
 
 # Workflow names mapped to (model function, robust optimizer).
@@ -336,7 +337,9 @@ class TerrainBias(BiasCorr):
 
         name = self._meta["inputs"]["specific"]["terrain_attribute"]
         if bias_vars is not None and name in bias_vars:
-            return bias_vars[name]
+            var = bias_vars[name]
+            # A plane from a mesh= terrain call: the binning and the apply read it whole.
+            return var.to(grid.device) if isinstance(var, ShardedArray) else var
         if name == "elevation":
             return grid
         return terrain.get_terrain_attribute(grid, attribute=name, resolution=(transform.xres, transform.yres))

@@ -21,6 +21,8 @@ from typing import Any, Callable, TypeVar
 
 import torch
 
+from xdem_tpu_torch._device import synchronize
+
 F = TypeVar("F", bound=Callable[..., Any])
 
 
@@ -133,8 +135,9 @@ def _write_csv(path: Path, rows: list[dict[str, Any]]) -> None:
 
 
 def profile(name: str, memprof: bool = False) -> Callable[[F], F]:
-    """Decorator: record the wall time of an entry point, its peak host RSS (and, on a card,
-    its peak device allocation) with `memprof`, and a trace when enabled."""
+    """Decorator: record the wall time of an entry point, its peak host RSS (and, on the
+    cards, the largest card's peak device allocation) with `memprof`, and a trace when
+    enabled. The clock stops after every card has finished."""
 
     def decorator(func: F) -> F:
         @functools.wraps(func)
@@ -143,11 +146,12 @@ def profile(name: str, memprof: bool = False) -> Callable[[F], F]:
                 return func(*args, **kwargs)
             sampler = None
             on_card = memprof and torch.cuda.is_available()
+            cards = range(torch.cuda.device_count()) if on_card else ()
             if memprof:
                 sampler = _MemorySampler()
                 sampler.start()
-                if on_card:
-                    torch.cuda.reset_peak_memory_stats()
+                for i in cards:
+                    torch.cuda.reset_peak_memory_stats(i)
             trace = None
             if Profiler._jax_trace_dir is not None:
                 trace = torch.profiler.profile(activities=_activities())
@@ -156,8 +160,7 @@ def profile(name: str, memprof: bool = False) -> Callable[[F], F]:
             try:
                 return func(*args, **kwargs)
             finally:
-                if on_card:
-                    torch.cuda.synchronize()
+                synchronize([torch.device("cuda", i) for i in cards])  # a mesh= call runs on every card
                 wall = time.perf_counter() - t0
                 if trace is not None:
                     trace.__exit__(None, None, None)
@@ -169,7 +172,7 @@ def profile(name: str, memprof: bool = False) -> Callable[[F], F]:
                     samples = sampler.stop()
                     record["peak_mem_mb"] = max(samples) if samples else float("nan")
                 if on_card:
-                    record["peak_device_mem_mb"] = torch.cuda.max_memory_allocated() / 1e6
+                    record["peak_device_mem_mb"] = max(torch.cuda.max_memory_allocated(i) / 1e6 for i in cards)
                 Profiler._records.append(record)
                 logging.debug("profile[%s]: %.4f s", name, wall)
 
@@ -190,8 +193,7 @@ def count_device_dispatches(fn, *args, **kwargs):
     """
     with torch.profiler.profile(activities=_activities()) as prof:
         result = fn(*args, **kwargs)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        synchronize()
     counts = {"executions": 0, "h2d_transfers": 0}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:

@@ -20,8 +20,9 @@ import torch
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.profiler import profile as _profile
 from xdem_tpu_torch.parallel.halo import sharded_stencil, sharded_surface_attributes
+from xdem_tpu_torch.parallel.sharded import shard
 from xdem_tpu_torch.raster import Raster
-from xdem_tpu_torch.terrain import cuda_kernels, freq
+from xdem_tpu_torch.terrain import cuda_kernels, freq, surfit
 from xdem_tpu_torch.terrain.surfit import SURFACE_FIT_ATTRS
 from xdem_tpu_torch.terrain.window import FRACTAL_ATTRS, WINDOWED_ATTRS, normalize_engine
 
@@ -87,11 +88,13 @@ def get_terrain_attribute(
     with nodata -99999. ``tiled=`` (a `terrain.TilingConfig`; ``mp_config=`` with
     ``tile_rows`` is its alias) streams row bands into one GeoTIFF per attribute and
     returns their paths (`terrain.tiled_terrain_attribute`); any other ``mp_config`` raises.
-    ``mesh=`` (a `parallel.Mesh`) shards the stencils over the mesh's devices with halo
-    exchange (`parallel.sharded_stencil`): the kernels launch once per shard and the planes
-    equal the single-device planes to the bit; texture shading stays whole. ``tiled=`` and
-    ``mesh=`` are exclusive. A Raster's resolution comes from its transform, and one in a
-    geographic CRS warns that the surface-fit attributes may be wrong.
+    ``mesh=`` (a `parallel.Mesh`) cuts the DEM once over the mesh's devices and runs the
+    stencils with halo exchange (`parallel.sharded_stencil`): the kernels launch once per
+    shard, and the planes come back as `parallel.ShardedArray`s left on the mesh (``.to(device)``
+    or ``.numpy()`` assemble one), equal to the single-device planes to the bit; texture
+    shading is computed whole and then cut. For a Raster input the planes are assembled on
+    its device. ``tiled=`` and ``mesh=`` are exclusive. A Raster's resolution comes from its
+    transform, and one in a geographic CRS warns that the surface-fit attributes may be wrong.
 
     The device sets one limit: ``window_size_fractal`` 3 or 4 warns and then, on a CPU
     tensor, gives the reference's XLA result (all NaN for 3, where one box scale leaves no
@@ -190,19 +193,24 @@ def get_terrain_attribute(
     arr = as_tensor(dem).contiguous()
     out_dtype = torch.float32 if out_dtype is None else _torch_dtype(out_dtype)
 
-    def stencil(fn, halo: int) -> torch.Tensor:
-        """`fn` of the whole DEM, or of each halo-padded block of a mesh."""
-        return fn(arr) if mesh is None else sharded_stencil(fn, arr, halo=halo, mesh=mesh)
+    # With a mesh the DEM is cut and sent to the shards once; each stencil family then
+    # exchanges only its own halo between the blocks already on the cards.
+    src = None if mesh is None else shard(arr, mesh)
 
-    planes: dict[str, torch.Tensor] = {}
+    def stencil(fn, halo: int):
+        """`fn` of the whole DEM, or of each halo-padded block of the mesh."""
+        return fn(arr) if mesh is None else sharded_stencil(fn, src, halo=halo, mesh=mesh)
+
+    planes: dict[str, Any] = {}
     if sf_attrs:
         kwargs = dict(surface_fit=surface_fit, curv_method=curv_method,
                       hillshade_altitude=float(hillshade_altitude), hillshade_azimuth=float(hillshade_azimuth),
                       hillshade_z_factor=float(hillshade_z_factor))
         if mesh is None:
             stack = cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs)
-        else:
-            stack = sharded_surface_attributes(arr, resolution, mesh, tuple(sf_attrs), **kwargs)
+        else:  # the whole DEM's centre, on its device, as the single-device call removes it
+            stack = sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
+                                               center=surfit.dem_center(arr), **kwargs)
         planes.update(zip(sf_attrs, stack))
 
     # Rugosity is defined on a 3x3 window only (Jenness 2004): with window_size != 3 it
@@ -222,14 +230,19 @@ def get_terrain_attribute(
         planes["fractal_roughness"] = stencil(
             lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal), window_size_fractal // 2)
 
-    # Texture shading is a global FFT filter: it is not sharded.
+    # Texture shading is a global FFT filter: it runs whole, and a mesh gets its blocks.
     if "texture_shading" in attrs:
-        planes["texture_shading"] = freq.texture_shading(arr, alpha=texture_alpha)
+        tex = freq.texture_shading(arr, alpha=texture_alpha)
+        planes["texture_shading"] = tex if mesh is None else shard(tex, src.mesh)
 
-    ordered = [_terrain_epilog(planes[a], a, degrees, out_dtype) for a in attrs]
+    if mesh is None:
+        ordered = [_terrain_epilog(planes[a], a, degrees, out_dtype) for a in attrs]
+    else:  # each block on its own card
+        ordered = [planes[a].map(lambda b, a=a: _terrain_epilog(b, a, degrees, out_dtype)) for a in attrs]
     if is_raster:
-        ordered = [Raster(o, transform=dem.transform, crs=dem.crs, nodata=-99999, area_or_point=dem.area_or_point)
-                   for o in ordered]
+        # A Raster holds one tensor: sharded planes are assembled on the DEM's device.
+        ordered = [Raster(o if mesh is None else o.to(arr.device), transform=dem.transform, crs=dem.crs,
+                          nodata=-99999, area_or_point=dem.area_or_point) for o in ordered]
     return ordered[0] if single else ordered
 
 
