@@ -2352,11 +2352,11 @@ def first_shards(mesh) -> dict:
     return out
 
 
-def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor: dict | None, cards) -> dict:
+def phase_mesh(dev, n: int, card: str, cards) -> dict:
     """The multi-device path at n x n over `cards` (a 2 x 2 mesh of them, or of four shards of
     one card): the sharded suite, the sharded fits, the sharded uncertainty call and a
-    cluster, each held to its single-device result. `main`, `unc` and `cor` are phases 4-6's
-    results where they ran (their single-device times are printed beside)."""
+    cluster, each held to its single-device result and timed beside that result's second
+    (steady) call; each kernel on each card's block held to its plain version."""
     import numpy as np
     import torch
 
@@ -2384,9 +2384,8 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
 
     # The sharded suite on phase 4's DEM, held to the whole-array planes to the bit.
     ref, tba = main_pair(dev, n)
-    whole, t_whole = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
-    if main is None:  # phase 4 did not run: a second, steady whole-array call
-        _, t_whole = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
+    whole, _ = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
+    _, t_whole = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES))
     ck.reset_launch_counts()
     sharded, t_first = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
     launches = dict(ck.LAUNCHES)
@@ -2401,19 +2400,19 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
     for _ in range(3):
         _, secs = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
         steady.append(secs * 1e3)
-    single_ms = main["suite_ms"] if main else t_whole * 1e3
+    single_ms = t_whole * 1e3
     out["suite_ms"] = {"first": t_first * 1e3, "steady": statistics.median(steady), "single": single_ms}
     print(f"  sharded suite: all 14 planes left on their shards' cards, equal to the whole array's to the bit once "
           f"assembled; first {t_first * 1e3:.2f} ms, steady {statistics.median(steady):.2f} ms (median of 3: "
-          f"{[round(t, 2) for t in steady]}); whole array {single_ms:.2f} ms "
-          f"({'phase 4' if main else 'a second call here'})")
+          f"{[round(t, 2) for t in steady]}); whole array {single_ms:.2f} ms (its second call)")
     del whole
     empty_all()
 
     # The decomposition's own costs: the one scatter of the DEM, the exchange of K1's halo
     # between the blocks on the shards, the assembly of K1's nine planes on one card (which
     # the suite no longer does: timed for comparison), and each kernel on each card's block
-    # (CUDA events on that card's stream) beside its plain version on the first block.
+    # (CUDA events on that card's stream), held to the bit to its plain version on that block
+    # and timed beside the plain version on the first block.
     center = surfit.dem_center(ref)
     t_scatter = mesh_ms(lambda: shard(ref, mesh), mesh)
     src = shard(ref, mesh)
@@ -2425,6 +2424,14 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
     per_card = {}
     for d, (iy, ix) in first_shards(mesh).items():
         c = to(center, d)
+        for k, got, want in (
+                ("surface_fit", ck.surface_attributes(pads[2][iy][ix], RES, SUITE[:9], center=c),
+                 surfit.surface_attributes(pads[2][iy][ix], RES, SUITE[:9], center=c)),
+                ("windowed", ck.windowed_indexes(pads[1][iy][ix], RES, SUITE[9:13], 3),
+                 window.windowed_indexes(pads[1][iy][ix], RES, SUITE[9:13], 3)),
+                ("fractal", ck.fractal_roughness(pads[6][iy][ix], 13), window.fractal_roughness(pads[6][iy][ix], 13))):
+            check(equal_planes(got, want), f"{k} on {d}'s block {tuple(pads[6][iy][ix].shape)}: not its plain version")
+        del got, want
         per_card[str(d)] = {
             "surface_fit": device_ms(lambda: ck.surface_attributes(pads[2][iy][ix], RES, SUITE[:9], center=c),
                                      calls=5, device=d),
@@ -2441,8 +2448,8 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
           f"({halo_gb:.2f} GB of padded blocks) {t_halo:.3f} ms; assembly of 9 planes on one card "
           f"({9 * 4 * n * n / 1e9:.1f} GB, not part of the suite) {t_assemble:.3f} ms")
     for d, times in per_card.items():
-        print(f"  {d} ({tuple(b2.shape)} block): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
-              + f" ({card})")
+        print(f"  {d} ({tuple(b2.shape)} block, each kernel equal to its plain version to the bit): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" ({card})")
     print(f"  first block's plain versions: " + ", ".join(f"{k} {v:.3f} ms" for k, v in plain.items()) +
           "; bounds " + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]})" for k, v in bounds.items()))
     out.update(scatter_ms=t_scatter, halo_ms=t_halo, assemble_ms=t_assemble, per_shard_ms=first,
@@ -2479,14 +2486,10 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
             ("ICP", lambda: coreg.ICP(subsample=5e4, nn_method="brute"), None),
             ("LZD", lambda: coreg.LZD(), 1e-3),
             ("CPD", lambda: coreg.CPD(), 1e-3))
-    earlier = {"NuthKaab": main["fit_ms"] / 1e3} if main else {}  # phase 4's steady fit; the rigid fits' are phase 6's
-    if cor:
-        earlier.update({k: v["steady_s"] for k, v in cor["fits"].items() if isinstance(v, dict) and "steady_s" in v})
     out["fits"] = {}
     for name, make, tol in fits:
-        one, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
-        if not earlier:  # phases 4 and 6 did not run: a second, steady single-device fit
-            _, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
+        one, _ = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
+        _, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
         got, t_m1 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
         _, t_m2 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
         dev_max = float(np.abs(got - one).max())
@@ -2496,9 +2499,7 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
         else:
             check(np.allclose(got, one, rtol=tol, atol=tol), f"{name}: sharded fit departs by {dev_max:.3e}")
         out["fits"][name] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2, "max_abs_diff": dev_max}
-        phase_s = f"{earlier[name]:.3f} s" if name in earlier else "not timed there"
-        print(f"  {name:13s} sharded first {t_m1:.3f} s, steady {t_m2:.3f} s; single-device {t_one:.3f} s here, "
-              f"steady in phase 4 or 6 {phase_s}; "
+        print(f"  {name:13s} sharded first {t_m1:.3f} s, steady {t_m2:.3f} s; single-device steady {t_one:.3f} s; "
               f"{'equal to the bit' if tol is None else f'max |d| {dev_max:.3e} (rtol = atol = {tol})'}; "
               f"translation {[round(float(v), 4) for v in got[:3, 3]]}")
 
@@ -2525,9 +2526,8 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
     other = (dem + 0.004 * spectral_dem(n, 12, device=dev)[0]).float().contiguous()
     ukw = dict(transform=Affine(20.0, 0.0, 4e5, 0.0, -20.0, 9e6), crs=32633, subsample=10000, random_state=42)
     lags = np.array(MESH_LAGS)
-    (sig1, rho1), t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
-    if unc is None:  # phase 5 did not run: a second, steady single-device call
-        _, t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
+    (sig1, rho1), _ = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
+    _, t_one = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, **ukw))
     ck.reset_launch_counts()
     (sig2, rho2), t_m1 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
     unc_launches = dict(ck.LAUNCHES)
@@ -2536,11 +2536,9 @@ def phase_mesh(dev, n: int, card: str, main: dict | None, unc: dict | None, cor:
     check(equal_planes(sig2, sig1), "sharded sigma differs from the single-device sigma")
     check(np.array_equal(rho2(lags), rho1(lags)), f"sharded rho {rho2(lags)} != single-device {rho1(lags)}")
     _, t_m2 = _synced(lambda: uncertainty.estimate_uncertainty(dem, other, mesh=mesh, **ukw))
-    out["uncertainty"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2,
-                          "phase5_steady_s": unc["steady_s"] if unc else None}
-    phase5 = f"{unc['steady_s']:.3f} s steady in phase 5" if unc else "phase 5 not run"
-    print(f"  estimate_uncertainty sharded first {t_m1:.3f} s, steady {t_m2:.3f} s (single-device {t_one:.3f} s here, "
-          f"{phase5}): sigma and rho({list(MESH_LAGS)} m) equal to the bit; launches {unc_launches}")
+    out["uncertainty"] = {"single_s": t_one, "first_s": t_m1, "steady_s": t_m2}
+    print(f"  estimate_uncertainty sharded first {t_m1:.3f} s, steady {t_m2:.3f} s (single-device steady {t_one:.3f} s): "
+          f"sigma and rho({list(MESH_LAGS)} m) equal to the bit; launches {unc_launches}")
     del dem, other, sig1, sig2
     empty_all()
 
@@ -2618,14 +2616,15 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
     """The 14-attribute suite at n x n over a 2 x 2 mesh of four cards, whose planes no one
     card holds: the planes stay on their cards, each kernel launches once a card, and a crop
     around the middle of every seam segment and the central corner, computed whole on one card
-    with the whole DEM's centre, equals the sharded planes' window to the bit."""
+    by the kernels' plain versions with the whole DEM's centre, equals the sharded planes'
+    window to the bit (so every card's block is held to the plain versions)."""
     import torch
 
     from xdem_tpu_torch import terrain
     from xdem_tpu_torch.parallel import halo, make_mesh, shard, sharded
     from xdem_tpu_torch.parallel._collectives import to
     from xdem_tpu_torch.terrain import cuda_kernels as ck
-    from xdem_tpu_torch.terrain import surfit
+    from xdem_tpu_torch.terrain import surfit, window
     from xdem_tpu_torch.terrain.terrain import _terrain_epilog
 
     dev = cards[0]
@@ -2672,14 +2671,15 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
         print(f"  {d} peak {pk:.2f} GB, holding {hd:.2f} GB of planes after the call ({line})")
     out.update(launches=launches, peak_gb=peaks, held_gb=held, first_ms=t_first * 1e3)
 
-    # Every seam and the central corner: the crop computed whole on one card with the whole
-    # DEM's centre (a margin of BIG_MARGIN >= the largest halo, 6) against the sharded window.
+    # Every seam and the central corner: the crop computed whole on one card by the plain
+    # versions with the whole DEM's centre (a margin of BIG_MARGIN >= the largest halo, 6)
+    # against the sharded window.
     m, half = BIG_MARGIN, BIG_CROP // 2
     for name, (rc, cc) in seam_points(n).items():
         r0, c0 = rc - half, cc - half
         crop = z[r0 - m:r0 + BIG_CROP + m, c0 - m:c0 + BIG_CROP + m].contiguous()
-        stack = torch.cat([ck.surface_attributes(crop, RES, SUITE[:9], center=center),
-                           ck.windowed_indexes(crop, RES, SUITE[9:13], 3), ck.fractal_roughness(crop, 13)[None]])
+        stack = torch.cat([surfit.surface_attributes(crop, RES, SUITE[:9], center=center),
+                           window.windowed_indexes(crop, RES, SUITE[9:13], 3), window.fractal_roughness(crop, 13)[None]])
         voids = 0
         for i, a in enumerate(SUITE):
             want = _terrain_epilog(stack[i], a, True, torch.float32)[m:-m, m:-m]
@@ -2687,8 +2687,8 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
             check(equal_planes(got, want), f"{name} crop at ({rc}, {cc}): sharded {a} differs from the whole crop")
             voids = max(voids, int(torch.isnan(want).sum()))
         check(voids > 0 and bool(torch.isfinite(crop).any()), f"{name} crop: no void or no finite pixel")
-        print(f"  {name} crop ({BIG_CROP}^2 around ({rc}, {cc}), margin {m}): all 14 planes equal to the whole "
-              f"crop's to the bit, NaN masks included ({voids} NaN pixels at most)")
+        print(f"  {name} crop ({BIG_CROP}^2 around ({rc}, {cc}), margin {m}): all 14 planes equal to the plain "
+              f"versions' whole crop to the bit, NaN masks included ({voids} NaN pixels at most)")
     del planes
     empty_all()
 
@@ -2829,7 +2829,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     print(f"[13/14] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE} (four shards of {dev}):")
-    msh = phase_mesh(dev, MAIN_SIZE, card, res, unc, cor, [dev])
+    msh = phase_mesh(dev, MAIN_SIZE, card, [dev])
     print(f"[14/14] the suite at {BIG_SIZE} x {BIG_SIZE} over four cards: not run here; it needs four cards "
           f"(python3 chip_smoke.py --cards 4)")
 
@@ -2862,7 +2862,7 @@ def main_cards(cards, card_lines: list[str], name: str) -> int:
             max_err[k] = max(max_err[k], v)
     print("[4-12/14] not run with --cards: they run on one card (python3 chip_smoke.py)")
     print(f"[13/14] the multi-device path at {MAIN_SIZE} x {MAIN_SIZE} over {len(cards)} cards:")
-    msh = phase_mesh(cards[0], MAIN_SIZE, card_lines[0], None, None, None, cards)
+    msh = phase_mesh(cards[0], MAIN_SIZE, card_lines[0], cards)
     empty_all()
     print(f"[14/14] the 14-attribute suite at {BIG_SIZE} x {BIG_SIZE} over a 2 x 2 mesh of four cards:")
     big = phase_big(cards, BIG_SIZE, card_lines)

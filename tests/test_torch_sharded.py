@@ -134,14 +134,26 @@ def test_sharded_stencil_matches_xdem_tpu(n, dem):
 
 
 def test_to_refuses_what_the_device_cannot_hold(dem, monkeypatch):
+    """A card short of the bytes refuses before allocating, naming them; the host is not
+    checked (it fails as numpy would)."""
     plane = terrain.get_terrain_attribute(dem, "slope", resolution=20.0, mesh=cpu_mesh(4))
     assert plane.nbytes == dem.size * 4
     monkeypatch.setattr(sharded, "_free_bytes", lambda device: plane.nbytes - 1)
     with pytest.raises(MemoryError, match=f"needs {plane.nbytes} bytes"):
-        plane.to(CPU)
+        plane.to(torch.device("cuda", 0))
     with pytest.raises(MemoryError, match=f"needs {plane.nbytes} bytes"):
-        plane.numpy()
+        plane.to("cuda:1")
+    assert plane.numpy().shape == dem.shape and plane.to(CPU).shape == dem.shape
     assert plane.window(slice(0, 10), slice(0, 10)).shape == (10, 10)  # a window needs no room for all
+
+
+def test_blocks_hold_only_their_interior(dem):
+    """Each block of a mesh= plane owns storage of its own size: no halo-padded stack (nor
+    K1's radian planes) stays alive behind the planes."""
+    for p in terrain.get_terrain_attribute(dem, SUITE, resolution=20.0, mesh=cpu_mesh(4)):
+        for row in p._blocks:
+            for b in row:
+                assert b.is_contiguous() and b.untyped_storage().nbytes() == b.numel() * b.element_size()
 
 
 def test_the_dem_is_cut_once_per_call(dem, monkeypatch):
@@ -200,6 +212,27 @@ def test_uncertainty_and_terrain_bias_give_their_single_device_results(monkeypat
     pipe = lambda: coreg.VerticalShift() + coreg.TerrainBias(**tb)  # noqa: E731
     _bits(pipe().fit(ref, tba, random_state=1, mesh=mesh).apply(tba).data,
           pipe().fit(ref, tba, random_state=1).apply(tba).data, "pipeline with mesh=")
+
+
+@pytest.mark.parametrize("with_mesh", [False, True])
+def test_sharded_planes_feed_the_statistics(dem, with_mesh):
+    """A mesh= plane given to infer_heteroscedasticity_from_stable, with or without mesh=,
+    is assembled where inputs are converted and gives the whole plane's result to the bit."""
+    from xdem_tpu_torch import spatialstats
+
+    mesh = cpu_mesh(4)
+    rng = np.random.default_rng(9)
+    dh = torch.from_numpy(rng.normal(0, 1, dem.shape).astype(np.float32))
+    slope = terrain.get_terrain_attribute(dem, "slope", resolution=20.0)
+    kw = dict(list_var_names=["slope"], subsample=2000, random_state=4, mesh=mesh if with_mesh else None)
+    want, df_w, _ = spatialstats.infer_heteroscedasticity_from_stable(dh, [slope], **kw)
+    sharded_slope = terrain.get_terrain_attribute(dem, "slope", resolution=20.0, mesh=mesh)
+    got, df_g, _ = spatialstats.infer_heteroscedasticity_from_stable(dh, [sharded_slope], **kw)
+    _bits(got, want, "sigma")
+    for k in df_w:
+        np.testing.assert_array_equal(df_g[k], df_w[k])
+    _bits(_device.as_tensor(sharded_slope), slope, "as_tensor")
+    assert _device.as_tensor(sharded_slope, device=CPU).device == CPU
 
 
 # ---------------------------------------------------------------------- the CPU only when asked

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch.ops.transfer import unmask
+from xdem_tpu_torch.parallel.sharded import ShardedArray
 
 DTYPE = torch.float32
 
@@ -49,7 +50,10 @@ def synchronize(devices: Iterable[torch.device] | None = None) -> None:
 def as_tensor(x: Any, device: torch.device | str | None = None) -> torch.Tensor:
     """A float32 tensor of `x`: masked arrays become NaN-filled, numpy goes to `device`
     (default :func:`default_device`), a tensor (or a Raster's data) keeps its device unless
-    `device` is given."""
+    `device` is given, and a `parallel.ShardedArray` is assembled on `device` (default: its
+    mesh's root)."""
+    if isinstance(x, ShardedArray):
+        x = x.to(device or x.mesh.root)
     x = unmask(x)
     if isinstance(x, torch.Tensor):
         t = x if device is None else x.to(device)

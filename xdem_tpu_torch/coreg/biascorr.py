@@ -32,7 +32,6 @@ from xdem_tpu_torch.fit import (
     sumsin_1d,
 )
 from xdem_tpu_torch.georef import Affine
-from xdem_tpu_torch.parallel.sharded import ShardedArray
 from xdem_tpu_torch.pointcloud import PointCloud
 
 # Workflow names mapped to (model function, robust optimizer).
@@ -337,9 +336,7 @@ class TerrainBias(BiasCorr):
 
         name = self._meta["inputs"]["specific"]["terrain_attribute"]
         if bias_vars is not None and name in bias_vars:
-            var = bias_vars[name]
-            # A plane from a mesh= terrain call: the binning and the apply read it whole.
-            return var.to(grid.device) if isinstance(var, ShardedArray) else var
+            return bias_vars[name]
         if name == "elevation":
             return grid
         return terrain.get_terrain_attribute(grid, attribute=name, resolution=(transform.xres, transform.yres))

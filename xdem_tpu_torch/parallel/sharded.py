@@ -26,14 +26,10 @@ from xdem_tpu_torch.parallel.mesh import Mesh, as_mesh_2d
 
 
 def _free_bytes(device: torch.device) -> int:
-    """Bytes a new tensor can take on `device`: the card's free memory plus what PyTorch's
-    allocator holds unused there, or the host's available memory."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return int(free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device))
-    with open("/proc/meminfo") as f:
-        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable:"))
+    """Bytes a new tensor can take on the card `device`: its free memory plus what PyTorch's
+    allocator holds unused there."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device))
 
 
 def _span(start: int, stop: int, block: int, n: int) -> list[tuple[int, int, int]]:
@@ -122,11 +118,11 @@ class ShardedArray:
         return _assemble(self, rows, cols, torch.device(device) if device is not None else self.mesh.root)
 
     def to(self, device: torch.device | str) -> torch.Tensor:
-        """The whole raster in one tensor on `device`. Raises MemoryError, with the bytes it
-        needs, when that is more than the device has free."""
+        """The whole raster in one tensor on `device`. On a card, raises MemoryError, with the
+        bytes it needs, when that is more than the card has free; on the host, fails as
+        allocating the array would."""
         device = torch.device(device)
-        free = _free_bytes(device)
-        if self.nbytes > free:
+        if device.type == "cuda" and self.nbytes > (free := _free_bytes(device)):
             raise MemoryError(
                 f"Assembling this {self.shape} {self.dtype} raster on {device} needs {self.nbytes} bytes, "
                 f"and {device} has {free} free: keep it on the mesh (blocks, window(), map()).")

@@ -35,6 +35,7 @@ from xdem_tpu_torch.ops.reductions import _NMAD_FACTOR, binned_median
 from xdem_tpu_torch.ops.reductions import nmad as _nmad_tensor
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import host_array as _host
+from xdem_tpu_torch.parallel.sharded import ShardedArray
 from xdem_tpu_torch.raster import Raster
 from xdem_tpu_torch.raster import mask_on as _mask_on
 
@@ -43,7 +44,10 @@ Table = dict  # column name -> 1-D numpy array
 
 def _raster_data(x: Any) -> tuple[Any, Any]:
     """(x's data tensor, x) for a Raster, (x, None) otherwise: a Raster's grid serves the
-    Vector masks and its pixel size the default gsd."""
+    Vector masks and its pixel size the default gsd. A `parallel.ShardedArray` (a plane of a
+    ``mesh=`` terrain call) is assembled on its mesh's root."""
+    if isinstance(x, ShardedArray):
+        return x.to(x.mesh.root), None
     return (x.data, x) if isinstance(x, Raster) else (x, None)
 
 

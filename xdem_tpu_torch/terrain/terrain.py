@@ -202,16 +202,24 @@ def get_terrain_attribute(
         return fn(arr) if mesh is None else sharded_stencil(fn, src, halo=halo, mesh=mesh)
 
     planes: dict[str, Any] = {}
+
+    def keep(names, stack) -> None:
+        """A family's planes after their epilog. With a mesh each block's epilog runs on its
+        card into a block of its own, so the family's halo-padded output (K1's radian planes
+        too) is freed before the next family runs."""
+        for a, p in zip(names, stack):
+            planes[a] = _terrain_epilog(p, a, degrees, out_dtype) if mesh is None else p.map(
+                lambda b, a=a: _terrain_epilog(b, a, degrees, out_dtype).contiguous())
+
     if sf_attrs:
         kwargs = dict(surface_fit=surface_fit, curv_method=curv_method,
                       hillshade_altitude=float(hillshade_altitude), hillshade_azimuth=float(hillshade_azimuth),
                       hillshade_z_factor=float(hillshade_z_factor))
         if mesh is None:
-            stack = cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs)
+            keep(sf_attrs, cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs))
         else:  # the whole DEM's centre, on its device, as the single-device call removes it
-            stack = sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
-                                               center=surfit.dem_center(arr), **kwargs)
-        planes.update(zip(sf_attrs, stack))
+            keep(sf_attrs, sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
+                                                      center=surfit.dem_center(arr), **kwargs))
 
     # Rugosity is defined on a 3x3 window only (Jenness 2004): with window_size != 3 it
     # takes its own 3x3 pass, so [roughness@5x5, rugosity@3x3] matches the reference.
@@ -222,23 +230,20 @@ def get_terrain_attribute(
     if win_attrs:
         shared = [a for a in win_attrs if not (a == "rugosity" and window_size != 3)]
         if shared:
-            planes.update(zip(shared, windowed(tuple(shared), window_size)))
+            keep(shared, windowed(tuple(shared), window_size))
         if "rugosity" in win_attrs and window_size != 3:
-            planes["rugosity"] = windowed(("rugosity",), 3)[0]
+            keep(["rugosity"], windowed(("rugosity",), 3))
 
     if "fractal_roughness" in attrs:
-        planes["fractal_roughness"] = stencil(
-            lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal), window_size_fractal // 2)
+        keep(["fractal_roughness"], [stencil(
+            lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal), window_size_fractal // 2)])
 
     # Texture shading is a global FFT filter: it runs whole, and a mesh gets its blocks.
     if "texture_shading" in attrs:
         tex = freq.texture_shading(arr, alpha=texture_alpha)
-        planes["texture_shading"] = tex if mesh is None else shard(tex, src.mesh)
+        keep(["texture_shading"], [tex if mesh is None else shard(tex, src.mesh)])
 
-    if mesh is None:
-        ordered = [_terrain_epilog(planes[a], a, degrees, out_dtype) for a in attrs]
-    else:  # each block on its own card
-        ordered = [planes[a].map(lambda b, a=a: _terrain_epilog(b, a, degrees, out_dtype)) for a in attrs]
+    ordered = [planes[a] for a in attrs]
     if is_raster:
         # A Raster holds one tensor: sharded planes are assembled on the DEM's device.
         ordered = [Raster(o if mesh is None else o.to(arr.device), transform=dem.transform, crs=dem.crs,

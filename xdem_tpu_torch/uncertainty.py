@@ -139,8 +139,6 @@ def estimate_uncertainty(
                                               mesh=mesh)
         if not isinstance(attrs, list):
             attrs = [attrs]
-        if mesh is not None:  # the binning samples whole planes: assemble them on the DEM's device
-            attrs = [a.to(dem_t.device) for a in attrs]
         # The spread is binned on at most 5e6 stable samples; sigma covers the full extent.
         sig, _df, _err_fun = spatialstats.infer_heteroscedasticity_from_stable(
             dvalues=dh, list_var=attrs, list_var_names=list(list_vars), stable_mask=stable,
