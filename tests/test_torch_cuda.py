@@ -16,6 +16,7 @@ kernels are built with -fmad=false and add in the plain versions' order.
 """
 
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -867,3 +868,34 @@ def test_sharded_fits_on_the_card_equal_the_single_device_fits(cuda_device):
                  lambda: coreg.DhMinimize(subsample=20000), lambda: coreg.ICP(subsample=3000, nn_method="brute")):
         np.testing.assert_array_equal(make().fit(ref, tba, mesh=mesh, **kw).to_matrix(),
                                       make().fit(ref, tba, **kw).to_matrix())
+
+
+def test_the_centre_span_times_dem_center_on_its_stream(cuda_device):
+    """`terrain.center`'s stream time, from the span's own events, is within 2x of CUDA events
+    around `surfit.dem_center` alone (medians of five calls at 8192^2, where the card's work
+    outlasts the host's launches under the profiler)."""
+    from xdem_tpu_torch import profiler
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    dem = torch.rand((8192, 8192), generator=gen, device=cuda_device) * 1000.0
+    dem[100:120, 200:260] = float("nan")
+    surfit.dem_center(dem)
+    alone = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        surfit.dem_center(dem)
+        end.record()
+        end.synchronize()
+        alone.append(start.elapsed_time(end))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():  # torch 2.11 warns at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=acts):
+            for _ in range(5):
+                surfit.dem_center(dem)
+            torch.cuda.synchronize(cuda_device)
+    spans = [r for r in profiler.spans() if r.name == "xdem_tpu_torch.terrain.center"]
+    assert len(spans) == 5 and all(set(r.ms) == {dem.device.index} for r in spans)
+    traced = float(np.median([r.ms[dem.device.index] for r in spans]))
+    assert 0.5 <= traced / float(np.median(alone)) <= 2.0, ([r.ms for r in spans], alone)

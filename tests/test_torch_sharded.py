@@ -13,6 +13,8 @@ gave before results stayed on the mesh: equal to their single-device results to 
 
 from __future__ import annotations
 
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,6 +156,34 @@ def test_blocks_hold_only_their_interior(dem):
         for row in p._blocks:
             for b in row:
                 assert b.is_contiguous() and b.untyped_storage().nbytes() == b.numel() * b.element_size()
+
+
+def test_each_familys_padded_output_is_freed_before_the_next_family_runs(dem, monkeypatch):
+    """On a mesh the epilog copies each block's interior out, so no reference may keep a
+    family's halo-padded output (K1's ten radian planes a card at 50 000²) alive while the next
+    family runs."""
+    from xdem_tpu_torch.terrain import cuda_kernels
+
+    padded = []
+    real_k1, real_k2, real_k3 = (cuda_kernels.surface_attributes, cuda_kernels.windowed_indexes,
+                                 cuda_kernels.fractal_roughness)
+
+    def k1(*args, **kwargs):
+        out = real_k1(*args, **kwargs)
+        padded.append(weakref.ref(out))
+        return out
+
+    def after_k1(real):
+        def run(*args, **kwargs):
+            assert padded and all(r() is None for r in padded), "a padded K1 output is still alive"
+            return real(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(cuda_kernels, "surface_attributes", k1)
+    monkeypatch.setattr(cuda_kernels, "windowed_indexes", after_k1(real_k2))
+    monkeypatch.setattr(cuda_kernels, "fractal_roughness", after_k1(real_k3))
+    terrain.get_terrain_attribute(dem, SUITE, resolution=20.0, mesh=cpu_mesh(4))
+    assert len(padded) == 4
 
 
 def test_the_dem_is_cut_once_per_call(dem, monkeypatch):

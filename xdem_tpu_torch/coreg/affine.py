@@ -51,6 +51,7 @@ from xdem_tpu_torch.ops.reductions import masked_median
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask
 from xdem_tpu_torch.pointcloud import PointCloud
+from xdem_tpu_torch.profiler import span
 
 
 def _warn_if_not_converged(it: int, max_iterations: int, stat: float, tolerance: float,
@@ -396,21 +397,22 @@ def _nuth_kaab_iterations(z: list, r: list, c: list, rasters: list, slope_tan: l
     tol32 = float(np.float32(tolerance))  # the stop rule compares in f32
     it = 0
     while it < max_iterations and not (it >= 3 and stat < tol32):
-        dh = [_dh_device(*a, invert) for a in zip(z, r, c, rasters, replicate(sx, mesh), replicate(sy, mesh))]
-        vshift = median(dh)
-        y = [(d - v) / s for d, v, s in zip(dh, replicate(vshift, mesh), slope_tan)]
-        valid = [torch.isfinite(v) for v in y]
-        if bin_before_fit:
-            med = binned_median(y, bin_idx, valid)
-            p = _solve_cosine(*_cosine_normal_equations(G, med, torch.isfinite(med)))
-        else:
-            eqs = [_cosine_normal_equations(torch.stack([torch.cos(a), torch.sin(a), torch.ones_like(a)], 1), yv, ok)
-                   for a, yv, ok in zip(aspect, y, valid)]
-            p = _solve_cosine(psum([e[0] for e in eqs], mesh), psum([e[1] for e in eqs], mesh))
-        north_px, east_px = p[0], p[1]  # a*cos(b), a*sin(b)
-        sx = sx + east_px
-        sy = sy + north_px
-        stat = float(torch.hypot(east_px, north_px))
+        with span("xdem_tpu_torch.coreg.nuth_kaab.step"):  # the host read of `stat` ends it with the step
+            dh = [_dh_device(*a, invert) for a in zip(z, r, c, rasters, replicate(sx, mesh), replicate(sy, mesh))]
+            vshift = median(dh)
+            y = [(d - v) / s for d, v, s in zip(dh, replicate(vshift, mesh), slope_tan)]
+            valid = [torch.isfinite(v) for v in y]
+            if bin_before_fit:
+                med = binned_median(y, bin_idx, valid)
+                p = _solve_cosine(*_cosine_normal_equations(G, med, torch.isfinite(med)))
+            else:
+                eqs = [_cosine_normal_equations(torch.stack([torch.cos(a), torch.sin(a), torch.ones_like(a)], 1),
+                                                yv, ok) for a, yv, ok in zip(aspect, y, valid)]
+                p = _solve_cosine(psum([e[0] for e in eqs], mesh), psum([e[1] for e in eqs], mesh))
+            north_px, east_px = p[0], p[1]  # a*cos(b), a*sin(b)
+            sx = sx + east_px
+            sy = sy + north_px
+            stat = float(torch.hypot(east_px, north_px))
         it += 1
     return float(sx * res_x), float(sy * res_y), float(vshift), stat, it
 
@@ -536,24 +538,26 @@ def _nuth_kaab_rst_rst_device(
     the joint valid mask, and the iterative solve (with a `mesh`, the subsample drawn here is
     split over the mesh for the solve: `parallel.coreg.nuth_kaab_points_sharded`)."""
     h, w = ref.shape
-    slope_tan, aspect, valid = _nk_slope_aspect_valid(ref, tba, inlier)
-    n_valid = int(valid.sum())
+    with span("xdem_tpu_torch.coreg.nuth_kaab.prepare"):
+        slope_tan, aspect, valid = _nk_slope_aspect_valid(ref, tba, inlier)
+        n_valid = int(valid.sum())
     # An absolute count is fixed by the raster size (overflow picks are NaN-poisoned below);
     # a fraction is taken of the valid pixels.
     count = min(int(subsample), ref.numel()) if subsample > 1 else _count_from_subsample(subsample, n_valid)
 
-    generator = torch.Generator(device=ref.device).manual_seed(seed)
-    idx, picked_ok = topk_subsample(generator, valid.reshape(-1), count)
-    rr = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
-    cc = (idx % w).to(torch.float32)
-    pts_z = torch.where(picked_ok, ref.reshape(-1)[idx], torch.nan)
-    st = torch.where(picked_ok, slope_tan.reshape(-1)[idx], torch.nan)
-    asp = aspect.reshape(-1)[idx]
+    with span("xdem_tpu_torch.coreg.nuth_kaab.draw"):
+        generator = torch.Generator(device=ref.device).manual_seed(seed)
+        idx, picked_ok = topk_subsample(generator, valid.reshape(-1), count)
+        rr = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+        cc = (idx % w).to(torch.float32)
+        pts_z = torch.where(picked_ok, ref.reshape(-1)[idx], torch.nan)
+        st = torch.where(picked_ok, slope_tan.reshape(-1)[idx], torch.nan)
+        asp = aspect.reshape(-1)[idx]
 
-    # Aspect-degeneracy diagnostic: how many aspect bins are well populated in the subsample.
-    bin_idx = torch.clamp((asp / (2 * math.pi / n_bins)).to(torch.int32), 0, n_bins - 1)
-    parked = torch.where(torch.isfinite(st), bin_idx.long(), n_bins)
-    populated = int((torch.bincount(parked, minlength=n_bins + 1)[:n_bins] > 10).sum())
+        # Aspect-degeneracy diagnostic: how many aspect bins are well populated in the subsample.
+        bin_idx = torch.clamp((asp / (2 * math.pi / n_bins)).to(torch.int32), 0, n_bins - 1)
+        parked = torch.where(torch.isfinite(st), bin_idx.long(), n_bins)
+        populated = int((torch.bincount(parked, minlength=n_bins + 1)[:n_bins] > 10).sum())
 
     sx, sy, vshift, stat, it = _solver(mesh)(
         pts_z, rr, cc, tba, st, asp, res_x, res_y, tolerance,

@@ -23,6 +23,7 @@ import torch
 from xdem_tpu_torch.parallel._collectives import to
 from xdem_tpu_torch.parallel.mesh import Mesh
 from xdem_tpu_torch.parallel.sharded import ShardedArray, shard
+from xdem_tpu_torch.profiler import span
 
 
 def _exchange(src: ShardedArray, halo: int) -> list[list[torch.Tensor]]:
@@ -50,22 +51,23 @@ def _exchange(src: ShardedArray, halo: int) -> list[list[torch.Tensor]]:
     # Every card's own block and NaN edges first, then the neighbours' strips: a copy between
     # two cards waits for the work already queued on both, so queuing a card's own copy after
     # a neighbour's strip would chain the cards' copies one after another.
-    padded = [[torch.empty((bh + 2 * halo, bw + 2 * halo), dtype=src.dtype, device=src.mesh.devices[iy, ix])
-               for ix in range(n_rx)] for iy in range(n_ry)]
-    for own in (True, False):
-        for iy in range(n_ry):
-            for ix in range(n_rx):
-                for dy in (-1, 0, 1):
-                    for dx in (-1, 0, 1):
-                        jy, jx = iy + dy, ix + dx
-                        inside = 0 <= jy < n_ry and 0 <= jx < n_rx
-                        if own != (dy == dx == 0 or not inside):
-                            continue
-                        target = padded[iy][ix][dst[dy], dst_c[dx]]
-                        if inside:
-                            target.copy_(src._blocks[jy][jx][sent[dy], sent_c[dx]], non_blocking=True)
-                        else:
-                            target.fill_(float("nan"))
+    with span("xdem_tpu_torch.parallel.exchange", devices=src.mesh.devices.flat):
+        padded = [[torch.empty((bh + 2 * halo, bw + 2 * halo), dtype=src.dtype, device=src.mesh.devices[iy, ix])
+                   for ix in range(n_rx)] for iy in range(n_ry)]
+        for own in (True, False):
+            for iy in range(n_ry):
+                for ix in range(n_rx):
+                    for dy in (-1, 0, 1):
+                        for dx in (-1, 0, 1):
+                            jy, jx = iy + dy, ix + dx
+                            inside = 0 <= jy < n_ry and 0 <= jx < n_rx
+                            if own != (dy == dx == 0 or not inside):
+                                continue
+                            target = padded[iy][ix][dst[dy], dst_c[dx]]
+                            if inside:
+                                target.copy_(src._blocks[jy][jx][sent[dy], sent_c[dx]], non_blocking=True)
+                            else:
+                                target.fill_(float("nan"))
     return padded
 
 

@@ -23,6 +23,7 @@ import torch
 
 from xdem_tpu_torch.parallel._collectives import to
 from xdem_tpu_torch.parallel.mesh import Mesh, as_mesh_2d
+from xdem_tpu_torch.profiler import span
 
 
 def _free_bytes(device: torch.device) -> int:
@@ -151,6 +152,7 @@ def shard(arr: torch.Tensor, mesh: Mesh) -> ShardedArray:
     if ph or pw:
         arr = torch.nn.functional.pad(arr, (0, pw, 0, ph), value=float("nan"))
     bh, bw = (h + ph) // n_ry, (w + pw) // n_rx
-    blocks = [[to(arr[iy * bh:(iy + 1) * bh, ix * bw:(ix + 1) * bw], mesh.devices[iy, ix]).contiguous()
-               for ix in range(n_rx)] for iy in range(n_ry)]
+    with span("xdem_tpu_torch.parallel.scatter", devices=mesh.devices.flat):
+        blocks = [[to(arr[iy * bh:(iy + 1) * bh, ix * bw:(ix + 1) * bw], mesh.devices[iy, ix]).contiguous()
+                   for ix in range(n_rx)] for iy in range(n_ry)]
     return ShardedArray(blocks, mesh, (h, w))

@@ -36,6 +36,7 @@ from xdem_tpu_torch.ops.reductions import nmad as _nmad_tensor
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import host_array as _host
 from xdem_tpu_torch.parallel.sharded import ShardedArray
+from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.raster import Raster
 from xdem_tpu_torch.raster import mask_on as _mask_on
 
@@ -654,7 +655,9 @@ def infer_heteroscedasticity_from_stable(
         inc = _mask_on(stable_mask, None, d.shape, d.device)
         exc = _mask_on(unstable_mask, None, d.shape, d.device)
         count = int(min(subsample, d.numel()))
-        gathered = _hetero_prepare_device(d, vars_t, inc, exc, seed_from(random_state), count)
+        card = [d.device]
+        with span("xdem_tpu_torch.spatialstats.sigma.prepare", devices=card):
+            gathered = _hetero_prepare_device(d, vars_t, inc, exc, seed_from(random_state), count)
 
         device_stats = (
             spread_statistic is _stat_nmad
@@ -663,13 +666,16 @@ def infer_heteroscedasticity_from_stable(
         )
         if device_stats:
             n_bins = int(list_var_bins) if list_var_bins is not None else 10
-            tables, gmin, gmax = _hetero_bin_tables_device(gathered, n_bins)
-            df = _table_from_device_bins(tables, gmin, gmax, n_bins, list_var_names, spread_statistic.__name__)
-            unscaled = interp_nd_binning(df, list_var_names=list(list_var_names),
-                                         statistic=spread_statistic.__name__, min_count=min_count)
-            scale_dev, sig = _scale_and_sigma_device(gathered, unscaled.mids_ext, unscaled.grid_ext,
-                                                     float(fac_spread_outliers), vars_t, mesh)
-            scale = float(scale_dev)
+            with span("xdem_tpu_torch.spatialstats.sigma.bins", devices=card):
+                tables, gmin, gmax = _hetero_bin_tables_device(gathered, n_bins)
+            with span("xdem_tpu_torch.spatialstats.sigma.tables", devices=card):
+                df = _table_from_device_bins(tables, gmin, gmax, n_bins, list_var_names, spread_statistic.__name__)
+                unscaled = interp_nd_binning(df, list_var_names=list(list_var_names),
+                                             statistic=spread_statistic.__name__, min_count=min_count)
+            with span("xdem_tpu_torch.spatialstats.sigma.grid", devices=card):
+                scale_dev, sig = _scale_and_sigma_device(gathered, unscaled.mids_ext, unscaled.grid_ext,
+                                                         float(fac_spread_outliers), vars_t, mesh)
+                scale = float(scale_dev)
 
             def error_fun(*args: np.ndarray) -> np.ndarray:
                 return scale * unscaled(*args)
@@ -1731,12 +1737,14 @@ def fit_sum_model_variogram(
 ) -> tuple[Callable[[np.ndarray], np.ndarray], Table]:
     """Weighted bounded fit of a sum of variogram models to an empirical variogram: scipy's
     trf ``curve_fit`` on the host, p0 from the moving-average sill. Returns (gamma function,
-    parameters table with ``model``, ``range``, ``psill``)."""
+    parameters table with ``model``, ``range``, ``psill``). The fit's span counts the
+    objective's evaluations (``evaluations``)."""
     from scipy.optimize import curve_fit
 
     model_names = [_get_variogram_model_name(m) for m in list_models]
 
     def variogram_sum(h, *args):
+        fit_span.count("evaluations")
         out = np.zeros(np.shape(h))
         for i, name in enumerate(model_names):
             out = out + _model_gamma(h, name, args[2 * i], args[2 * i + 1])
@@ -1760,12 +1768,13 @@ def fit_sum_model_variogram(
             p0 += [((i + 1) / len(model_names)) * lags[-1], ((i + 1) / len(model_names)) * max_var]
 
     final_bounds = np.transpose(np.asarray(bounds))
-    if not (np.all(np.isnan(err)) or np.all(err == 0)):
-        ok = np.isfinite(err) & (err > 0)
-        cof, _ = curve_fit(variogram_sum, lags[ok], exp[ok], method="trf", p0=p0, bounds=final_bounds,
-                           sigma=err[ok], maxfev=maxfev)
-    else:
-        cof, _ = curve_fit(variogram_sum, lags, exp, method="trf", p0=p0, bounds=final_bounds, maxfev=maxfev)
+    with span("xdem_tpu_torch.spatialstats.variogram.fit") as fit_span:
+        if not (np.all(np.isnan(err)) or np.all(err == 0)):
+            ok = np.isfinite(err) & (err > 0)
+            cof, _ = curve_fit(variogram_sum, lags[ok], exp[ok], method="trf", p0=p0, bounds=final_bounds,
+                               sigma=err[ok], maxfev=maxfev)
+        else:
+            cof, _ = curve_fit(variogram_sum, lags, exp, method="trf", p0=p0, bounds=final_bounds, maxfev=maxfev)
     params = {"model": np.array(model_names), "range": np.asarray(cof[0::2], np.float64),
               "psill": np.asarray(cof[1::2], np.float64)}
     return get_variogram_model_func(params), params
@@ -1788,11 +1797,13 @@ def _estimate_model_spatial_correlation(
     **kwargs: Any,
 ) -> tuple[Table, Table, Callable[[np.ndarray], np.ndarray]]:
     """Empirical variogram, sum-of-models fit and correlation function."""
-    emp = sample_empirical_variogram(
-        values=dvalues, gsd=gsd, coords=coords, subsample=subsample, subsample_method=subsample_method,
-        n_variograms=n_variograms, n_jobs=n_jobs, random_state=random_state, estimator=estimator,
-        mesh=mesh, **kwargs,
-    )
+    card = [dvalues.device] if isinstance(dvalues, torch.Tensor) else []
+    with span("xdem_tpu_torch.spatialstats.variogram.sample", devices=card):
+        emp = sample_empirical_variogram(
+            values=dvalues, gsd=gsd, coords=coords, subsample=subsample, subsample_method=subsample_method,
+            n_variograms=n_variograms, n_jobs=n_jobs, random_state=random_state, estimator=estimator,
+            mesh=mesh, **kwargs,
+        )
     _, params = fit_sum_model_variogram(list_models, emp, bounds=bounds, p0=p0)
     return emp, params, correlation_from_variogram(params)
 

@@ -18,6 +18,8 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
+from xdem_tpu_torch.profiler import span
+
 SurfaceFit = Literal["Horn", "ZevenbergThorne", "Florinsky"]
 CurvMethod = Literal["geometric", "directional"]
 
@@ -104,9 +106,10 @@ def fit_plan(attrs: Sequence[str], surface_fit: str) -> tuple[tuple[str, ...], t
 def dem_center(dem: torch.Tensor) -> torch.Tensor:
     """Mean of the finite pixels (0-dim tensor; 0 when none is finite). All derivative
     stencils annihilate constants, and removing the large constant keeps f32 sums accurate."""
-    valid = torch.isfinite(dem)
-    mean = torch.nanmean(torch.where(valid, dem, torch.nan))
-    return torch.where(valid.any(), mean, torch.zeros_like(mean))
+    with span("xdem_tpu_torch.terrain.center", devices=[dem.device]):
+        valid = torch.isfinite(dem)
+        mean = torch.nanmean(torch.where(valid, dem, torch.nan))
+        return torch.where(valid.any(), mean, torch.zeros_like(mean))
 
 
 def divisors(roles: Sequence[str], names: Sequence[str], resolution: float,

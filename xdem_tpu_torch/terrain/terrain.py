@@ -19,6 +19,7 @@ import torch
 
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.profiler import profile as _profile
+from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.parallel.halo import sharded_stencil, sharded_surface_attributes
 from xdem_tpu_torch.parallel.sharded import shard
 from xdem_tpu_torch.raster import Raster
@@ -207,25 +208,30 @@ def get_terrain_attribute(
         """A family's planes after their epilog. With a mesh each block's epilog runs on its
         card into a block of its own, so the family's halo-padded output (K1's radian planes
         too) is freed before the next family runs."""
-        for a, p in zip(names, stack):
-            planes[a] = _terrain_epilog(p, a, degrees, out_dtype) if mesh is None else p.map(
-                lambda b, a=a: _terrain_epilog(b, a, degrees, out_dtype).contiguous())
+        with span("xdem_tpu_torch.terrain.epilog"):
+            for a, p in zip(names, stack):
+                planes[a] = _terrain_epilog(p, a, degrees, out_dtype) if mesh is None else p.map(
+                    lambda b, a=a: _terrain_epilog(b, a, degrees, out_dtype).contiguous())
 
     if sf_attrs:
         kwargs = dict(surface_fit=surface_fit, curv_method=curv_method,
                       hillshade_altitude=float(hillshade_altitude), hillshade_azimuth=float(hillshade_azimuth),
                       hillshade_z_factor=float(hillshade_z_factor))
-        if mesh is None:
-            keep(sf_attrs, cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs))
-        else:  # the whole DEM's centre, on its device, as the single-device call removes it
-            keep(sf_attrs, sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
-                                                      center=surfit.dem_center(arr), **kwargs))
+        with span("xdem_tpu_torch.terrain.k1"):
+            if mesh is None:
+                stack = cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs)
+            else:  # the whole DEM's centre, on its device, as the single-device call removes it
+                stack = sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
+                                                   center=surfit.dem_center(arr), **kwargs)
+        keep(sf_attrs, stack)
+        del stack  # on a mesh, the padded output goes before the next family runs
 
     # Rugosity is defined on a 3x3 window only (Jenness 2004): with window_size != 3 it
     # takes its own 3x3 pass, so [roughness@5x5, rugosity@3x3] matches the reference.
     def windowed(attrs_w: tuple[str, ...], wsize: int) -> torch.Tensor:
-        return stencil(lambda a: cuda_kernels.windowed_indexes(a, resolution, attrs_w, window_size=wsize,
-                                                               tri_method=tri_method), wsize // 2)
+        with span("xdem_tpu_torch.terrain.k2"):
+            return stencil(lambda a: cuda_kernels.windowed_indexes(a, resolution, attrs_w, window_size=wsize,
+                                                                   tri_method=tri_method), wsize // 2)
 
     if win_attrs:
         shared = [a for a in win_attrs if not (a == "rugosity" and window_size != 3)]
@@ -235,13 +241,18 @@ def get_terrain_attribute(
             keep(["rugosity"], windowed(("rugosity",), 3))
 
     if "fractal_roughness" in attrs:
-        keep(["fractal_roughness"], [stencil(
-            lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal), window_size_fractal // 2)])
+        with span("xdem_tpu_torch.terrain.k3"):
+            fractal = stencil(lambda a: cuda_kernels.fractal_roughness(a, window_size=window_size_fractal),
+                              window_size_fractal // 2)
+        keep(["fractal_roughness"], [fractal])
+        del fractal
 
     # Texture shading is a global FFT filter: it runs whole, and a mesh gets its blocks.
     if "texture_shading" in attrs:
-        tex = freq.texture_shading(arr, alpha=texture_alpha)
-        keep(["texture_shading"], [tex if mesh is None else shard(tex, src.mesh)])
+        with span("xdem_tpu_torch.terrain.texture"):
+            tex = freq.texture_shading(arr, alpha=texture_alpha)
+            tex = tex if mesh is None else shard(tex, src.mesh)
+        keep(["texture_shading"], [tex])
 
     ordered = [planes[a] for a in attrs]
     if is_raster:

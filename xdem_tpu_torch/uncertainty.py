@@ -36,6 +36,8 @@ from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.reductions import masked_nmad
 from xdem_tpu_torch.pointcloud import PointCloud
+from xdem_tpu_torch.profiler import profile as _profile
+from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.raster import Raster, mask_on
 
 __all__ = ["estimate_uncertainty"]
@@ -51,6 +53,7 @@ def _stable_spread(dh: torch.Tensor, stable: torch.Tensor | None,
     return float(spread_estimator(dh[keep].to(torch.float64).cpu().numpy()))
 
 
+@_profile("xdem_tpu_torch.uncertainty.estimate_uncertainty", memprof=True)
 def estimate_uncertainty(
     dem: Any,
     other_elev: Any,
@@ -135,8 +138,9 @@ def estimate_uncertainty(
     stable = mask_on(stable_terrain, dem_r, dh.shape, dh.device)
 
     if approach == "H2022":
-        attrs = terrain.get_terrain_attribute(dem_t, list(list_vars), resolution=(transform.xres, transform.yres),
-                                              mesh=mesh)
+        with span("xdem_tpu_torch.uncertainty.attributes"):
+            attrs = terrain.get_terrain_attribute(dem_t, list(list_vars),
+                                                  resolution=(transform.xres, transform.yres), mesh=mesh)
         if not isinstance(attrs, list):
             attrs = [attrs]
         # The spread is binned on at most 5e6 stable samples; sigma covers the full extent.
@@ -243,7 +247,8 @@ def _estimate_uncertainty_points(dem: Raster, other_elev: Any, stable_terrain: A
     coords = torch.stack([x, y], dim=1).cpu().numpy()
     gsd = float(dem.res[0])
     if approach == "H2022":
-        attrs = terrain.get_terrain_attribute(dem, list(list_vars))
+        with span("xdem_tpu_torch.uncertainty.attributes"):
+            attrs = terrain.get_terrain_attribute(dem, list(list_vars))
         if not isinstance(attrs, list):
             attrs = [attrs]
         # Every stable point is binned (a subsample of all of them), on the device: the error at
