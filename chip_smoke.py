@@ -9,7 +9,7 @@ last line, whose "count" is the number of cards the run used.
 
 Phases:
   1. device: the card's name and power limit; exits non-zero without CUDA;
-  2. build: compiles the CUDA kernels K1, K2, K3 from ``xdem_tpu_torch/csrc`` with nvcc;
+  2. build: compiles the CUDA kernels K1, K2, K3 and the centre from ``xdem_tpu_torch/csrc`` with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
      2047 x 2061 DEM with NaN holes, a NaN border strip, an inf and a -inf pixel. All three
      are held to the bit (max abs error 0, identical NaN masks), on the ragged width (scalar
@@ -21,15 +21,19 @@ Phases:
      w = 5, 6 and 21 over a shared tile; the last window whose tile fits in shared memory and
      the next (global reads) on a 512 x 520 DEM. K3 on every route: windows 5, 8, 13, 21 on
      the whole DEM, and the last window whose box-maxima planes fit in shared memory and the
-     next (global reads) on a 512 x 520 crop;
+     next (global reads) on a 512 x 520 crop. The centre (the mean of the finite pixels that K1
+     removes) within one float32 ulp of the float64 mean, on the DEM and on a view of it that
+     starts off a 16-byte boundary;
   4. main path at 10 000 x 10 000 (20 m pixels): the 14-attribute terrain suite and a
      Nuth & Kääb fit + apply on a seeded spectral DEM pair shifted by (-9.2, 4.6, -2.35) m.
      Every kernel must have launched; the fit must recover the shift within 5 % and cut
      var(dh) below 1 %; suite, kernel (beside plain and the kernel's bound, with the card's
      name and power limit) and fit times are printed. K1 is timed three ways: the kernel
-     alone (`center=` given), `dem_center` alone, and the wrapper (both); K2 and K3 through
+     alone (`center=` given), the centre alone, and the wrapper (both); K2 and K3 through
      their wrappers one launch at a time and alone (five launches per event pair), K2 also
-     without rugosity, with rugosity only, and at the runtime windows 5 and 21.
+     without rugosity, with rugosity only, and at the runtime windows 5 and 21. The centre on both
+     DEMs of the pair within one float32 ulp of the float64 mean, the same bits over five calls,
+     timed beside that float64 mean, torch's nanmean chain and its one-read bound.
   5. uncertainty at 10 000 x 10 000 (20 m): estimate_uncertainty (H2022, subsample 10 000) of
      a seeded spectral DEM against itself plus 0.004 x an independent field, as bench.py's
      10k^2 leg builds the pair. K1 must launch in each call; sigma must stay on the card,
@@ -78,7 +82,7 @@ Phases:
      tba.coregister_3d(ref) with the outlines' complement as inlier mask recovers the shift
      within 5 %; ref.estimate_uncertainty(aligned) passes phase 5's checks on sigma and rho. On a
      1024^2 pair made the same way the card is held against the CPU: reprojections 1e-6 of the mean magnitude,
-     to_vcrs 1e-6 m, attributes 1e-3, the fitted shift 1e-4 (the fit's subsample drawn on the card
+     to_vcrs 1e-6 m, attributes 1e-3 (both removing the card's centre), the fitted shift 1e-4 (the fit's subsample drawn on the card
      and replayed on the CPU: the two generators draw other points from one seed), and with one
      aligned DEM on both sigma 5e-3 (p99.9) and 1e-2 (max), rho 5e-3. Times and the phase's peak
      memory are printed.
@@ -148,8 +152,10 @@ Phases:
      printed; a 1024^2 crop around the middle of each seam segment and the central corner, computed
      whole on one card with the whole DEM's centre, equals the sharded window to the bit with
      identical NaN masks. First and steady suite times on the host clock between waits on every
-     card, the one scatter, each halo exchange, dem_center, and each kernel on each card's block.
-The line before the last is a JSON summary of the kernels (with their launches on each path) and of
+     card, the one scatter, each halo exchange, and each kernel on each card's block. The centre of
+     the 10 GB DEM on the first card, held and timed as in phase 4.
+The line before the last is a JSON summary of the kernels (with their launches on each path; the
+centre's once a call, whatever the shards) and of
 the phases; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 """
@@ -221,6 +227,7 @@ KERNELS = {
     "windowed": ("xdem_tpu_torch/csrc/windowed.cu", "xdem_tpu/terrain/pallas_kernels.py:518"),
     "fractal": ("xdem_tpu_torch/csrc/fractal.cu", "xdem_tpu/terrain/pallas_kernels.py:370"),
 }
+CENTER_SOURCE = "xdem_tpu_torch/csrc/center.cu"  # replaces no TPU kernel: XLA takes that mean
 
 
 class SmokeFailure(RuntimeError):
@@ -370,6 +377,64 @@ def kernel_bounds(pixels: int, sf_attrs, windowed_attrs, fractal_w: int) -> dict
     return out
 
 
+def plain_center(z):
+    """The mean of z's finite values in float64 (0 where none is finite) as a 0-dim tensor on
+    z's card, in chunks of 2^28 values (no float64 copy of a large DEM) and with no read-back."""
+    import torch
+
+    total = torch.zeros((), dtype=torch.float64, device=z.device)
+    count = torch.zeros((), dtype=torch.int64, device=z.device)
+    for part in z.reshape(-1).split(1 << 28):
+        valid = torch.isfinite(part)
+        total += torch.where(valid, part, 0.0).sum(dtype=torch.float64)
+        count += valid.sum()
+    return torch.where(count > 0, total / count.clamp(min=1), 0.0)
+
+
+def center_ulps(got, want) -> float:
+    """Distance of the centre kernel's float32 value from the float64 mean rounded to float32, in
+    units of that float32's last place."""
+    import numpy as np
+
+    w = np.float32(float(want))
+    return abs(float(got) - float(w)) / float(np.spacing(abs(w)))
+
+
+def phase_center(z, label: str) -> dict:
+    """The centre kernel on `z` (on its card): within one float32 ulp of the float64 mean, the
+    same bits over five calls, and its time by CUDA events (five calls per event pair) beside the
+    float64 mean, torch's nanmean chain (surfit.dem_center, which the kernel replaced) and one
+    read of the DEM at HBM's rate."""
+    import torch
+
+    from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit
+
+    got, want = ck.dem_center(z), plain_center(z)
+    ulps = center_ulps(got, want)
+    check(ulps <= 1, f"{label}: the centre {float(got)!r} is {ulps:.1f} ulps from the float64 mean {float(want)!r}")
+    same = all(torch.equal(ck.dem_center(z).view(torch.int32), got.view(torch.int32)) for _ in range(5))
+    check(same, f"{label}: the centre's bits changed between calls")
+    out = {"value": float(got), "float64": float(want), "ulps": ulps, "max_abs_err": abs(float(got) - float(want)),
+           "ms": device_ms(lambda: ck.dem_center(z), calls=5, device=z.device),
+           "plain_ms": device_ms(lambda: plain_center(z), device=z.device),
+           "library_ms": device_ms(lambda: surfit.dem_center(z), device=z.device),
+           "bound_ms": 4 * z.numel() / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(f"  centre of {label}: {out['value']!r} against the float64 mean {out['float64']!r} ({ulps:.2f} ulp), the same "
+          f"bits over five calls; kernel {out['ms']:.3f} ms, float64 plain {out['plain_ms']:.3f} ms, torch's nanmean "
+          f"chain {out['library_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms (one read), roofline share "
+          f"{out['bound_ms'] / out['ms']:.3f}")
+    return out
+
+
+def center_summary(stats: dict, launches: dict[str, int]) -> dict:
+    """The centre's entry in the summary's list of kernels."""
+    return {"name": "center", "route": "cuda", "source": CENTER_SOURCE, "replaces": None,
+            "launches": next(iter(launches.values())), "launches_by_path": launches, "max_abs_err": stats["max_abs_err"],
+            "ulps": stats["ulps"], "ms": stats["ms"], "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+            "bound_by": stats["bound_by"], "library_ms": stats["library_ms"]}
+
+
 def phase_kernels(dev, shape=(2047, 2061), seed=7, verbose: bool = True) -> dict[str, float]:
     """Each kernel against its plain version on the card `dev`; returns max abs error per
     kernel. Every case is printed when `verbose`, else one line for the card."""
@@ -431,6 +496,8 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7, verbose: bool = True) -> dict
     for dem, fit, curv, attrs, zfac, center in k1_cases:
         kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zfac, center=center)
         got = ck.surface_attributes(dem, RES, attrs, **kw)
+        if center is None:  # the plain version takes the centre kernel's value, as K1's wrapper does
+            kw["center"] = ck.dem_center(dem)
         want = surfit.surface_attributes(dem, RES, attrs, **kw)
         label = f"{fit[:10]} {curv[:3]} z={zfac} W={dem.shape[1]} n={len(attrs)}" + ("" if center is None else " center=")
         compare_exact("surface_fit", label, attrs, got, want)
@@ -460,6 +527,13 @@ def phase_kernels(dev, shape=(2047, 2061), seed=7, verbose: bool = True) -> dict
         want = window.fractal_roughness(zz, ws)
         compare_exact("fractal", f"w={ws} ({tuple(zz.shape)[0]}x{tuple(zz.shape)[1]})", ("fractal_roughness",),
                       got[None], want[None])
+    # The centre within one float32 ulp of the float64 mean, on the DEM and on a view that starts
+    # off a 16-byte boundary (the kernel's scalar head).
+    for label, zz in (("DEM", zf), ("view at an offset", zf.reshape(-1)[3:])):
+        ulps = center_ulps(ck.dem_center(zz), plain_center(zz))
+        check(ulps <= 1, f"center on the {label}: {ulps:.1f} ulps from the float64 mean")
+        if verbose:
+            print(f"  {'center':11s} {label:38s} {ulps:.2f} ulp from the float64 mean")
     torch.cuda.synchronize(dev)
     check(got.device == torch.device(dev), f"the kernels' outputs are not on {dev}")
     if not verbose:
@@ -513,8 +587,9 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     aligned, _ = nk.apply(tba, transform=transform)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
-    print(f"  launches on the main path: {launches}")
-    for k, v in launches.items():
+    center_launches = ck.CALL_LAUNCHES["center"]
+    print(f"  launches on the main path: {launches}, center {center_launches}")
+    for k, v in {**launches, "center": center_launches}.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
 
     # Suite outputs: shape, finiteness, ranges, and agreement with the plain versions on a
@@ -529,7 +604,7 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     c0 = (n - cs) // 2
     crop = ref[c0:c0 + cs, c0:c0 + cs].contiguous()
     plain = [torch.rad2deg(p) if a in ("slope", "aspect") else p for a, p in zip(
-        SUITE[:9], surfit.surface_attributes(crop, RES, SUITE[:9], center=surfit.dem_center(ref)))]
+        SUITE[:9], surfit.surface_attributes(crop, RES, SUITE[:9], center=ck.dem_center(ref)))]
     plain[2] = torch.clamp(plain[2], 0, 255)
     plain += list(window.windowed_indexes(crop, RES, SUITE[9:13])) + [window.fractal_roughness(crop, 13)]
     # The crop is centred on the whole DEM's mean: with its own mean the stencil sums would
@@ -610,12 +685,15 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
               f"roofline share {bound / times[k][0]:.3f}   (plain, kernel, kernel, plain: "
               f"{p1:.3f}, {k1:.3f}, {k2:.3f}, {p2:.3f})")
         torch.cuda.empty_cache()
+    # The centre on both DEMs of the pair (tba has voids).
+    centers = {name: phase_center(z, f"{name} {n}x{n}") for name, z in (("ref", ref), ("tba", tba))}
+    torch.cuda.empty_cache()
     # K1 three ways: the kernel alone (the centre given, five launches per event pair, so the
-    # host's work hides behind the device's), dem_center alone, and the wrapper (both, above).
-    center = surfit.dem_center(ref)
+    # host's work hides behind the device's), the centre alone, and the wrapper (both, above).
+    center = ck.dem_center(ref)
     two = ("slope", "max_curvature")  # the uncertainty call's request
     k1 = {"kernel": device_ms(lambda: ck.surface_attributes(ref, RES, sf_attrs, center=center), calls=5),
-          "center": device_ms(lambda: surfit.dem_center(ref), calls=5),
+          "center": centers["ref"]["ms"],
           "wrapper": times["surface_fit"][0],
           "kernel_two": device_ms(lambda: ck.surface_attributes(ref, RES, two, center=center), calls=5),
           "wrapper_two": device_ms(lambda: ck.surface_attributes(ref, RES, two))}
@@ -624,7 +702,7 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
     rate = nbytes / (k1["kernel"] * 1e-3)
     print(f"  K1 surface fit, {len(sf_attrs)} attributes, Florinsky, {n}x{n} on {card}: kernel alone {k1['kernel']:.3f} ms "
           f"({nbytes / 1e9:.1f} GB at {rate / 1e12:.3f} TB/s, {100 * rate / HBM_BYTES_PER_S:.1f} % of {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
-          f"bound {bound:.3f} ms by {by}), dem_center alone {k1['center']:.3f} ms, wrapper (dem_center + kernel) "
+          f"bound {bound:.3f} ms by {by}), the centre alone {k1['center']:.3f} ms, wrapper (centre + kernel) "
           f"{k1['wrapper']:.3f} ms")
     bound_two = kernel_bounds(n * n, two, SUITE[9:13], 13)["surface_fit"]
     print(f"  K1 surface fit, {two}, Florinsky, {n}x{n} on {card}: kernel alone {k1['kernel_two']:.3f} ms, wrapper "
@@ -658,7 +736,8 @@ def phase_main(dev, n: int, card: str, seed: int = 0) -> dict:
           f"({fractal_ops_per_pixel(13)} f32 operations per pixel at the FMA-counted peak, {by}): "
           f"{100 * bound / times['fractal'][0]:.1f} % of the roofline, {200 * bound / times['fractal'][0]:.1f} % of "
           f"the unfused issue rate (none of its operations fuses) on {card}")
-    return {"launches": launches, "times": times, "bounds": bounds, "suite_ms": t_suite * 1e3,
+    return {"launches": launches, "center_launches": center_launches, "center": centers["ref"],
+            "center_tba": centers["tba"], "times": times, "bounds": bounds, "suite_ms": t_suite * 1e3,
             "fit_ms": t_fit_steady * 1e3, "first_fit_ms": t_fit * 1e3, "k1_ms": k1, "k2_ms": k2, "k3_ms": k3}
 
 
@@ -1405,6 +1484,7 @@ def phase_raster(dev, n: int, folder: str) -> dict:
     import xdem_tpu_torch.spatialstats as ss
     from xdem_tpu_torch import DEM, Raster, coreg, terrain
     from xdem_tpu_torch.terrain import cuda_kernels as ck
+    from xdem_tpu_torch.terrain import surfit
 
     dx, dy, dz = TBA_SHIFT
     out: dict = {}
@@ -1434,6 +1514,7 @@ def phase_raster(dev, n: int, folder: str) -> dict:
                                                                  random_state=42))
     t_path = time.perf_counter() - t_path
     launches = dict(ck.LAUNCHES)
+    center_launches = ck.CALL_LAUNCHES["center"]
     peak = torch.cuda.max_memory_allocated()
     print(f"  the file-to-result path in {t_path:.2f} s: DEM(path) ref {t_read_ref:.2f} s, tba {t_read_tba:.2f} s; "
           f"tba.reproject(ref) {t_rep_first:.3f} s; ref.reproject(crs=32632) {t_utm_first:.3f} s; to_vcrs('Ellipsoid') "
@@ -1442,7 +1523,8 @@ def phase_raster(dev, n: int, folder: str) -> dict:
     print(f"  launches on the file-to-result path: {launches}; peak memory {peak / 1e9:.2f} GB")
     check(launches == {"surface_fit": 2, "windowed": 1, "fractal": 1},
           f"the path launched {launches}, not K1 twice (attributes, uncertainty), K2 and K3 once")
-    out.update(read_s={"ref": t_read_ref, "tba": t_read_tba}, path_s=t_path, launches=launches, peak_gb=peak / 1e9)
+    out.update(read_s={"ref": t_read_ref, "tba": t_read_tba}, path_s=t_path, launches=launches,
+               center_launches=center_launches, peak_gb=peak / 1e9)
 
     for name, dem, want in (("ref", ref, ref_w), ("tba", tba, tba_w)):
         same = bool(torch.equal(torch.isnan(dem.data), torch.isnan(want.data))) and bool(
@@ -1530,6 +1612,11 @@ def phase_raster(dev, n: int, folder: str) -> dict:
     k = min(RASTER_CROP, n)
     pair_c = raster_pair(torch.device("cpu"), k, seed=3)
     stable_c = ~raster_outlines(k).create_mask(pair_c[0])
+    # The attributes on both remove the card's centre of the reference (the float64 mean rounded
+    # once; the CPU's nanmean may sit an ulp away): the same mathematics, but the curvatures of
+    # this smooth DEM are float32 rounding, and one ulp of the centre moves its flowline curvature
+    # by 6.5 of the mean magnitude at the worst pixel. Phase 3 holds the centre itself.
+    card_center = ck.dem_center(pair_c[0].data.to(dev))
     on = []
     undo = _replay(coreg_affine, "topk_subsample")
     try:
@@ -1537,9 +1624,13 @@ def phase_raster(dev, n: int, folder: str) -> dict:
             r_c, t_c = (x.copy(new_array=x.data.to(d)) for x in pair_c)
             nk_c = coreg.NuthKaab()
             aligned_c = t_c.coregister_3d(r_c, nk_c, inlier_mask=stable_c.to(d), random_state=42)
+            plain_center, surfit.dem_center = surfit.dem_center, lambda dem: card_center.to(dem.device)
+            try:
+                attrs = [a.data.cpu() for a in r_c.get_terrain_attribute(list(SUITE))]
+            finally:
+                surfit.dem_center = plain_center
             on.append({"onto": t_c.reproject(r_c).data.cpu(), "utm32": r_c.reproject(crs=32632).data.cpu(),
-                       "vcrs": r_c.to_vcrs("Ellipsoid").data.cpu(),
-                       "attrs": [a.data.cpu() for a in r_c.get_terrain_attribute(list(SUITE))],
+                       "vcrs": r_c.to_vcrs("Ellipsoid").data.cpu(), "attrs": attrs,
                        "shift": np.array(nk_c.to_translations()), "pair": (r_c, aligned_c)})
     finally:
         undo()
@@ -1992,6 +2083,7 @@ def phase_ddem(dev, n: int, folder: str) -> dict:
     dh_iv, t["dh_series_intervalwise"] = _synced(lambda: col.get_dh_series(nans_ok=True))
     cum_iv, t["cumulative_intervalwise"] = _synced(lambda: col.get_cumulative_series("dh", nans_ok=True))
     launches = dict(ck.LAUNCHES)
+    center_launches = ck.CALL_LAUNCHES["center"]
     peak = torch.cuda.max_memory_allocated() - base
     print("  first calls: " + "; ".join(f"{k} {v:.3f} s" for k, v in t.items()))
     # Steady: a second call of the subtractions and the series (the gap fillers are host code
@@ -2024,7 +2116,8 @@ def phase_ddem(dev, n: int, folder: str) -> dict:
     check(abs(dh["area"][0] / area - 1) < 1e-9 and np.allclose(dv["dv"], dh["dh"] * dh["area"]) and cum_dh["dh"][0] == 0.0,
           "the areas, the dv series or the cumulative series' start are wrong")
     check(abs(cum_dv["dv"][2] / (2 * law * area) - 1) <= 1e-2, "the cumulative dv series does not recover the law")
-    out.update(times_s=t, steady_s=steady, launches=launches, peak_gb=peak / 1e9, law_m=law, worst_rel=max(rel))
+    out.update(times_s=t, steady_s=steady, launches=launches, center_launches=center_launches, peak_gb=peak / 1e9,
+               law_m=law, worst_rel=max(rel))
 
     # idw's split: its hull (a dilation and binary_fill_holes of the valid mask) timed alone on the
     # same mask; the rest of the call is the ten filter rounds and the host copies.
@@ -2161,6 +2254,7 @@ def phase_tiled(dev, n: int, folder: str) -> dict:
     finally:
         undo()
     launches = dict(ck.LAUNCHES)
+    center_launches = ck.CALL_LAUNCHES["center"]
     peak = torch.cuda.max_memory_allocated() - base
     bands = -(-n // TILED_ROWS)
     split = {k: float(sum(v)) for k, v in totals.items()}
@@ -2178,7 +2272,7 @@ def phase_tiled(dev, n: int, folder: str) -> dict:
         ok = float(np.isfinite(rows[:, 8:-8]).mean())
         check(ok > 0.999 and (a != "slope" or float(np.nanmax(rows)) < 90), f"{a}: the tiled output's middle rows are wrong")
         os.remove(p)
-    out.update(path_s=t_path, write_s=t_write, launches=launches, peak_gb=peak / 1e9, bands=bands, per_band_ms=per_band,
+    out.update(path_s=t_path, write_s=t_write, launches=launches, center_launches=center_launches, peak_gb=peak / 1e9, bands=bands, per_band_ms=per_band,
                split_s=split)
 
     # In memory: a 10 000^2 crop, tiled= against the whole-array suite (windows 5 and 13).
@@ -2272,11 +2366,11 @@ def phase_workflows(dev, n: int, folder: str) -> dict:
         split = {"loading": sums["_load_dem"] + sums["_load_mask"], "host statistics": sums["compute_stats"] + sums.get("_sym_limit", 0.0),
                  "plots": sums["save_raster_plot"] + sums.get("_histogram", 0.0)}
         split["compute and the rest"] = t_run - sum(split.values())
-        return wf, t_run, split, dict(ck.LAUNCHES)
+        return wf, t_run, split, dict(ck.LAUNCHES), ck.CALL_LAUNCHES["center"]
 
     # Accuracy: the default coregistration (Nuth & Kaab), the outlines as unstable terrain.
     acc_dir = os.path.join(folder, "accuracy")
-    wf, t_acc, split, launches = run(Accuracy, {
+    wf, t_acc, split, launches, center_launches = run(Accuracy, {
         "inputs": {"reference_elev": {"path_to_elev": paths["ref"]},
                    "to_be_aligned_elev": {"path_to_elev": paths["tba"], "path_to_mask": outlines_path}},
         "outputs": {"path": acc_dir, "level": 1}})
@@ -2292,14 +2386,15 @@ def phase_workflows(dev, n: int, folder: str) -> dict:
     check("Estimated transformation" in html and abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
           f"Accuracy's estimated transformation ({tx:.3f}, {ty:.3f}) is not within 5 % of ({-dx}, {-dy})")
     check(after < before, f"Accuracy: the NMAD of dh after ({after}) is not below the NMAD before ({before})")
-    out["accuracy"] = {"s": t_acc, "split_s": split, "launches": launches, "translation": [tx, ty, tz],
+    out["accuracy"] = {"s": t_acc, "split_s": split, "launches": launches, "center_launches": center_launches,
+                       "translation": [tx, ty, tz],
                        "nmad_before": before, "nmad_after": after}
     del wf
     torch.cuda.empty_cache()
 
     # Topo: the schema's default attributes plus one of each other kernel.
     topo_dir = os.path.join(folder, "topo")
-    wf, t_topo, split, launches = run(Topo, {"inputs": {"path_to_elev": paths["ref"]},
+    wf, t_topo, split, launches, center_launches = run(Topo, {"inputs": {"path_to_elev": paths["ref"]},
                                              "terrain_attributes": list(TOPO_ATTRS),
                                              "outputs": {"path": topo_dir, "level": 1}})
     print(f"  Topo from a dict config, {list(TOPO_ATTRS)}: {t_topo:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in split.items())}); "
@@ -2314,7 +2409,7 @@ def phase_workflows(dev, n: int, folder: str) -> dict:
         check(list(got) == list(want) and all(float(got[k]) == float(want[k]) for k in want),
               f"Topo's {a} table {got} is not get_stats of the attribute {want}")
     print(f"  each attribute's table equals get_stats of the attribute computed directly ({len(stats_names)} statistics)")
-    out["topo"] = {"s": t_topo, "split_s": split, "launches": launches}
+    out["topo"] = {"s": t_topo, "split_s": split, "launches": launches, "center_launches": center_launches}
     return out
 
 
@@ -2389,9 +2484,11 @@ def phase_mesh(dev, n: int, card: str, cards) -> dict:
     ck.reset_launch_counts()
     sharded, t_first = _synced(lambda: terrain.get_terrain_attribute(ref, list(SUITE), resolution=RES, mesh=mesh))
     launches = dict(ck.LAUNCHES)
-    print(f"  launches on the sharded suite: {launches}")
+    center_launches = ck.CALL_LAUNCHES["center"]
+    print(f"  launches on the sharded suite: {launches}, center {center_launches}")
     for k, v in launches.items():
         check(v == shards, f"kernel {k} launched {v} times on the sharded suite, not once per shard ({shards})")
+    check(center_launches == 1, f"the centre launched {center_launches} times on the sharded suite, not once")
     for a, s_, w in zip(SUITE, sharded, whole):
         check(on_their_cards(s_, mesh), f"sharded {a}: a block is not on its shard's card")
         check(equal_planes(s_.to(dev), w), f"sharded {a} differs from the whole-array plane")
@@ -2413,7 +2510,7 @@ def phase_mesh(dev, n: int, card: str, cards) -> dict:
     # the suite no longer does: timed for comparison), and each kernel on each card's block
     # (CUDA events on that card's stream), held to the bit to its plain version on that block
     # and timed beside the plain version on the first block.
-    center = surfit.dem_center(ref)
+    center = ck.dem_center(ref)
     t_scatter = mesh_ms(lambda: shard(ref, mesh), mesh)
     src = shard(ref, mesh)
     t_halo = mesh_ms(lambda: halo._exchange(src, 2), mesh)
@@ -2563,6 +2660,7 @@ def phase_mesh(dev, n: int, card: str, cards) -> dict:
     print(f"  launch_local_cluster({procs}, {local}) with XDEM_TPU_PLATFORM={platform or '(unset: the default)'} in "
           f"{t_cluster:.2f} s: {route}")
     out["launches"] = launches
+    out["center_launches"] = center_launches
     return out
 
 
@@ -2639,9 +2737,11 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
     def suite():
         return terrain.get_terrain_attribute(z, list(SUITE), resolution=RES, mesh=mesh)
 
-    # The whole DEM's centre, as the suite removes it (taken now: its passes need ~20 GB of
-    # cuda:0, which the planes fill once they exist).
-    center = surfit.dem_center(z)
+    # The whole DEM's centre, as the suite removes it, held and timed (now: torch's nanmean chain,
+    # timed beside it, needs ~25 GB of cuda:0, which the planes fill once they exist).
+    center = ck.dem_center(z)
+    out["center"] = phase_center(z, f"the {n} x {n} DEM on {dev}")
+    empty_all()
 
     # Any gathering of blocks into one tensor during the suite's calls is counted: none may happen.
     gathered = []
@@ -2655,13 +2755,15 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
         ck.reset_launch_counts()
         planes, t_first = _synced(suite)
         launches = dict(ck.LAUNCHES)
+        center_launches = ck.CALL_LAUNCHES["center"]
         peaks = [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards[:4]]
         held = [(torch.cuda.memory_allocated(d) - b) / 1e9 for d, b in zip(cards[:4], base)]
     finally:
         sharded._assemble = real_assemble
-    print(f"  launches on the suite: {launches}")
+    print(f"  launches on the suite: {launches}, center {center_launches}")
     for k, v in launches.items():
         check(v == 4, f"kernel {k} launched {v} times on the 50 000^2 suite, not once per card")
+    check(center_launches == 1, f"the centre launched {center_launches} times on the 50 000^2 suite, not once")
     bh = -(-n // 2)
     for a, p in zip(SUITE, planes):
         check(on_their_cards(p, mesh) and p.shape == (n, n) and p.block_shape == (bh, bh),
@@ -2669,7 +2771,7 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
     check(not gathered, f"a plane was assembled on one device during the suite: {gathered}")
     for d, line, pk, hd in zip(cards[:4], card_lines, peaks, held):
         print(f"  {d} peak {pk:.2f} GB, holding {hd:.2f} GB of planes after the call ({line})")
-    out.update(launches=launches, peak_gb=peaks, held_gb=held, first_ms=t_first * 1e3)
+    out.update(launches=launches, center_launches=center_launches, peak_gb=peaks, held_gb=held, first_ms=t_first * 1e3)
 
     # Every seam and the central corner: the crop computed whole on one card by the plain
     # versions with the whole DEM's centre (a margin of BIG_MARGIN >= the largest halo, 6)
@@ -2702,12 +2804,12 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
           f"({[round(t, 1) for t in steady]}); host clock between waits on every card; {card_lines[0]}")
     empty_all()
 
-    # The pieces: the one scatter, each family's halo exchange, dem_center on the first card,
-    # each kernel on each card's block (CUDA events on that card's stream).
+    # The pieces: the one scatter, each family's halo exchange, the centre on the first card (as
+    # timed above), each kernel on each card's block (CUDA events on that card's stream).
     t_scatter = mesh_ms(lambda: shard(z, mesh), mesh)
     src = shard(z, mesh)
     t_exchange = {h: mesh_ms(lambda: halo._exchange(src, h), mesh) for h in (2, 1, 6)}
-    t_center = device_ms(lambda: surfit.dem_center(z), device=dev)
+    t_center = out["center"]["ms"]
     pads = {h: halo._exchange(src, h) for h in (2, 1, 6)}
     per_card = {}
     for d, (iy, ix) in first_shards(mesh).items():
@@ -2719,7 +2821,7 @@ def phase_big(cards, n: int, card_lines: list[str]) -> dict:
     bounds = kernel_bounds(pads[2][0][0].numel(), SUITE[:9], SUITE[9:13], 13)
     print(f"  one scatter of the DEM ({z.numel() * 3 / 1e9:.1f} GB to three cards) {t_scatter:.2f} ms; halo exchanges "
           + ", ".join(f"h={h} {t:.2f} ms" for h, t in t_exchange.items())
-          + f"; dem_center on {dev} {t_center:.2f} ms; host clock between waits on every card ({card_lines[0]})")
+          + f"; the centre on {dev} {t_center:.2f} ms; host clock between waits on every card ({card_lines[0]})")
     for (d, times), line in zip(per_card.items(), card_lines):
         print(f"  {d} ({tuple(pads[2][0][0].shape)} block): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
               + f" ({line})")
@@ -2841,7 +2943,11 @@ def main(argv=None) -> int:
          "max_abs_err": max_err[k], "ms": res["times"][k][0], "plain_ms": res["times"][k][1],
          "bound_ms": res["bounds"][k][0], "bound_by": res["bounds"][k][1], "library_ms": None}
         for k, (src, rep) in KERNELS.items()
-    ], "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
+    ] + [center_summary(res["center"], {"main": res["center_launches"], "raster": ras["center_launches"],
+                                        "ddem": ddm["center_launches"], "tiled": til["center_launches"],
+                                        "accuracy": wfl["accuracy"]["center_launches"],
+                                        "topo": wfl["topo"]["center_launches"], "mesh": msh["center_launches"]})],
+        "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
         "uncertainty": unc, "coreg": cor, "volume": vol, "raster": ras, "points": pts,
@@ -2874,7 +2980,8 @@ def main_cards(cards, card_lines: list[str], name: str) -> int:
          "bound_ms": msh["bounds"][k][0], "bound_by": msh["bounds"][k][1], "library_ms": None,
          "ms_by_card_at_big_size": {d: t[k] for d, t in big["per_card_ms"].items()}}
         for k, (src, rep) in KERNELS.items()
-    ], "mesh": msh, "big": big}
+    ] + [center_summary(big["center"], {"big": big["center_launches"], "mesh": msh["center_launches"]})],
+        "mesh": msh, "big": big}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": len(cards)}}))
     return 0

@@ -81,7 +81,7 @@ def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, attrs, zf, wid
     """K1 equals its plain version to the bit on every fit and curvature method, on the ragged
     width 389 (scalar stores) and on 388 (vector stores), for the two- and one-attribute
     requests, a request out of the table's order that names slope twice, and `center=` given
-    as a float or a tensor. The DEM holds a NaN hole, a NaN border, an inf and a -inf pixel
+    as a float or a tensor (without it, the plain version is given the centre kernel's value). The DEM holds a NaN hole, a NaN border, an inf and a -inf pixel
     and a flat patch (where the sign of a zero derivative decides the aspect)."""
     dem = _dem(cuda_device)
     dem[170, 230] = -math.inf
@@ -92,7 +92,9 @@ def test_surface_fit_kernel_matches_plain(cuda_device, fit, curv, attrs, zf, wid
     kw = dict(surface_fit=fit, curv_method=curv, hillshade_z_factor=zf, center=center)
     ck.reset_launch_counts()
     got = ck.surface_attributes(dem, 20.0, attrs, **kw)
-    assert ck.LAUNCHES["surface_fit"] == 1 and got.is_cuda
+    assert ck.LAUNCHES["surface_fit"] == 1 and ck.CALL_LAUNCHES["center"] == (center is None) and got.is_cuda
+    if center is None:  # the plain version takes the wrapper's centre, as the card's callers give it
+        kw["center"] = ck.dem_center(dem)
     want = surfit.surface_attributes(dem, 20.0, attrs, **kw)
     for i, a in enumerate(attrs):
         _bit_equal(got[i], want[i], a)
@@ -818,7 +820,7 @@ def _cards():
 
 def test_each_kernel_matches_plain_on_every_card(cuda_device):
     """K1, K2 and K3 launch on each visible card (its own stream, its context) and equal their
-    plain versions there to the bit."""
+    plain versions there to the bit (K1's given the centre kernel's value on that card)."""
     attrs = ("slope", "aspect", "hillshade", "max_curvature", "profile_curvature")
     for dev in _cards():
         dem = _dem(dev)
@@ -828,7 +830,8 @@ def test_each_kernel_matches_plain_on_every_card(cuda_device):
         k3 = ck.fractal_roughness(dem, 13)
         assert dict(ck.LAUNCHES) == {"surface_fit": 1, "windowed": 1, "fractal": 1}, dev
         assert k1.device == k2.device == k3.device == dev
-        for got, want, names in ((k1, surfit.surface_attributes(dem, 20.0, attrs), attrs),
+        center = ck.dem_center(dem)
+        for got, want, names in ((k1, surfit.surface_attributes(dem, 20.0, attrs, center=center), attrs),
                                  (k2, window.windowed_indexes(dem, 20.0, _WA, 3), _WA),
                                  (k3[None], window.fractal_roughness(dem, 13)[None], ("fractal_roughness",))):
             for i, a in enumerate(names):
@@ -872,19 +875,20 @@ def test_sharded_fits_on_the_card_equal_the_single_device_fits(cuda_device):
 
 def test_the_centre_span_times_dem_center_on_its_stream(cuda_device):
     """`terrain.center`'s stream time, from the span's own events, is within 2x of CUDA events
-    around `surfit.dem_center` alone (medians of five calls at 8192^2, where the card's work
-    outlasts the host's launches under the profiler)."""
+    around `cuda_kernels.dem_center` alone (medians of five calls at 16384^2, where the card's work
+    outlasts the host's launches under the profiler: one pass over 1.07 GB takes ~0.35 ms on an
+    H100, the host ~0.13 ms a call; at 8192^2 the pass takes less than the host)."""
     from xdem_tpu_torch import profiler
 
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    dem = torch.rand((8192, 8192), generator=gen, device=cuda_device) * 1000.0
+    dem = torch.rand((16384, 16384), generator=gen, device=cuda_device) * 1000.0
     dem[100:120, 200:260] = float("nan")
-    surfit.dem_center(dem)
+    ck.dem_center(dem)
     alone = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        surfit.dem_center(dem)
+        ck.dem_center(dem)
         end.record()
         end.synchronize()
         alone.append(start.elapsed_time(end))
@@ -893,9 +897,91 @@ def test_the_centre_span_times_dem_center_on_its_stream(cuda_device):
         warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
         with torch.profiler.profile(activities=acts):
             for _ in range(5):
-                surfit.dem_center(dem)
+                ck.dem_center(dem)
             torch.cuda.synchronize(cuda_device)
     spans = [r for r in profiler.spans() if r.name == "xdem_tpu_torch.terrain.center"]
     assert len(spans) == 5 and all(set(r.ms) == {dem.device.index} for r in spans)
     traced = float(np.median([r.ms[dem.device.index] for r in spans]))
     assert 0.5 <= traced / float(np.median(alone)) <= 2.0, ([r.ms for r in spans], alone)
+
+
+def _float64_centre(d: torch.Tensor) -> float:
+    """The mean of the finite values in float64, chunk by chunk (no float64 copy of a big DEM)."""
+    flat, total, count = d.reshape(-1), 0.0, 0
+    for part in flat.split(1 << 28):
+        valid = torch.isfinite(part)
+        total += float(torch.where(valid, part, 0.0).double().sum())
+        count += int(valid.sum())
+    return total / count if count else 0.0
+
+
+def _within_an_ulp(got: torch.Tensor, want: float) -> bool:
+    w = np.float32(want)
+    return got.dtype == torch.float32 and got.shape == () and abs(float(got) - float(w)) <= float(np.spacing(abs(w)))
+
+
+@pytest.mark.parametrize("shape,offset", [((301, 389), 0), ((300, 1002), 0), ((300, 1002), 1), ((2048, 3001), 3)],
+                         ids=["odd width", "width not a multiple of 4", "view at an offset", "many blocks, offset"])
+def test_the_centre_kernel_is_the_float64_mean_within_an_ulp(cuda_device, shape, offset):
+    """On the card the centre kernel is the float64 mean of the finite pixels rounded to float32, within
+    one float32 ulp, on DEMs with NaN and +-inf voids, at widths that leave a ragged tail of
+    16-byte vectors and on a contiguous view that starts off a 16-byte boundary."""
+    base = _dem(cuda_device, shape=(shape[0] + 1, shape[1]), seed=3)
+    base[7, 11], base[20, 3] = -math.inf, math.inf
+    n = shape[0] * shape[1]
+    dem = base.reshape(-1)[offset:offset + n].reshape(shape)
+    assert dem.is_contiguous() and (dem.data_ptr() % 16 == 0) == (offset == 0)
+    assert _within_an_ulp(ck.dem_center(dem), _float64_centre(dem))
+
+
+def test_the_centre_kernel_of_nothing_finite_is_zero(cuda_device):
+    for dem in (torch.full((33, 47), math.nan, device=cuda_device),
+                torch.tensor([[math.inf, -math.inf, math.nan]], device=cuda_device),
+                torch.empty((0, 5), device=cuda_device)):
+        got = ck.dem_center(dem)
+        assert got.is_cuda and got.shape == () and float(got) == 0.0 and not math.copysign(1.0, float(got)) < 0
+
+
+def test_the_centre_kernel_gives_the_same_bits_every_call(cuda_device):
+    dem = _dem(cuda_device, shape=(1500, 2001), seed=5)
+    first = ck.dem_center(dem)
+    assert all(torch.equal(ck.dem_center(dem).view(torch.int32), first.view(torch.int32)) for _ in range(20))
+
+
+def test_the_centre_kernel_sums_past_two_to_the_31_values(cuda_device):
+    """A DEM of more than 2^31 float32 values (8.6 GB) is summed whole: 64-bit indices."""
+    n = 2**31 + 4099
+    if torch.cuda.mem_get_info(cuda_device)[0] < 4 * n + (4 << 30):
+        pytest.skip("the card has no room for a DEM of more than 2^31 values")
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    dem = torch.rand(n, generator=gen, device=cuda_device).add_(1.0).mul_(500.0)
+    dem[1 << 31:].fill_(4000.0)  # the values past 2^31 move the mean by 6e-3 m, ~100 ulps of it
+    dem[:1000].fill_(math.nan)
+    dem[-7:].fill_(math.inf)
+    dem = dem[1:].reshape(1, -1)  # an unaligned view, as large
+    want = _float64_centre(dem)
+    assert _within_an_ulp(ck.dem_center(dem), want)
+    del dem
+
+
+def test_the_centre_span_counts_the_kernel_once_a_call(cuda_device):
+    """Inside a recorded span the card's float32 centre counts `kernel` once a call, and
+    CALL_LAUNCHES with it; the plain version on the card counts nothing, and the wrapper refuses a
+    float64 DEM on the card."""
+    from xdem_tpu_torch import profiler
+
+    dem = _dem(cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ck.reset_launch_counts()
+    with warnings.catch_warnings():  # torch 2.11 warns at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=acts):
+            for _ in range(3):
+                ck.dem_center(dem)
+            surfit.dem_center(dem)
+            torch.cuda.synchronize(cuda_device)
+    spans = [r for r in profiler.spans() if r.name == "xdem_tpu_torch.terrain.center"]
+    assert [r.counters for r in spans] == [{"kernel": 1}] * 3 + [{}]
+    assert ck.CALL_LAUNCHES == {"center": 3} and ck.LAUNCHES == {"surface_fit": 0, "windowed": 0, "fractal": 0}
+    with pytest.raises(ValueError, match="float32"):
+        ck.dem_center(dem.double())

@@ -531,15 +531,17 @@ def test_kernel_exports_match_launch_signatures():
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_kernel_signature_types_match_declarations(name):
     """Each ctypes argument type is its `extern "C"` parameter's: a pointer (the stream too) as
-    c_void_p, an int as c_int, a float as c_float, in the declaration's order."""
+    c_void_p, an int as c_int, a float as c_float, a long long as c_longlong, in the
+    declaration's order."""
     import ctypes
 
     text = "".join(p.read_text() for p in PKG.glob("csrc/*.cu"))
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1).split(",")
+    types = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
     want = []
     for param in (p.strip() for p in params if p.strip() not in ("", "void")):
         kind = param.rsplit(None, 1)[0]
-        want.append(ctypes.c_void_p if "*" in kind else {"int": ctypes.c_int, "float": ctypes.c_float}[kind])
+        want.append(ctypes.c_void_p if "*" in kind else types[kind])
     assert list(_build.SIGNATURES[name]) == want
 
 
@@ -552,6 +554,8 @@ def test_wrappers_refuse_other_devices():
         cuda_kernels.windowed_indexes(dem, 1.0, ("roughness",))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         cuda_kernels.fractal_roughness(dem, 13)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_kernels.dem_center(dem)
 
 
 def test_cpu_wrappers_count_no_launch():
@@ -560,7 +564,9 @@ def test_cpu_wrappers_count_no_launch():
     cuda_kernels.surface_attributes(dem, 1.0, ("slope",))
     cuda_kernels.windowed_indexes(dem, 1.0, ("roughness",))
     cuda_kernels.fractal_roughness(dem, 5)
+    cuda_kernels.dem_center(dem)
     assert cuda_kernels.LAUNCHES == {"surface_fit": 0, "windowed": 0, "fractal": 0}
+    assert cuda_kernels.CALL_LAUNCHES == {"center": 0}
 
 
 def test_default_device_and_dtype():

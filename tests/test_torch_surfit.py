@@ -9,6 +9,7 @@ take), so what is compared is the stencil pass and the attribute algebra.
 
 import math
 import re
+import warnings
 
 import numpy as np
 import pytest
@@ -87,10 +88,65 @@ def test_aspect_is_a_floor_modulo(dem):
     assert np.histogram(fin, bins=4, range=(0, 2 * math.pi))[0].min() > 0
 
 
-def test_dem_center_ignores_non_finite_and_defaults_to_zero():
-    d = torch.tensor([[1.0, 3.0], [float("inf"), float("nan")]])
-    assert float(surfit.dem_center(d)) == 2.0
-    assert float(surfit.dem_center(torch.full((2, 2), float("nan")))) == 0.0
+def _whole_metres() -> torch.Tensor:
+    """The example DEM rounded to whole metres, with a -inf pixel besides its NaN hole and +inf
+    pixel: every partial sum of its finite values is exact in float32, so any order of
+    summation gives the mean rounded once."""
+    d = torch.from_numpy(np.round(example_dem(shape=(61, 83))))
+    d[5, 7] = -math.inf
+    return d
+
+
+CENTRE_CASES = {
+    "two finite, inf and nan": lambda: torch.tensor([[1.0, 3.0], [math.inf, math.nan]]),
+    "voids": _whole_metres,
+    "view at an offset": lambda: _whole_metres().reshape(-1)[3:3 + 60 * 81].reshape(60, 81),
+    "not contiguous": lambda: _whole_metres()[:, ::3],
+    "float64": lambda: _whole_metres().double(),
+    "every pixel void": lambda: torch.full((7, 9), math.nan),
+    "infinities only": lambda: torch.tensor([[math.inf, -math.inf], [-math.inf, math.inf]]),
+    "empty": lambda: torch.empty((0, 5)),
+}
+
+
+@pytest.mark.parametrize("case", list(CENTRE_CASES))
+def test_dem_center_ignores_non_finite_and_defaults_to_zero(case):
+    """On the CPU the plain centre and the wrapper's are the mean of the finite pixels rounded
+    once to the DEM's dtype, to the bit, and +0 where none is finite."""
+    d = CENTRE_CASES[case]()
+    x = d.numpy()
+    finite = x[np.isfinite(x)].astype(np.float64)
+    assert finite.sum() < 2**24  # exact in float32 whatever the order
+    want = np.array(finite.sum() / finite.size if finite.size else 0.0).astype(x.dtype)
+    for got in (surfit.dem_center(d), cuda_kernels.dem_center(d)):
+        assert got.shape == () and got.dtype == d.dtype and got.device == d.device
+        assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_dem_center_on_the_cpu_counts_no_kernel():
+    """Inside a recorded span the CPU's centre, through the wrapper, runs no kernel: the span's
+    `kernel` counter, which counts the card's one-pass centre, stays empty."""
+    from xdem_tpu_torch import profiler
+
+    with warnings.catch_warnings():  # some torch versions warn at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            cuda_kernels.dem_center(_whole_metres())
+    spans = [r for r in profiler.spans() if r.name == "xdem_tpu_torch.terrain.center"]
+    assert len(spans) == 1 and spans[0].counters == {} and spans[0].ms == {}
+
+
+def test_launch_counts_name_the_three_kernels_a_shard_runs():
+    """The benchmark expects each key of LAUNCHES once a shard a call; the centre runs once a call
+    whatever the shards, so it is counted apart, and the reset zeroes both."""
+    assert set(cuda_kernels.LAUNCHES) == {"surface_fit", "windowed", "fractal"}
+    cuda_kernels.CALL_LAUNCHES["center"] = 3
+    cuda_kernels.reset_launch_counts()
+    assert cuda_kernels.CALL_LAUNCHES == {"center": 0}
+
+
+def test_the_centre_kernel_is_built():
+    assert "center.cu" in {s.name for s in _build.sources()}
 
 
 def test_horn_refuses_curvatures(dem):

@@ -54,15 +54,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # argtypes of every exported function: pointers and the stream as c_void_p (a c_int would
-# cut a 64-bit pointer), scalars as c_int / c_float.
+# cut a 64-bit pointer), scalars as c_int / c_float, a count of values as c_longlong.
 SIGNATURES = {
     "launch_surface_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _F, _F, _F, _F, _P),
     "launch_windowed": (_P, _P, _I, _I, _I, _I, _I, _P, _F, _P),
     "launch_fractal": (_P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P),
     "fractal_max_shared_window": (),
     "windowed_max_shared_window": (),
+    "launch_center": (_P, _L, _P, _P, _P),
+    "center_blocks": (_L,),
 }
 
 

@@ -111,17 +111,17 @@ def sharded_surface_attributes(
     Florinsky's 5 x 5 fit, 1 for the 3 x 3 fits), as a (len(attrs), H, W) `ShardedArray`.
 
     The centre removed before the stencils is the whole DEM's: ``center=`` among `kwargs`
-    (K1's own parameter), or when it is absent ``surfit.dem_center`` of the tensor `arr` on
+    (K1's own parameter), or when it is absent ``cuda_kernels.dem_center`` of the tensor `arr` on
     its device, as the single-device call computes it, handed to every shard, so each block
     removes the same constant. A `ShardedArray` input needs ``center=``."""
-    from xdem_tpu_torch.terrain import cuda_kernels, surfit
+    from xdem_tpu_torch.terrain import cuda_kernels
 
     center = kwargs.pop("center", None)
     halo = 2 if surface_fit.lower() == "florinsky" else 1
     if center is None:
         if isinstance(arr, ShardedArray):
-            raise ValueError("A ShardedArray DEM needs center=: the whole DEM's surfit.dem_center.")
-        center = surfit.dem_center(arr)
+            raise ValueError("A ShardedArray DEM needs center=: the whole DEM's cuda_kernels.dem_center.")
+        center = cuda_kernels.dem_center(arr)
 
     def fn(padded: torch.Tensor) -> torch.Tensor:
         c = to(center, padded.device) if isinstance(center, torch.Tensor) else center

@@ -1,12 +1,14 @@
-"""Wrappers of the hand-written CUDA terrain kernels K1, K2 and K3.
+"""Wrappers of the hand-written CUDA terrain kernels K1, K2 and K3, and of the DEM's centre.
 
-Each wrapper takes an (H, W) float32 tensor. On a CUDA tensor it launches its kernel
-(``csrc/surface_fit.cu``, ``csrc/windowed.cu``, ``csrc/fractal.cu``) or raises; on a CPU
-tensor, and only then, it runs the plain PyTorch version of the same function. There is no
-fallback from the card to the plain version.
+Each wrapper takes a float32 tensor (K1-K3 an (H, W) one). On a CUDA tensor it launches its
+kernel (``csrc/surface_fit.cu``, ``csrc/windowed.cu``, ``csrc/fractal.cu``, ``csrc/center.cu``)
+or raises; on a CPU tensor, and only then, it runs the plain PyTorch version of the same
+function. There is no fallback from the card to the plain version.
 
-``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where it launches its
-kernel and nowhere else, so a run can show that it went through the kernels.
+``LAUNCHES`` counts the launches of K1-K3 per wrapper, ``CALL_LAUNCHES`` those of the centre:
+each wrapper adds one where it launches its kernel and nowhere else, so a run can show that it
+went through the kernels. They are apart because a mesh runs K1-K3 once a shard and the centre
+once a call (on the whole DEM's card); ``reset_launch_counts`` zeroes both.
 """
 
 from __future__ import annotations
@@ -15,14 +17,17 @@ import numpy as np
 import torch
 
 from xdem_tpu_torch import _build
+from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.terrain import surfit, window
 
 LAUNCHES = {"surface_fit": 0, "windowed": 0, "fractal": 0}
+CALL_LAUNCHES = {"center": 0}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CALL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_card(dem: torch.Tensor) -> bool:
@@ -107,8 +112,8 @@ def surface_attributes(
 
     `center` (a tensor, a float or None) replaces the DEM's own mean as the constant removed
     before the stencils, as in the plain version. On a CUDA tensor the centre reaches the
-    kernel as a device pointer to a 0-dim float32 tensor (``surfit.dem_center(dem)`` when
-    `center` is None), and nothing here reads a device value on the host: no ``float()``,
+    kernel as a device pointer to a 0-dim float32 tensor (``dem_center(dem)`` when `center`
+    is None), and nothing here reads a device value on the host: no ``float()``,
     ``.item()`` or ``.cpu()``, so the call returns without waiting for the card.
     """
     if not _on_card(dem):
@@ -123,7 +128,7 @@ def surface_attributes(
     divisors = np.array([float(d) for d in surfit.divisors(roles, names, resolution)], dtype=np.float32)
     sin_alt, cos_alt, azimuth = surfit.hillshade_constants(hillshade_altitude, hillshade_azimuth)
     if center is None:
-        center = surfit.dem_center(dem)
+        center = dem_center(dem)
     if isinstance(center, torch.Tensor):
         center = center.to(device=dem.device, dtype=torch.float32).reshape(()).contiguous()
     else:  # filled on the card: a host scalar copied over would make the stream wait
@@ -205,3 +210,35 @@ def fractal_roughness(dem: torch.Tensor, window_size: int = 13) -> torch.Tensor:
         "fractal", _build.load().launch_fractal, dem, out,
         w, len(qs), q_arr.ctypes.data, lq_arr.ctypes.data, mx, ss_xx,
     )
+
+
+def dem_center(dem: torch.Tensor) -> torch.Tensor:
+    """The DEM's centre (see surfit.dem_center) as a 0-dim tensor on its device: the mean of its
+    finite values, 0 where none is finite.
+
+    On a CUDA float32 tensor of any shape, one read of it (``csrc/center.cu``: per-block
+    partials in a fixed order, then one block adds them): the mean accumulated in float64 and
+    rounded once, the same bits on every call. A tensor that is not contiguous is copied
+    first. Nothing is read back: the call returns without waiting for the card. It runs in the
+    plain version's span, ``terrain.center``, whose ``kernel`` counter counts the launch.
+    """
+    if dem.device.type == "cpu":
+        return surfit.dem_center(dem)
+    if dem.device.type != "cuda":
+        raise ValueError(f"The terrain kernels run on CUDA or CPU tensors, not on {dem.device}.")
+    if dem.dtype != torch.float32:
+        raise ValueError(f"The centre kernel takes a float32 tensor, got {dem.dtype}.")
+    with span("xdem_tpu_torch.terrain.center", devices=[dem.device]) as s:
+        dem = dem.contiguous()
+        lib = _build.load()
+        n = dem.numel()
+        scratch = torch.empty(2 * lib.center_blocks(n), dtype=torch.float64, device=dem.device)
+        out = torch.empty((), dtype=torch.float32, device=dem.device)
+        with torch.cuda.device(dem.device):
+            stream = torch.cuda.current_stream(dem.device).cuda_stream
+            rc = lib.launch_center(dem.data_ptr(), n, scratch.data_ptr(), out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel center failed to launch: cudaError {rc}.")
+        CALL_LAUNCHES["center"] += 1
+        s.count("kernel")
+    return out

@@ -23,7 +23,7 @@ from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.parallel.halo import sharded_stencil, sharded_surface_attributes
 from xdem_tpu_torch.parallel.sharded import shard
 from xdem_tpu_torch.raster import Raster
-from xdem_tpu_torch.terrain import cuda_kernels, freq, surfit
+from xdem_tpu_torch.terrain import cuda_kernels, freq
 from xdem_tpu_torch.terrain.surfit import SURFACE_FIT_ATTRS
 from xdem_tpu_torch.terrain.window import FRACTAL_ATTRS, WINDOWED_ATTRS, normalize_engine
 
@@ -222,7 +222,7 @@ def get_terrain_attribute(
                 stack = cuda_kernels.surface_attributes(arr, resolution, tuple(sf_attrs), **kwargs)
             else:  # the whole DEM's centre, on its device, as the single-device call removes it
                 stack = sharded_surface_attributes(src, resolution, mesh, tuple(sf_attrs),
-                                                   center=surfit.dem_center(arr), **kwargs)
+                                                   center=cuda_kernels.dem_center(arr), **kwargs)
         keep(sf_attrs, stack)
         del stack  # on a mesh, the padded output goes before the next family runs
 
