@@ -116,32 +116,33 @@ def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int
     joint finite mask and one gather at the picks. Returns (rows, cols, count, values), with
     device values as float32 numpy, host values indexed as stored.
     """
-    dev = {k: v for k, v in grids.items() if isinstance(v, torch.Tensor)}
-    host = {k: np.asarray(v) for k, v in grids.items() if not isinstance(v, torch.Tensor) and not callable(v)}
-    shape = next(iter(dev.values())).shape if dev else next(iter(host.values())).shape
-    valid = _finite_all(list(dev.values())).cpu().numpy() if dev else np.ones(shape, bool)
-    for v in host.values():
-        valid &= np.isfinite(v)
-    if inlier_mask is not None:
-        valid &= _host_mask(inlier_mask)
-    idx_flat = np.flatnonzero(valid)
-    if idx_flat.size == 0:
-        raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
-    count = _count_from_subsample(subsample, idx_flat.size)
-    rng = np.random.default_rng(random_state)
-    choice = rng.choice(idx_flat, count, replace=False) if count < idx_flat.size else idx_flat
-    rr, cc = np.unravel_index(choice, tuple(shape))
-    vals: dict[str, np.ndarray] = {}
-    if dev:
-        device = next(iter(dev.values())).device
-        gathered = _gather_flat(list(dev.values()), torch.from_numpy(choice).to(device)).cpu().numpy()
-        vals.update(zip(dev, gathered))
-    for k, v in host.items():
-        vals[k] = v[rr, cc]
-    for k, v in grids.items():
-        if callable(v) and not isinstance(v, torch.Tensor):
-            vals[k] = np.asarray(v(rr, cc), dtype=np.float64)
-    return rr, cc, int(count), vals
+    with span("xdem_tpu_torch.coreg.draw"):
+        dev = {k: v for k, v in grids.items() if isinstance(v, torch.Tensor)}
+        host = {k: np.asarray(v) for k, v in grids.items() if not isinstance(v, torch.Tensor) and not callable(v)}
+        shape = next(iter(dev.values())).shape if dev else next(iter(host.values())).shape
+        valid = _finite_all(list(dev.values())).cpu().numpy() if dev else np.ones(shape, bool)
+        for v in host.values():
+            valid &= np.isfinite(v)
+        if inlier_mask is not None:
+            valid &= _host_mask(inlier_mask)
+        idx_flat = np.flatnonzero(valid)
+        if idx_flat.size == 0:
+            raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
+        count = _count_from_subsample(subsample, idx_flat.size)
+        rng = np.random.default_rng(random_state)
+        choice = rng.choice(idx_flat, count, replace=False) if count < idx_flat.size else idx_flat
+        rr, cc = np.unravel_index(choice, tuple(shape))
+        vals: dict[str, np.ndarray] = {}
+        if dev:
+            device = next(iter(dev.values())).device
+            gathered = _gather_flat(list(dev.values()), torch.from_numpy(choice).to(device)).cpu().numpy()
+            vals.update(zip(dev, gathered))
+        for k, v in host.items():
+            vals[k] = v[rr, cc]
+        for k, v in grids.items():
+            if callable(v) and not isinstance(v, torch.Tensor):
+                vals[k] = np.asarray(v(rr, cc), dtype=np.float64)
+        return rr, cc, int(count), vals
 
 
 def _points_on_grid(pts: PointCloud, transform: Affine, device: torch.device):
@@ -1113,38 +1114,41 @@ def _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations: int, method:
     tol32 = float(np.float32(tolerance))
     it, stat = 0, math.inf
     while it < max_iterations and (it <= 2 or stat >= tol32):
-        tq = tba @ matrix[:3, :3].T + matrix[:3, 3]
-        ind, d2 = nn(tq)
-        if picky:
-            dmin = torch.full((n_segments,), math.inf, dtype=dt, device=dev).scatter_reduce(0, ind, d2, "amin")
-            is_min = d2 <= dmin[ind]
-            qmin = torch.full((n_segments,), m, dtype=qidx.dtype, device=dev).scatter_reduce(
-                0, ind, torch.where(is_min, qidx, m), "amin")
-            keep = is_min & (qidx == qmin[ind])
-        else:
-            keep = torch.ones(m, dtype=torch.bool, device=dev)
-        w = keep.to(dt)
-        r = ref[ind]
-        if method == "point-to-plane":
-            nrm = norms[ind]
-            B = torch.sum((r - tq) * nrm, dim=1)
-            A = nrm if only_translation else torch.cat([torch.linalg.cross(tq, nrm, dim=1), nrm], dim=1)
-            Aw = A * w[:, None]
-            x = torch.linalg.solve(Aw.T @ A + 1e-8 * torch.eye(A.shape[1], dtype=dt, device=dev), Aw.T @ B)
-            R, t = (eye3, x) if only_translation else (_rotation_xyz(x[0], x[1], x[2]), x[3:])
-        else:
-            wsum = torch.clamp(w.sum(), min=1.0)
-            mu_r = (r * w[:, None]).sum(dim=0) / wsum
-            mu_t = (tq * w[:, None]).sum(dim=0) / wsum
-            H = ((tq - mu_t) * w[:, None]).T @ (r - mu_r)
-            U, _s, Vt = torch.linalg.svd(H)
-            d = torch.sign(torch.linalg.det(Vt.T @ U.T))
-            diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d])
-            R = eye3 if only_translation else Vt.T @ torch.diag(diag) @ U.T
-            t = mu_r - R @ mu_t
-        step = _rigid_step(R, t)
-        matrix = step @ matrix
-        stat = float(torch.abs(torch.sum(step[:3, 3])))
+        with span("xdem_tpu_torch.coreg.icp.step"):  # the host read of `stat` ends it with the step
+            tq = tba @ matrix[:3, :3].T + matrix[:3, 3]
+            with span("xdem_tpu_torch.coreg.icp.nn", devices=[dev]) as scan:
+                ind, d2 = nn(tq)
+                scan.count("pairs", m * n_segments)
+            if picky:
+                dmin = torch.full((n_segments,), math.inf, dtype=dt, device=dev).scatter_reduce(0, ind, d2, "amin")
+                is_min = d2 <= dmin[ind]
+                qmin = torch.full((n_segments,), m, dtype=qidx.dtype, device=dev).scatter_reduce(
+                    0, ind, torch.where(is_min, qidx, m), "amin")
+                keep = is_min & (qidx == qmin[ind])
+            else:
+                keep = torch.ones(m, dtype=torch.bool, device=dev)
+            w = keep.to(dt)
+            r = ref[ind]
+            if method == "point-to-plane":
+                nrm = norms[ind]
+                B = torch.sum((r - tq) * nrm, dim=1)
+                A = nrm if only_translation else torch.cat([torch.linalg.cross(tq, nrm, dim=1), nrm], dim=1)
+                Aw = A * w[:, None]
+                x = torch.linalg.solve(Aw.T @ A + 1e-8 * torch.eye(A.shape[1], dtype=dt, device=dev), Aw.T @ B)
+                R, t = (eye3, x) if only_translation else (_rotation_xyz(x[0], x[1], x[2]), x[3:])
+            else:
+                wsum = torch.clamp(w.sum(), min=1.0)
+                mu_r = (r * w[:, None]).sum(dim=0) / wsum
+                mu_t = (tq * w[:, None]).sum(dim=0) / wsum
+                H = ((tq - mu_t) * w[:, None]).T @ (r - mu_r)
+                U, _s, Vt = torch.linalg.svd(H)
+                d = torch.sign(torch.linalg.det(Vt.T @ U.T))
+                diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d])
+                R = eye3 if only_translation else Vt.T @ torch.diag(diag) @ U.T
+                t = mu_r - R @ mu_t
+            step = _rigid_step(R, t)
+            matrix = step @ matrix
+            stat = float(torch.abs(torch.sum(step[:3, 3])))
         it += 1
     return matrix, it, stat
 
@@ -1260,34 +1264,37 @@ def icp(
     logging.info("Running ICP coregistration")
     from scipy.spatial import KDTree
 
-    aux = None
-    grid = _grid_side(ref_elev, tba_elev)
-    if method == "point-to-plane":
-        nx, ny, nz = _icp_norms_device(grid, transform.xres, transform.yres)
-        aux = {"nx": nx, "ny": ny, "nz": nz}
-    sub_ref, sub_tba, x, y, sub_aux = _subsample_pair_values(
-        ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, aux_vars=aux
-    )
-    ref_epc = np.vstack((x, y, sub_ref))
-    tba_epc = np.vstack((x, y, sub_tba))
-    norms = np.vstack((sub_aux["nx"], sub_aux["ny"], sub_aux["nz"])) if aux is not None else None
-    ref_epc, tba_epc, centroid, std_fac = _standardize_epc(ref_epc, tba_epc, scale_std=standardize)
-    tolerance = tolerance / std_fac
+    with span("xdem_tpu_torch.coreg.icp.prepare") as prepare:
+        aux = None
+        grid = _grid_side(ref_elev, tba_elev)
+        if method == "point-to-plane":
+            nx, ny, nz = _icp_norms_device(grid, transform.xres, transform.yres)
+            aux = {"nx": nx, "ny": ny, "nz": nz}
+        sub_ref, sub_tba, x, y, sub_aux = _subsample_pair_values(
+            ref_elev, tba_elev, inlier_mask, transform, subsample, random_state, aux_vars=aux
+        )
+        ref_epc = np.vstack((x, y, sub_ref))
+        tba_epc = np.vstack((x, y, sub_tba))
+        norms = np.vstack((sub_aux["nx"], sub_aux["ny"], sub_aux["nz"])) if aux is not None else None
+        ref_epc, tba_epc, centroid, std_fac = _standardize_epc(ref_epc, tba_epc, scale_std=standardize)
+        tolerance = tolerance / std_fac
+        prepare.count("points", ref_epc.shape[1])
 
-    if mesh is not None:
-        nn_method = "brute"
-    if nn_method == "auto":
-        n_pts = ref_epc.shape[1]
-        fits = (float(n_pts) * float(tba_epc.shape[1]) <= 1e10) and (2048 * n_pts * 4 <= 1.5e9)
-        on_cuda = grid.device.type == "cuda"
-        nn_method = "brute" if (on_cuda and not callable(fit_minimizer) and fits) else "kdtree"
-        logging.info("ICP nn_method='auto' resolved to '%s' (device %s, %d points)", nn_method,
-                     grid.device, n_pts)
+        if mesh is not None:
+            nn_method = "brute"
+        if nn_method == "auto":
+            n_pts = ref_epc.shape[1]
+            fits = (float(n_pts) * float(tba_epc.shape[1]) <= 1e10) and (2048 * n_pts * 4 <= 1.5e9)
+            on_cuda = grid.device.type == "cuda"
+            nn_method = "brute" if (on_cuda and not callable(fit_minimizer) and fits) else "kdtree"
+            logging.info("ICP nn_method='auto' resolved to '%s' (device %s, %d points)", nn_method,
+                         grid.device, n_pts)
+        if nn_method == "brute":
+            dev = grid.device
+            clouds = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                ref_epc.T, tba_epc.T, norms.T if norms is not None else np.zeros((ref_epc.shape[1], 3)))]
 
     if nn_method == "brute":
-        dev = grid.device
-        norms_dev = torch.from_numpy(
-            (norms.T if norms is not None else np.zeros((ref_epc.shape[1], 3))).astype(np.float32)).to(dev)
         solve = _icp_solve_device
         if mesh is not None:
             from xdem_tpu_torch.parallel.coreg import icp_solve_sharded
@@ -1295,9 +1302,7 @@ def icp(
 
             solve = functools.partial(icp_solve_sharded, mesh=as_mesh_1d(mesh))
         matrix_dev, n_it, _stat = solve(
-            torch.from_numpy(ref_epc.T.astype(np.float32)).to(dev),
-            torch.from_numpy(tba_epc.T.astype(np.float32)).to(dev),
-            norms_dev, np.float32(tolerance), max_iterations=int(max_iterations), method=method,
+            *clouds, np.float32(tolerance), max_iterations=int(max_iterations), method=method,
             picky=picky, only_translation=only_translation,
         )
         # float32 rotation composition drifts off orthogonality by ~1e-6: re-orthogonalise.
@@ -1600,39 +1605,40 @@ def _lzd_solve_device(raster: torch.Tensor, gradx: torch.Tensor, grady: torch.Te
     matrix = torch.eye(4, dtype=dt, device=dev)
     it, stat, nvalid = 0, math.inf, 1.0
     while it < max_iterations and (it <= 2 or stat >= tol32) and (it == 0 or nvalid > 0):
-        systems = []
-        for (rst, gxr, gyr), p, m in zip(grids, pts, replicate(matrix, mesh)):
-            xc, yc, zc = m[:3, :3] @ p + m[:3, 3][:, None]
-            cols = a * xc + b * yc + c
-            rows = d * xc + e * yc + f
-            z_rst = interp_rowcol(rst, rows, cols, method="linear")
-            gx = interp_rowcol(gxr, rows, cols, method="linear")
-            gy = interp_rowcol(gyr, rows, cols, method="linear")
-            dh = z_rst - (zc + cz)
-            ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
-            w = ok.to(dt)
-            dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
-            xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
-            ones = torch.ones_like(gx)
-            if only_translation:
-                A = torch.stack([-gx, -gy, ones], dim=1)
-            else:
-                A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
-            systems.append((A, w, dh))
-        scale = torch.sqrt(torch.clamp(psum([(A * A * w[:, None]).sum(dim=0) for A, w, _ in systems], mesh)
-                                       / n_total, min=1e-12))
-        lhs, rhs, wsum = [], [], []
-        for (A, w, dh), s in zip(systems, replicate(scale, mesh)):
-            As = A / s[None, :]
-            Aw = As * w[:, None]
-            lhs.append(Aw.T @ As)
-            rhs.append(Aw.T @ dh)
-            wsum.append(w.sum())
-        sol = torch.linalg.solve(psum(lhs, mesh) + 1e-7 * eye, psum(rhs, mesh)) / scale
-        R = torch.eye(3, dtype=dt, device=dev) if only_translation else _rotation_xyz(sol[3], sol[4], sol[5])
-        step = _rigid_step(R, sol[:3])
-        matrix = step @ matrix
-        stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), psum(wsum, mesh)]).tolist()
+        with span("xdem_tpu_torch.coreg.lzd.step"):  # the host read of `stat` ends it with the step
+            systems = []
+            for (rst, gxr, gyr), p, m in zip(grids, pts, replicate(matrix, mesh)):
+                xc, yc, zc = m[:3, :3] @ p + m[:3, 3][:, None]
+                cols = a * xc + b * yc + c
+                rows = d * xc + e * yc + f
+                z_rst = interp_rowcol(rst, rows, cols, method="linear")
+                gx = interp_rowcol(gxr, rows, cols, method="linear")
+                gy = interp_rowcol(gyr, rows, cols, method="linear")
+                dh = z_rst - (zc + cz)
+                ok = torch.isfinite(dh) & torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(zc)
+                w = ok.to(dt)
+                dh, gx, gy = (torch.where(ok, v, 0.0) for v in (dh, gx, gy))
+                xc, yc, zc = (torch.where(ok, v, 0.0) for v in (xc, yc, zc))
+                ones = torch.ones_like(gx)
+                if only_translation:
+                    A = torch.stack([-gx, -gy, ones], dim=1)
+                else:
+                    A = torch.stack([-gx, -gy, ones, yc + gy * zc, -xc - gx * zc, gx * yc - gy * xc], dim=1)
+                systems.append((A, w, dh))
+            scale = torch.sqrt(torch.clamp(psum([(A * A * w[:, None]).sum(dim=0) for A, w, _ in systems], mesh)
+                                           / n_total, min=1e-12))
+            lhs, rhs, wsum = [], [], []
+            for (A, w, dh), s in zip(systems, replicate(scale, mesh)):
+                As = A / s[None, :]
+                Aw = As * w[:, None]
+                lhs.append(Aw.T @ As)
+                rhs.append(Aw.T @ dh)
+                wsum.append(w.sum())
+            sol = torch.linalg.solve(psum(lhs, mesh) + 1e-7 * eye, psum(rhs, mesh)) / scale
+            R = torch.eye(3, dtype=dt, device=dev) if only_translation else _rotation_xyz(sol[3], sol[4], sol[5])
+            step = _rigid_step(R, sol[:3])
+            matrix = step @ matrix
+            stat, nvalid = torch.stack([torch.abs(torch.sum(step[:3, 3])), psum(wsum, mesh)]).tolist()
         it += 1
     return matrix, it, stat, nvalid
 
@@ -1663,33 +1669,32 @@ def lzd(
     if isinstance(ref_elev, PointCloud) and isinstance(tba_elev, PointCloud):
         raise TypeError("The LZD coregistration does not support two point clouds.")
     ref_is_pts = isinstance(ref_elev, PointCloud)
-    raster = _grid_side(ref_elev, tba_elev)
-    gy, gx = torch.gradient(raster)
-    gradx = gx / torch.tensor(transform.xres, dtype=raster.dtype, device=raster.device)
-    grady = -gy / torch.tensor(transform.yres, dtype=raster.dtype, device=raster.device)  # rows run south
-    sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
-                                                       random_state)
-    # The point side (the to-be-aligned side of a raster pair) moves; the raster side is
-    # interpolated at its positions.
-    sub_pts = sub_ref if ref_is_pts else sub_tba
-    centroid = (float(np.nanmean(x)), float(np.nanmean(y)), float(np.nanmean(sub_pts)))
-    cx, cy, cz = centroid
-    inv = transform.invert()
-    # The centroid folds into the inverse-transform constants in float64 on the host, so the
-    # device works in small centred coordinates only.
-    cc = inv.a * cx + inv.b * cy + inv.c - 0.5
-    cf = inv.d * cx + inv.e * cy + inv.f - 0.5
-    dev = raster.device
+    with span("xdem_tpu_torch.coreg.lzd.prepare") as prepare:
+        raster = _grid_side(ref_elev, tba_elev)
+        gy, gx = torch.gradient(raster)
+        gradx = gx / torch.tensor(transform.xres, dtype=raster.dtype, device=raster.device)
+        grady = -gy / torch.tensor(transform.yres, dtype=raster.dtype, device=raster.device)  # rows run south
+        sub_ref, sub_tba, x, y, _ = _subsample_pair_values(ref_elev, tba_elev, inlier_mask, transform, subsample,
+                                                           random_state)
+        # The point side (the to-be-aligned side of a raster pair) moves; the raster side is
+        # interpolated at its positions.
+        sub_pts = sub_ref if ref_is_pts else sub_tba
+        prepare.count("points", len(sub_pts))
+        centroid = (float(np.nanmean(x)), float(np.nanmean(y)), float(np.nanmean(sub_pts)))
+        cx, cy, cz = centroid
+        inv = transform.invert()
+        # The centroid folds into the inverse-transform constants in float64 on the host, so the
+        # device works in small centred coordinates only.
+        cc = inv.a * cx + inv.b * cy + inv.c - 0.5
+        cf = inv.d * cx + inv.e * cy + inv.f - 0.5
+        dev = raster.device
+        points = [torch.from_numpy(np.asarray(v, np.float32)).to(dev) for v in (x - cx, y - cy, sub_pts - cz)]
     if mesh is not None:
         from xdem_tpu_torch.parallel.mesh import as_mesh_1d
 
         mesh = as_mesh_1d(mesh)
     matrix_dev, n_it, stat, nvalid = _lzd_solve_device(
-        raster, gradx, grady,
-        torch.from_numpy(np.asarray(x - cx, np.float32)).to(dev),
-        torch.from_numpy(np.asarray(y - cy, np.float32)).to(dev),
-        torch.from_numpy(np.asarray(sub_pts - cz, np.float32)).to(dev),
-        cz, [inv.a, inv.b, cc, inv.d, inv.e, cf], tolerance,
+        raster, gradx, grady, *points, cz, [inv.a, inv.b, cc, inv.d, inv.e, cf], tolerance,
         max_iterations=int(max_iterations), only_translation=only_translation, mesh=mesh,
     )
     if nvalid == 0.0:

@@ -38,6 +38,7 @@ from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.interp import interp_rowcol
 from xdem_tpu_torch.pointcloud import PointCloud
 from xdem_tpu_torch.profiler import profile as _profile
+from xdem_tpu_torch.profiler import span
 from xdem_tpu_torch.raster import Raster, mask_on
 
 
@@ -204,40 +205,42 @@ def _iterate_affine_regrid_small_rotations(
     inv = invert_matrix(matrix)
     cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
 
-    cols = torch.arange(w, dtype=f32, device=dev)[None, :]
-    rows = torch.arange(h, dtype=f32, device=dev)[:, None]
-    a, b, c, d, e, f = (float(v) for v in tuple(transform))
-    X = a * (cols + 0.5) + b * (rows + 0.5) + (c - cx)
-    Y = d * (cols + 0.5) + e * (rows + 0.5) + (f - cy)
+    with span("xdem_tpu_torch.coreg.regrid", devices=[dev]) as regrid:
+        cols = torch.arange(w, dtype=f32, device=dev)[None, :]
+        rows = torch.arange(h, dtype=f32, device=dev)[:, None]
+        a, b, c, d, e, f = (float(v) for v in tuple(transform))
+        X = a * (cols + 0.5) + b * (rows + 0.5) + (c - cx)
+        Y = d * (cols + 0.5) + e * (rows + 0.5) + (f - cy)
 
-    det = a * e - b * d
-    col_off = (e * cx - b * cy - (e * c - b * f)) / det - 0.5
-    row_off = (-d * cx + a * cy - (-d * c + a * f)) / det - 0.5
-    det_t = torch.tensor(det, dtype=f32, device=dev)
-    res_x = torch.tensor(transform.xres, dtype=f32, device=dev)
-    res_y = torch.tensor(transform.yres, dtype=f32, device=dev)
-    # Matrix entries as exact float32 values (the float32 matrices of the reference).
-    mi = [[float(v) for v in row] for row in np.asarray(inv, np.float32)]
-    mf = [[float(v) for v in row] for row in np.asarray(matrix, np.float32)]
+        det = a * e - b * d
+        col_off = (e * cx - b * cy - (e * c - b * f)) / det - 0.5
+        row_off = (-d * cx + a * cy - (-d * c + a * f)) / det - 0.5
+        det_t = torch.tensor(det, dtype=f32, device=dev)
+        res_x = torch.tensor(transform.xres, dtype=f32, device=dev)
+        res_y = torch.tensor(transform.yres, dtype=f32, device=dev)
+        # Matrix entries as exact float32 values (the float32 matrices of the reference).
+        mi = [[float(v) for v in row] for row in np.asarray(inv, np.float32)]
+        mf = [[float(v) for v in row] for row in np.asarray(matrix, np.float32)]
 
-    zg = dem - cz
-    tol32 = float(np.float32(tolerance))
-    it, maxres = 0, math.inf
-    while it < max_iterations and maxres > tol32:
-        xs = mi[0][0] * X + mi[0][1] * Y + mi[0][2] * zg + mi[0][3]
-        ys = mi[1][0] * X + mi[1][1] * Y + mi[1][2] * zg + mi[1][3]
-        colp = (e * xs - b * ys) / det_t + col_off
-        rowp = (-d * xs + a * ys) / det_t + row_off
-        zsrc = interp_rowcol(dem, rowp, colp, method=resampling) - cz
-        del colp, rowp
-        xf = mf[0][0] * xs + mf[0][1] * ys + mf[0][2] * zsrc + mf[0][3]
-        yf = mf[1][0] * xs + mf[1][1] * ys + mf[1][2] * zsrc + mf[1][3]
-        zg = mf[2][0] * xs + mf[2][1] * ys + mf[2][2] * zsrc + mf[2][3]
-        del xs, ys, zsrc
-        res = torch.hypot((xf - X) / res_x, (yf - Y) / res_y)
-        maxres = float(torch.where(torch.isfinite(zg), res, 0.0).max())
-        it += 1
-    return zg + cz
+        zg = dem - cz
+        tol32 = float(np.float32(tolerance))
+        it, maxres = 0, math.inf
+        while it < max_iterations and maxres > tol32:
+            xs = mi[0][0] * X + mi[0][1] * Y + mi[0][2] * zg + mi[0][3]
+            ys = mi[1][0] * X + mi[1][1] * Y + mi[1][2] * zg + mi[1][3]
+            colp = (e * xs - b * ys) / det_t + col_off
+            rowp = (-d * xs + a * ys) / det_t + row_off
+            zsrc = interp_rowcol(dem, rowp, colp, method=resampling) - cz
+            del colp, rowp
+            xf = mf[0][0] * xs + mf[0][1] * ys + mf[0][2] * zsrc + mf[0][3]
+            yf = mf[1][0] * xs + mf[1][1] * ys + mf[1][2] * zsrc + mf[1][3]
+            zg = mf[2][0] * xs + mf[2][1] * ys + mf[2][2] * zsrc + mf[2][3]
+            del xs, ys, zsrc
+            res = torch.hypot((xf - X) / res_x, (yf - Y) / res_y)
+            maxres = float(torch.where(torch.isfinite(zg), res, 0.0).max())
+            it += 1
+            regrid.count("steps")
+        return zg + cz
 
 
 def _apply_matrix_rst(
