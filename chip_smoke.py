@@ -9,7 +9,8 @@ last line, whose "count" is the number of cards the run used.
 
 Phases:
   1. device: the card's name and power limit; exits non-zero without CUDA;
-  2. build: compiles the CUDA kernels K1, K2, K3 and the centre from ``xdem_tpu_torch/csrc`` with nvcc;
+  2. build: compiles the CUDA kernels K1, K2, K3, the centre and tier 3's step from ``xdem_tpu_torch/csrc``
+     with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on a seeded
      2047 x 2061 DEM with NaN holes, a NaN border strip, an inf and a -inf pixel. All three
      are held to the bit (max abs error 0, identical NaN masks), on the ragged width (scalar
@@ -54,7 +55,10 @@ Phases:
      reference's curvature, which defines its field), K1 launches in its fit and its apply,
      and a saved and loaded copy applies to the same bits. On a 1024^2 crop each method fits
      on the card and the CPU from one draw: matrices within 1e-4, tier-3 applies within 1e-3 m
-     with identical NaN masks. Fit, apply and host-draw times are printed.
+     with identical NaN masks. Tier 3's step kernel (csrc/regrid.cu) launches in the rigid pair's
+     build and in the ICP and LZD applies; the build equals the ATen loop in the kernel's place
+     on the card to the bit, with identical NaN masks and as many steps, and one step of each is
+     timed beside the kernel's byte bound. Fit, apply and host-draw times are printed.
   7. volume change and the rest of the statistics at 10 000 x 10 000 on phase 4's DEM, a dDEM
      that is VOLUME_LAW of elevation plus 0.5 m of noise with 10 % voids, and 36 labelled
      glacier blocks: hypsometric_binning (fixed, count and quantile bins) must recover the law
@@ -228,6 +232,7 @@ KERNELS = {
     "fractal": ("xdem_tpu_torch/csrc/fractal.cu", "xdem_tpu/terrain/pallas_kernels.py:370"),
 }
 CENTER_SOURCE = "xdem_tpu_torch/csrc/center.cu"  # replaces no TPU kernel: XLA takes that mean
+REGRID_SOURCE = "xdem_tpu_torch/csrc/regrid.cu"  # tier 3's step: replaces no TPU kernel, XLA runs that loop
 
 
 class SmokeFailure(RuntimeError):
@@ -948,6 +953,55 @@ def _removed_share(field, corr) -> float:
     return 1.0 - float((f + corr[ok].double()).var()) / float(f.var())
 
 
+def regrid_step_stats(dem, transform, matrix, centroid, got, launches: int) -> dict:
+    """Tier 3's step kernel at the main path's size: `got`, the apply that launched it
+    `launches` times, against the ATen passes in the kernel's place on the same card (the same
+    bits, NaNs and steps), and one step of each timed as the loop runs it (the launch, then the
+    read of the largest residual), beside the kernel's bound: the guess read and written and
+    the DEM read once."""
+    import torch
+
+    from xdem_tpu_torch import coreg
+    from xdem_tpu_torch.coreg import base
+    from xdem_tpu_torch.profiler import span
+
+    steps = {"aten": 0}
+    make_aten = base._regrid_step_aten
+
+    def counted(*args):
+        step = make_aten(*args)
+
+        def one(zg):
+            steps["aten"] += 1
+            return step(zg)
+
+        return one
+
+    make_card, base._regrid_step_on_card = base._regrid_step_on_card, counted
+    try:
+        want, _ = coreg.apply_matrix(dem, matrix, centroid=centroid, transform=transform)
+    finally:
+        base._regrid_step_on_card = make_card
+    same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+    num = ~torch.isnan(want)
+    err = float((got[num] - want[num]).abs().max())
+    check(same_nan and torch.equal(got[num], want[num]),
+          f"tier 3's step kernel differs from the ATen loop: NaN masks equal {same_nan}, max abs {err:.3e} m")
+    check(launches == steps["aten"], f"tier 3 took {launches} kernel steps and {steps['aten']} ATen steps")
+
+    k = base._regrid_constants(transform, matrix, centroid)
+    with span("xdem_tpu_torch.coreg.regrid", devices=[dem.device]) as regrid:
+        card, aten = (make(dem, k, "linear", regrid) for make in (make_card, make_aten))
+        zg = dem - k.cz
+        ms, plain_ms = (device_ms(lambda: step(zg), reps=5) for step in (card, aten))
+    bound_ms = 3 * 4 * dem.numel() / HBM_BYTES_PER_S * 1e3
+    print(f"  tier 3's step kernel against the ATen loop at {tuple(dem.shape)}: bit-equal, NaN masks identical, "
+          f"{launches} steps each; a step {ms:.3f} ms (ATen {plain_ms:.3f} ms), bound {bound_ms:.3f} ms "
+          f"({100 * bound_ms / ms:.1f} %)")
+    return {"steps": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes"}
+
+
 def phase_coreg(dev, n: int) -> dict:
     """Coregistration at n x n on phase 4's DEM: rigid fits (ICP, LZD, CPD) of a pair moved by
     RIGID_TRUTH through tier 3, DhMinimize on phase 4's translated pair, a bias-correction
@@ -959,7 +1013,7 @@ def phase_coreg(dev, n: int) -> dict:
 
     import xdem_tpu_torch.spatialstats as ss
     from xdem_tpu_torch import Affine, coreg, fit, terrain
-    from xdem_tpu_torch.coreg import affine, biascorr
+    from xdem_tpu_torch.coreg import affine, base, biascorr
     from xdem_tpu_torch.terrain import cuda_kernels as ck
 
     transform = Affine.from_origin(5e5, 8e6, RES, RES)
@@ -970,7 +1024,9 @@ def phase_coreg(dev, n: int) -> dict:
     # Rigid pair: the truth applied about the lower-left corner at the mean height (tier 3).
     truth = coreg.matrix_from_translations_rotations(*RIGID_TRUTH)
     c1 = (transform.c, transform.f - n * RES, float(ref.double().mean()))
+    base.LAUNCHES["regrid_step"] = 0
     (tba_rigid, _), t_build = _synced(lambda: coreg.apply_matrix(ref, truth, centroid=c1, transform=transform))
+    build_launches = base.LAUNCHES["regrid_step"]
     frac = float(torch.isfinite(tba_rigid).float().mean())
     check(tba_rigid.is_cuda and frac > 0.9, f"tier 3 left {frac:.4f} of the moved DEM finite")
     print(f"  rigid pair: tier 3 moved {n}x{n} by {RIGID_TRUTH} in {t_build:.3f} s ({frac:.5f} finite)")
@@ -1021,6 +1077,12 @@ def phase_coreg(dev, n: int) -> dict:
             del dh, aligned
         out["fits"][name] = row
     out["tier3_build_s"] = t_build
+    # The step kernel's launches over the build and the ICP and LZD applies, then the build
+    # against the ATen loop.
+    out["regrid_launches"] = base.LAUNCHES["regrid_step"]
+    check(build_launches >= 1 and out["regrid_launches"] >= build_launches + 2,
+          f"tier 3's step kernel launched {build_launches} times in the build, {out['regrid_launches']} in all")
+    out["regrid_step"] = regrid_step_stats(ref, transform, truth, c1, tba_rigid, build_launches)
 
     # Translated pair: DhMinimize on phase 4's pair.
     dx, dy, dz = TBA_SHIFT
@@ -2946,7 +3008,10 @@ def main(argv=None) -> int:
     ] + [center_summary(res["center"], {"main": res["center_launches"], "raster": ras["center_launches"],
                                         "ddem": ddm["center_launches"], "tiled": til["center_launches"],
                                         "accuracy": wfl["accuracy"]["center_launches"],
-                                        "topo": wfl["topo"]["center_launches"], "mesh": msh["center_launches"]})],
+                                        "topo": wfl["topo"]["center_launches"], "mesh": msh["center_launches"]}),
+        {"name": "regrid_step", "route": "cuda", "source": REGRID_SOURCE, "replaces": None,
+         "launches": cor["regrid_launches"], "launches_by_path": {"coreg": cor["regrid_launches"]},
+         **cor["regrid_step"], "library_ms": None}],
         "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],

@@ -12,7 +12,8 @@ import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
 
 Tolerance: K1, K2 and K3 are held to the bit (identical NaN masks, max abs error 0): the
-kernels are built with -fmad=false and add in the plain versions' order.
+kernels are built with -fmad=false and add in the plain versions' order. So is tier 3's
+fixed-point step kernel (csrc/regrid.cu), against the ATen loop on the same card.
 """
 
 import math
@@ -377,6 +378,101 @@ def test_tier3_apply_on_the_card_matches_the_cpu(cuda_device):
     assert_same_nan(got.cpu(), want, "tier 3")
     fin = torch.isfinite(want)
     assert float((got.cpu()[fin] - want[fin]).abs().max()) <= 1e-3
+
+
+def _smooth_dem(device, shape):
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]] / max(shape)
+    z = 300 * np.sin(3 * xx + 1) * np.cos(2 * yy) + 200 * xx * yy
+    return torch.from_numpy(z.astype(np.float32)).to(device)
+
+
+def _counted_regrid(dem, resampling="linear", aten=False):
+    """Tier 3 of the (20, 5, 0.1) m, (0.1, 0.05, 0.01) degree motion about the tile's centre at
+    500 m, with the ATen passes in place of the card's step kernel where `aten`: the regridded
+    DEM, the kernel's launches and the ATen loop's interpolations."""
+    from xdem_tpu_torch.coreg import base
+
+    calls = {"aten": 0}
+    interp = base.interp_rowcol
+
+    def interp_counted(*args, **kwargs):
+        calls["aten"] += 1
+        return interp(*args, **kwargs)
+
+    h, w = dem.shape
+    t = Affine.from_origin(5e5, 8e6, 20.0, 20.0)
+    m = coreg.matrix_from_translations_rotations(20, 5, 0.1, 0.1, 0.05, 0.01)
+    launches = base.LAUNCHES["regrid_step"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(base, "interp_rowcol", interp_counted)
+        if aten:
+            mp.setattr(base, "_regrid_step_on_card", base._regrid_step_aten)
+        out, _ = coreg.apply_matrix(dem, m, centroid=(5e5 + w * 10.0, 8e6 - h * 10.0, 500.0), transform=t,
+                                    resampling=resampling)
+    calls["kernel"] = base.LAUNCHES["regrid_step"] - launches
+    return out, calls
+
+
+REGRID_CASES = {
+    # name: (DEM, steps the loop takes)
+    "512 with voids": (lambda dev: _dem(dev, shape=(512, 512)), 3),
+    "777 x 1301": (lambda dev: _dem(dev, shape=(777, 1301), seed=1), 20),
+    "3000, every step": (lambda dev: _dem(dev, shape=(3000, 3000), seed=2), 20),
+    "smooth, stops at the tolerance": (lambda dev: _smooth_dem(dev, (128, 128)), 2),
+    "a view that is not contiguous": (lambda dev: _dem(dev, shape=(512, 520))[:, :515], 3),
+}
+
+
+@pytest.mark.parametrize("case", list(REGRID_CASES))
+def test_regrid_kernel_equals_the_aten_loop_to_the_bit(cuda_device, case):
+    """Tier 3's step kernel (csrc/regrid.cu) gives the ATen loop's regrid on the same card to the
+    bit, NaNs in the same places, in as many steps: on a DEM with NaN and inf voids and a NaN
+    border, on a non-square odd-sized one, on one whose residual never reaches the tolerance, on
+    a smooth one that stops at it, and on a view that is not contiguous (copied, then launched)."""
+    make, steps = REGRID_CASES[case]
+    dem = make(cuda_device)
+    got, by_kernel = _counted_regrid(dem)
+    want, by_aten = _counted_regrid(dem, aten=True)
+    assert by_kernel == {"kernel": steps, "aten": 0} and by_aten == {"kernel": 0, "aten": steps}
+    assert got.is_cuda and got.is_contiguous()
+    _bit_equal(got, want, case)
+
+
+@pytest.mark.parametrize("resampling", ["nearest", "cubic"])
+def test_regrid_without_linear_resampling_takes_the_aten_loop_on_the_card(cuda_device, resampling):
+    dem = _dem(cuda_device, shape=(512, 512))
+    got, calls = _counted_regrid(dem, resampling)
+    want, _ = _counted_regrid(dem, resampling, aten=True)
+    assert calls["kernel"] == 0 and calls["aten"] >= 1
+    _bit_equal(got, want, resampling)
+
+
+def test_regrid_of_a_dem_that_is_not_float32_raises_on_the_card(cuda_device):
+    from xdem_tpu_torch.coreg import base
+
+    dem = _dem(cuda_device, shape=(128, 128)).double()
+    with pytest.raises(ValueError, match="float32"):
+        base._iterate_affine_regrid_small_rotations(dem, Affine.from_origin(5e5, 8e6, 20.0, 20.0),
+                                                    coreg.matrix_from_translations_rotations(1, 0, 0, 0.1, 0, 0),
+                                                    None)
+
+
+def test_the_regrid_span_counts_a_kernel_a_step_on_the_card(cuda_device):
+    """Inside a recorded ``coreg.regrid`` span the card's float32 DEM counts ``kernel`` once a
+    step, as many as ``steps``; the ATen passes in the kernel's place count none."""
+    from xdem_tpu_torch import profiler
+
+    dem = _dem(cuda_device, shape=(777, 1301), seed=1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():  # torch 2.11 warns at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=acts):
+            for aten in (False, True):
+                _counted_regrid(dem, aten=aten)
+            torch.cuda.synchronize(cuda_device)
+    on_card, aten = [r.counters for r in profiler.spans() if r.name == "xdem_tpu_torch.coreg.regrid"]
+    assert on_card == {"steps": 20, "kernel": 20}
+    assert aten == {"steps": 20}
 
 
 def test_rigid_fits_on_the_card_match_the_cpu(cuda_device):

@@ -1,6 +1,8 @@
 """The spans of rigid coregistration (xdem_tpu_torch.profiler.span): the grid draw, ICP's
 preparation, steps and neighbour scans, LZD's preparation and steps, and the small-rotation
-regrid, with their counters, under a CPU torch.profiler; and nothing recorded without one."""
+regrid, with their counters, under a CPU torch.profiler; and nothing recorded without one. The
+regrid's ``kernel`` counter (a launch of ``csrc/regrid.cu`` a step on the card) is held to its
+``steps`` on the card in ``test_torch_cuda.py``."""
 
 import contextlib
 import warnings
@@ -116,6 +118,8 @@ def test_the_counters_count_points_pairs_and_regrid_steps(traced_run):
     assert lzd_prepare.counters == {"points": LZD_POINTS}
     assert [r.counters for r in by_name["coreg.icp.nn"]] == [{"pairs": ICP_POINTS * ICP_POINTS}] * sum(counts["icp"])
     assert [r.counters["steps"] for r in by_name["coreg.regrid"]] == counts["regrid"]
+    # The CPU takes the ATen loop: no step is a launch of the regrid kernel.
+    assert [r.counters.get("kernel", 0) for r in by_name["coreg.regrid"]] == [0] * len(counts["regrid"])
     assert all(steps >= 1 for steps in counts["regrid"])
 
 

@@ -66,6 +66,7 @@ SIGNATURES = {
     "windowed_max_shared_window": (),
     "launch_center": (_P, _L, _P, _P, _P),
     "center_blocks": (_L,),
+    "launch_regrid_step": (_P, _P, _L, _L, _P, _P, _P),
 }
 
 

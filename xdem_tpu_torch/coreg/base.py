@@ -28,11 +28,12 @@ import logging
 import math
 import pickle
 import warnings
-from typing import Any, Callable, Iterable, Literal, TypedDict
+from typing import Any, Callable, Iterable, Literal, NamedTuple, TypedDict
 
 import numpy as np
 import torch
 
+from xdem_tpu_torch import _build
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.georef import CRS, Affine
 from xdem_tpu_torch.ops.interp import interp_rowcol
@@ -179,6 +180,106 @@ def _apply_matrix_pts(epc: PointCloud, matrix: np.ndarray, centroid: tuple[float
     return out
 
 
+# Launches of csrc/regrid.cu, one a tier-3 step on the card: counted where the wrapper launches
+# and nowhere else, so a run can show that its regrids went through the kernel.
+LAUNCHES = {"regrid_step": 0}
+
+
+class _RegridConstants(NamedTuple):
+    """Tier 3's constants, grouped in float64 on the host about the centroid (cx, cy, cz)."""
+
+    a: float  # the DEM's affine transform, with c and f less cx and cy
+    b: float
+    c: float
+    d: float
+    e: float
+    f: float
+    mi: list[list[float]]  # the inverse matrix and the matrix, as exact float32 values
+    mf: list[list[float]]
+    det: float  # a * e - b * d
+    col_off: float  # the centroid's pixel offsets, less 0.5
+    row_off: float
+    cz: float
+    res_x: float  # the pixel sizes
+    res_y: float
+
+
+def _regrid_constants(transform: Affine, matrix: np.ndarray,
+                      centroid: tuple[float, float, float] | None) -> _RegridConstants:
+    """Tier 3's constants for `transform` and `matrix` about `centroid` (None: the origin)."""
+    cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
+    a, b, c, d, e, f = (float(v) for v in tuple(transform))
+    det = a * e - b * d
+    return _RegridConstants(
+        a, b, c - cx, d, e, f - cy,
+        mi=[[float(v) for v in row] for row in np.asarray(invert_matrix(matrix), np.float32)],
+        mf=[[float(v) for v in row] for row in np.asarray(matrix, np.float32)],
+        det=det,
+        col_off=(e * cx - b * cy - (e * c - b * f)) / det - 0.5,
+        row_off=(-d * cx + a * cy - (-d * c + a * f)) / det - 0.5,
+        cz=cz, res_x=transform.xres, res_y=transform.yres,
+    )
+
+
+def _regrid_step_aten(dem: torch.Tensor, k: _RegridConstants, resampling: str, regrid: Any) -> Callable:
+    """The plain version of tier 3's step, in ATen passes on the DEM's device: returns
+    ``step(zg) -> (new guess, largest residual)``. The divisions by the determinant and the
+    pixel sizes are by tensors, true divisions on every device. It counts nothing on the span
+    `regrid`, which it takes for the card's signature."""
+    h, w = dem.shape
+    dev, f32 = dem.device, torch.float32
+    cols = torch.arange(w, dtype=f32, device=dev)[None, :]
+    rows = torch.arange(h, dtype=f32, device=dev)[:, None]
+    X = k.a * (cols + 0.5) + k.b * (rows + 0.5) + k.c
+    Y = k.d * (cols + 0.5) + k.e * (rows + 0.5) + k.f
+    det_t = torch.tensor(k.det, dtype=f32, device=dev)
+    res_x = torch.tensor(k.res_x, dtype=f32, device=dev)
+    res_y = torch.tensor(k.res_y, dtype=f32, device=dev)
+    mi, mf = k.mi, k.mf
+
+    def step(zg: torch.Tensor) -> tuple[torch.Tensor, float]:
+        xs = mi[0][0] * X + mi[0][1] * Y + mi[0][2] * zg + mi[0][3]
+        ys = mi[1][0] * X + mi[1][1] * Y + mi[1][2] * zg + mi[1][3]
+        colp = (k.e * xs - k.b * ys) / det_t + k.col_off
+        rowp = (-k.d * xs + k.a * ys) / det_t + k.row_off
+        zsrc = interp_rowcol(dem, rowp, colp, method=resampling) - k.cz
+        del colp, rowp
+        xf = mf[0][0] * xs + mf[0][1] * ys + mf[0][2] * zsrc + mf[0][3]
+        yf = mf[1][0] * xs + mf[1][1] * ys + mf[1][2] * zsrc + mf[1][3]
+        zg = mf[2][0] * xs + mf[2][1] * ys + mf[2][2] * zsrc + mf[2][3]
+        del xs, ys, zsrc
+        res = torch.hypot((xf - X) / res_x, (yf - Y) / res_y)
+        return zg, float(torch.where(torch.isfinite(zg), res, 0.0).max())
+
+    return step
+
+
+def _regrid_step_on_card(dem: torch.Tensor, k: _RegridConstants, resampling: str, regrid: Any) -> Callable:
+    """Tier 3's step on a contiguous CUDA float32 DEM with linear resampling: each ``step(zg)``
+    is one launch of ``csrc/regrid.cu`` on the current stream of the DEM's card, which
+    overwrites `zg` with the new guess, then one read of its largest residual. Bit-equal to
+    :func:`_regrid_step_aten`; each launch counts in ``LAUNCHES`` and in the span's ``kernel``."""
+    # The kernel's constants in the order of its RegridParams, rounded once to float32 as ATen
+    # rounds a Python scalar on a float32 tensor.
+    params = np.array([k.a, k.b, k.c, k.d, k.e, k.f, *k.mi[0], *k.mi[1], *k.mf[0], *k.mf[1], *k.mf[2], k.det,
+                       k.col_off, k.row_off, k.cz, k.res_x, k.res_y], dtype=np.float32)
+    maxres = torch.empty((), dtype=torch.float32, device=dem.device)
+    launch = _build.load().launch_regrid_step
+
+    def step(zg: torch.Tensor) -> tuple[torch.Tensor, float]:
+        with torch.cuda.device(dem.device):
+            stream = torch.cuda.current_stream(dem.device).cuda_stream
+            rc = launch(dem.data_ptr(), zg.data_ptr(), dem.shape[0], dem.shape[1], params.ctypes.data,
+                        maxres.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel regrid_step failed to launch: cudaError {rc}.")
+        LAUNCHES["regrid_step"] += 1
+        regrid.count("kernel")
+        return zg, float(maxres)
+
+    return step
+
+
 def _iterate_affine_regrid_small_rotations(
     dem: torch.Tensor,
     transform: Affine,
@@ -197,50 +298,30 @@ def _iterate_affine_regrid_small_rotations(
 
     Everything runs in float32 about the centroid: the large constants (georeferencing
     offsets minus the centroid, the pixel offsets of the centroid) are grouped in float64 on
-    the host first, so UTM magnitudes never meet a float32 tensor. The divisions by the
-    determinant and the pixel sizes are by tensors, true divisions on every device.
+    the host first, so UTM magnitudes never meet a float32 tensor.
+
+    A CUDA DEM with linear resampling takes each step as one launch of ``csrc/regrid.cu``
+    (:func:`_regrid_step_on_card`; a view is copied first, a dtype other than float32 raises);
+    nearest and cubic resampling, and a CPU DEM, take the ATen passes of :func:`_regrid_step_aten`.
     """
-    h, w = dem.shape
-    dev, f32 = dem.device, torch.float32
-    inv = invert_matrix(matrix)
-    cx, cy, cz = centroid if centroid is not None else (0.0, 0.0, 0.0)
+    if dem.is_cuda and resampling == "linear":
+        if dem.dtype != torch.float32:
+            raise ValueError(f"Tier 3's step kernel takes a float32 DEM, got {dem.dtype}.")
+        dem, make_step = dem.contiguous(), _regrid_step_on_card
+    else:
+        make_step = _regrid_step_aten
 
-    with span("xdem_tpu_torch.coreg.regrid", devices=[dev]) as regrid:
-        cols = torch.arange(w, dtype=f32, device=dev)[None, :]
-        rows = torch.arange(h, dtype=f32, device=dev)[:, None]
-        a, b, c, d, e, f = (float(v) for v in tuple(transform))
-        X = a * (cols + 0.5) + b * (rows + 0.5) + (c - cx)
-        Y = d * (cols + 0.5) + e * (rows + 0.5) + (f - cy)
-
-        det = a * e - b * d
-        col_off = (e * cx - b * cy - (e * c - b * f)) / det - 0.5
-        row_off = (-d * cx + a * cy - (-d * c + a * f)) / det - 0.5
-        det_t = torch.tensor(det, dtype=f32, device=dev)
-        res_x = torch.tensor(transform.xres, dtype=f32, device=dev)
-        res_y = torch.tensor(transform.yres, dtype=f32, device=dev)
-        # Matrix entries as exact float32 values (the float32 matrices of the reference).
-        mi = [[float(v) for v in row] for row in np.asarray(inv, np.float32)]
-        mf = [[float(v) for v in row] for row in np.asarray(matrix, np.float32)]
-
-        zg = dem - cz
+    with span("xdem_tpu_torch.coreg.regrid", devices=[dem.device]) as regrid:
+        k = _regrid_constants(transform, matrix, centroid)
+        step = make_step(dem, k, resampling, regrid)
+        zg = dem - k.cz
         tol32 = float(np.float32(tolerance))
         it, maxres = 0, math.inf
         while it < max_iterations and maxres > tol32:
-            xs = mi[0][0] * X + mi[0][1] * Y + mi[0][2] * zg + mi[0][3]
-            ys = mi[1][0] * X + mi[1][1] * Y + mi[1][2] * zg + mi[1][3]
-            colp = (e * xs - b * ys) / det_t + col_off
-            rowp = (-d * xs + a * ys) / det_t + row_off
-            zsrc = interp_rowcol(dem, rowp, colp, method=resampling) - cz
-            del colp, rowp
-            xf = mf[0][0] * xs + mf[0][1] * ys + mf[0][2] * zsrc + mf[0][3]
-            yf = mf[1][0] * xs + mf[1][1] * ys + mf[1][2] * zsrc + mf[1][3]
-            zg = mf[2][0] * xs + mf[2][1] * ys + mf[2][2] * zsrc + mf[2][3]
-            del xs, ys, zsrc
-            res = torch.hypot((xf - X) / res_x, (yf - Y) / res_y)
-            maxres = float(torch.where(torch.isfinite(zg), res, 0.0).max())
+            zg, maxres = step(zg)
             it += 1
             regrid.count("steps")
-        return zg + cz
+        return zg + k.cz
 
 
 def _apply_matrix_rst(
