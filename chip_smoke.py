@@ -1035,7 +1035,7 @@ def phase_coreg(dev, n: int) -> dict:
     del dh0
 
     def fit_twice(make, ref_, tba_):
-        """First and steady fit of a fresh method, each with the host draw's time."""
+        """First and steady fit of a fresh method, each with the draw's time."""
         res = []
         for _ in range(2):
             with Stages({"draw": (affine, "_draw_pixels"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
@@ -1058,7 +1058,7 @@ def phase_coreg(dev, n: int) -> dict:
         err_r = max(abs(g - w) for g, w in zip(got[3:], want[3:]))
         row = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first, "draw_steady_s": d_steady,
                "err_t_m": err_t, "err_r_deg": err_r, "count": c.meta["outputs"]["random"]["subsample_final"]}
-        print(f"  {name}: fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / "
+        print(f"  {name}: fit first {t_first:.3f} s, steady {t_steady:.3f} s (draw {d_first:.3f} / "
               f"{d_steady:.3f} s); {row['count']} points; got {[round(v, 4) for v in got]}, "
               f"want {[round(v, 4) for v in want]}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg")
         if name == "ICP":
@@ -1094,7 +1094,7 @@ def phase_coreg(dev, n: int) -> dict:
     var_b = float(dh_b[torch.isfinite(dh_b)].double().var())
     var_a = float(dh_a[torch.isfinite(dh_a)].double().var())
     it = dm.meta["outputs"]["iterative"]["last_iteration"]
-    print(f"  DhMinimize: fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / {d_steady:.3f} s), "
+    print(f"  DhMinimize: fit first {t_first:.3f} s, steady {t_steady:.3f} s (draw {d_first:.3f} / {d_steady:.3f} s), "
           f"{it} Nelder-Mead iterations; translation ({tx:.4f}, {ty:.4f}, {tz:.4f}) m, truth ({-dx}, {-dy}, {-dz}) m; "
           f"var(dh) {var_b:.6g} -> {var_a:.6g}")
     check(abs(tx + dx) <= 0.05 * mag and abs(ty + dy) <= 0.05 * mag,
@@ -1125,7 +1125,7 @@ def phase_coreg(dev, n: int) -> dict:
              coreg.TerrainBias(subsample=5e5)]
     pipe = coreg.CoregPipeline(steps)
     # The first fit and a steady fit of a copy, each split by stage.
-    split_spec = {"host draw": (affine, "_draw_pixels"), "terrain (K1)": (terrain, "get_terrain_attribute"),
+    split_spec = {"draw": (affine, "_draw_pixels"), "terrain (K1)": (terrain, "get_terrain_attribute"),
                   "binning (host)": (ss, "nd_binning"), "periodogram (host)": (fit, "_periodogram_best_wavelength"),
                   "LM polish (host)": (fit, "_polish_sumsin"), "in-fit applies": (biascorr.BiasCorr, "_apply_func")}
     ck.reset_launch_counts()
@@ -1846,7 +1846,7 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
     out.update(make_s=t_make, las_write_s=t_write, las_read_s=t_read, las_max_dev_m=dev_las, to_vcrs_ms=t_vcrs * 1e3)
 
     def fit_twice(make, ref_, tba_):
-        """First and steady fit of a fresh method, each with the host draw's time."""
+        """First and steady fit of a fresh method, each with the draw's time."""
         res = []
         for _ in range(2):
             with Stages({"draw": (affine, "_draw_valid"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
@@ -1861,7 +1861,7 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
         tx, ty, tz = nk.to_translations()
         it = nk.meta["outputs"]["iterative"]["last_iteration"]
         count = nk.meta["outputs"]["random"]["subsample_final"]
-        print(f"  Nuth & Kaab ({label}): fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw {d_first:.3f} / "
+        print(f"  Nuth & Kaab ({label}): fit first {t_first:.3f} s, steady {t_steady:.3f} s (draw {d_first:.3f} / "
               f"{d_steady:.3f} s, share {d_steady / t_steady:.2f}); {it} iterations, {count} points; translation "
               f"({tx:.4f}, {ty:.4f}, {tz:.4f}) m, truth ({sign * dx}, {sign * dy}, {sign * dz}) m")
         check(abs(tx - sign * dx) <= 0.05 * mag and abs(ty - sign * dy) <= 0.05 * mag and abs(tz - sign * dz) <= 0.05 * abs(dz),
@@ -1886,7 +1886,7 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
                                        ("LZD", lambda: coreg.LZD(), 1.0, 5e-3)):
         (c, t_first, d_first, brute), (_, t_steady, d_steady, _) = fit_twice(make, ref, rigid)
         err_t, err_r, got = _rigid_error(c, c1, truth)
-        print(f"  {name} (DEM ref, rigid EPC tba): fit first {t_first:.3f} s, steady {t_steady:.3f} s (host draw "
+        print(f"  {name} (DEM ref, rigid EPC tba): fit first {t_first:.3f} s, steady {t_steady:.3f} s (draw "
               f"{d_first:.3f} / {d_steady:.3f} s); got {got}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg"
               + (f"; nn_method='auto' took {'the brute search on the card' if brute else 'the host KD-tree'}" if name == "ICP" else ""))
         if name == "ICP":

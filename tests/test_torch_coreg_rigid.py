@@ -82,25 +82,56 @@ def _count_kdtree_queries(monkeypatch):
 # ------------------------------------------------------------------ subsampling
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_subsample_pair_values_identical_to_jax(pair, masked):
+SUBSAMPLE_CASES = {
+    "unmasked": dict(),
+    "masked": dict(mask="array"),
+    "host aux": dict(aux="host"),
+    "callable aux": dict(aux="callable"),
+    "every pixel": dict(mask="array", subsample=1.0),
+    "tensor mask": dict(mask="tensor"),
+}
+
+
+@pytest.mark.parametrize("case", list(SUBSAMPLE_CASES))
+def test_subsample_pair_values_identical_to_jax(pair, case):
+    """The port's grid draw picks xdem_tpu's pixels, in its order, with its values: an aux
+    grid on the device or the host, or a function of (rows, cols) (xdem_tpu takes that
+    function's float64 grid), and an inlier mask as a numpy array or a bool tensor."""
     ref, tba = pair
+    kw = SUBSAMPLE_CASES[case]
     mask = None
-    if masked:
+    if "mask" in kw:
         mask = np.ones(ref.shape, bool)
         mask[:40] = False
+        mask[200:, 100:120] = False
+    given_mask = torch.from_numpy(mask) if kw.get("mask") == "tensor" else mask
     aux = np.array(jnp.gradient(jnp.asarray(ref))[0])
-    want = jaffine._subsample_pair_values(ref, tba, mask, JAX_TRANSFORM, 5000, 7, aux_vars={"g": jnp.asarray(aux)})
-    got = affine._subsample_pair_values(torch.from_numpy(ref), torch.from_numpy(tba), mask, TRANSFORM, 5000, 7,
-                                        aux_vars={"g": torch.from_numpy(aux)})
+    if kw.get("aux") == "callable":
+        aux = np.add.outer(np.arange(N) * 0.5, np.arange(N) * -0.25)
+        want_aux, got_aux = aux, lambda rr, cc: rr * 0.5 - cc * 0.25
+    elif kw.get("aux") == "host":
+        want_aux = got_aux = aux
+    else:
+        want_aux, got_aux = jnp.asarray(aux), torch.from_numpy(aux)
+    sub = kw.get("subsample", 5000)
+    want = jaffine._subsample_pair_values(ref, tba, mask, JAX_TRANSFORM, sub, 7, aux_vars={"g": want_aux})
+    got = affine._subsample_pair_values(torch.from_numpy(ref), torch.from_numpy(tba), given_mask, TRANSFORM, sub, 7,
+                                        aux_vars={"g": got_aux})
     for g, w in zip(got[:4], want[:4]):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_array_equal(got[4]["g"], want[4]["g"])
-    sj = jaffine._subsample_pair(ref, tba, mask, JAX_TRANSFORM, 0.3, 7)
-    sp = affine._subsample_pair(torch.from_numpy(ref), torch.from_numpy(tba), mask, TRANSFORM, 0.3, 7)
+    sub = kw.get("subsample", 0.3)
+    sj = jaffine._subsample_pair(ref, tba, mask, JAX_TRANSFORM, sub, 7, aux_vars={"g": want_aux})
+    sp = affine._subsample_pair(torch.from_numpy(ref), torch.from_numpy(tba), given_mask, TRANSFORM, sub, 7,
+                                aux_vars={"g": got_aux})
     assert sp["count"] == sj["count"]
     for k in ("pts_z", "rows", "cols"):
         np.testing.assert_array_equal(to_np(sp[k]), sj[k])
+    np.testing.assert_array_equal(sp["aux"]["g"], np.asarray(sj["aux"]["g"]))
+    if case == "every pixel":
+        valid = np.isfinite(ref) & np.isfinite(tba) & mask
+        assert sp["count"] == valid.sum()
+        np.testing.assert_array_equal(to_np(sp["rows"]), np.nonzero(valid)[0])
 
 
 def test_standardize_and_point_helpers_match_jax():

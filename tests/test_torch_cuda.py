@@ -492,6 +492,53 @@ def test_rigid_fits_on_the_card_match_the_cpu(cuda_device):
         assert np.abs(on_card - on_cpu).max() <= 1e-4 * np.abs(on_cpu).max(), type(c).__name__
 
 
+def test_grid_draw_on_the_card_equals_the_cpu_and_keeps_the_mask_on_the_card(cuda_device, tmp_path):
+    """The raster-raster draw on the card picks the CPU's pixels, in its order, with its values
+    to the bit, and inside its ``coreg.draw`` span no device-to-host copy is larger than the
+    picks (their int64 positions, or the two grids' float32 values at them): the joint finite
+    mask stays on the card."""
+    import json
+
+    from xdem_tpu_torch import profiler
+    from xdem_tpu_torch.coreg import affine
+
+    ref = _dem("cpu", shape=(1024, 1024), seed=2)
+    tba = ref + 0.5
+    tba[300:340, 500:620] = np.nan
+    inlier = torch.ones(ref.shape, dtype=torch.bool)
+    inlier[:, :90] = False
+    inlier[700:760] = False
+    count = 20000
+
+    def draw(grids, mask):
+        return affine._draw_pixels({**grids, "x": lambda rr, cc: cc * 10.0 + 0.25}, mask, count, 5)
+
+    want = draw({"__ref__": ref, "__tba__": tba}, inlier)
+    on_card = {"__ref__": ref.to(cuda_device), "__tba__": tba.to(cuda_device)}
+    mask = inlier.to(cuda_device)
+    draw(on_card, mask)
+    torch.cuda.synchronize(cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():  # torch 2.11 warns at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=acts) as prof:
+            got = draw(on_card, mask)
+            torch.cuda.synchronize(cuda_device)
+    assert got[2] == want[2] == count
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g, w)
+    assert got[3].keys() == want[3].keys()
+    for k in want[3]:
+        assert got[3][k].dtype == want[3][k].dtype, k
+        np.testing.assert_array_equal(got[3][k], want[3][k], err_msg=k)
+    assert [r.name for r in profiler.spans()] == ["xdem_tpu_torch.coreg.draw"]
+    prof.export_chrome_trace(str(tmp_path / "draw.json"))
+    with open(tmp_path / "draw.json") as f:
+        events = json.load(f)["traceEvents"]
+    to_host = [e["args"]["bytes"] for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    assert to_host and max(to_host) <= 8 * count, to_host
+
+
 def test_icp_auto_takes_the_brute_search_on_the_card(cuda_device, monkeypatch):
     from xdem_tpu_torch.coreg import affine
 

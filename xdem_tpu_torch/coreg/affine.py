@@ -13,9 +13,10 @@ iteration.
   from one seed), so the fit agrees with the reference to the coregistration tolerance. A
   raster-point pair takes slope and aspect in float64 and draws over the points with numpy,
   as xdem_tpu does; only the valid count crosses to the host.
-- VerticalShift, DhMinimize, ICP, CPD and LZD draw their subsample on the host with
-  ``np.random.default_rng(random_state).choice`` over the jointly valid pixels, exactly as
-  xdem_tpu does, so the samples are identical and the fits agree closely.
+- VerticalShift, DhMinimize, ICP, CPD and LZD draw their subsample with
+  ``np.random.default_rng(random_state).choice`` over the count of jointly valid pixels,
+  mapped to the pixels on the device, so the samples are xdem_tpu's and the fits agree
+  closely.
 - DhMinimize: Nelder-Mead on NMAD(dh) (medians as the mean of the two middle order
   statistics); ICP: point-to-plane (Low 2004) or point-to-point, the nearest neighbours by a
   blocked direct-difference argmin on the device (``nn_method="brute"``) or a scipy KD-tree on
@@ -97,52 +98,51 @@ def _finite_median(x: torch.Tensor) -> torch.Tensor:
     return masked_median(x, torch.isfinite(x))
 
 
-def _gather_flat(arrays: list[torch.Tensor], flat_idx: torch.Tensor) -> torch.Tensor:
-    """(K, n) float32: every grid of `arrays` at the flat pixel indices `flat_idx`."""
-    return torch.stack([a.reshape(-1)[flat_idx].to(torch.float32) for a in arrays])
-
-
-def _host_mask(mask: Any) -> np.ndarray:
-    return mask.detach().cpu().numpy().astype(bool) if isinstance(mask, torch.Tensor) else np.asarray(mask, bool)
+def _draw_valid(valid: torch.Tensor, subsample: float | int, random_state: Any) -> tuple[torch.Tensor, int]:
+    """Positions of a subsample of the True entries of the 1-D `valid`, drawn as xdem_tpu
+    draws them: numpy's ``choice(idx, count)`` over the valid positions ``idx`` equals
+    ``idx[choice(len(idx), count)]`` for one seed, so only the valid count reaches the host
+    and the positions are mapped on `valid`'s device; every valid position, in order and
+    without a draw, when the count takes them all. Returns (positions, count), count 0 when
+    nothing is valid."""
+    idx = torch.nonzero(valid).reshape(-1)
+    n_valid = idx.numel()
+    if n_valid == 0:
+        return idx, 0
+    count = _count_from_subsample(subsample, n_valid)
+    if count < n_valid:
+        pos = np.random.default_rng(random_state).choice(n_valid, count, replace=False)
+        idx = idx[torch.from_numpy(np.asarray(pos, np.int64)).to(idx.device)]
+    return idx, count
 
 
 def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int, random_state: Any):
     """Draw the subsample over the pixels where every grid is finite and the inlier mask is
-    set, with ``np.random.default_rng(random_state).choice`` as xdem_tpu draws it.
+    set, as xdem_tpu draws it (:func:`_draw_valid`), picks in the order numpy draws them.
 
     `grids` maps names to device tensors, host arrays, or functions of the drawn
     (rows, cols) that give float64 values (variables defined everywhere, such as pixel or
-    rotated coordinates, so never built over the whole grid). Device grids contribute one
-    joint finite mask and one gather at the picks. Returns (rows, cols, count, values), with
-    device values as float32 numpy, host values indexed as stored.
+    rotated coordinates, so never built over the whole grid). The joint mask is built on the
+    device grids' device and only the picks reach the host. Returns (rows, cols, count,
+    values), with device values as float32 numpy, host values indexed as stored.
     """
     with span("xdem_tpu_torch.coreg.draw"):
         dev = {k: v for k, v in grids.items() if isinstance(v, torch.Tensor)}
-        host = {k: np.asarray(v) for k, v in grids.items() if not isinstance(v, torch.Tensor) and not callable(v)}
-        shape = next(iter(dev.values())).shape if dev else next(iter(host.values())).shape
-        valid = _finite_all(list(dev.values())).cpu().numpy() if dev else np.ones(shape, bool)
+        host = {k: np.asarray(v) for k, v in grids.items() if not (k in dev or callable(v))}
+        first = next(iter(dev.values()))
+        valid = _finite_all(list(dev.values()))
         for v in host.values():
-            valid &= np.isfinite(v)
+            valid &= torch.from_numpy(np.isfinite(v)).to(first.device)
         if inlier_mask is not None:
-            valid &= _host_mask(inlier_mask)
-        idx_flat = np.flatnonzero(valid)
-        if idx_flat.size == 0:
+            valid &= device_mask(inlier_mask, first.shape, first.device)
+        idx, count = _draw_valid(valid.reshape(-1), subsample, random_state)
+        if count == 0:
             raise ValueError("No valid (finite, inlier) pixels in common between the elevation data.")
-        count = _count_from_subsample(subsample, idx_flat.size)
-        rng = np.random.default_rng(random_state)
-        choice = rng.choice(idx_flat, count, replace=False) if count < idx_flat.size else idx_flat
-        rr, cc = np.unravel_index(choice, tuple(shape))
-        vals: dict[str, np.ndarray] = {}
-        if dev:
-            device = next(iter(dev.values())).device
-            gathered = _gather_flat(list(dev.values()), torch.from_numpy(choice).to(device)).cpu().numpy()
-            vals.update(zip(dev, gathered))
-        for k, v in host.items():
-            vals[k] = v[rr, cc]
-        for k, v in grids.items():
-            if callable(v) and not isinstance(v, torch.Tensor):
-                vals[k] = np.asarray(v(rr, cc), dtype=np.float64)
-        return rr, cc, int(count), vals
+        rr, cc = np.unravel_index(idx.cpu().numpy(), tuple(first.shape))
+        vals = dict(zip(dev, torch.stack([v.reshape(-1)[idx].float() for v in dev.values()]).cpu().numpy()))
+        vals.update((k, v[rr, cc]) for k, v in host.items())
+        vals.update((k, np.asarray(v(rr, cc), dtype=np.float64)) for k, v in grids.items() if callable(v))
+        return rr, cc, count, vals
 
 
 def _points_on_grid(pts: PointCloud, transform: Affine, device: torch.device):
@@ -150,22 +150,6 @@ def _points_on_grid(pts: PointCloud, transform: Affine, device: torch.device):
     (centre convention) and heights, on `device`."""
     rows, cols = transform.rowcol(pts.x.to(device), pts.y.to(device))
     return rows, cols, pts.z.to(device)
-
-
-def _draw_valid(valid: torch.Tensor, subsample: float | int, random_state: Any) -> tuple[torch.Tensor, int]:
-    """Positions of a subsample of the True entries of `valid`, drawn as xdem_tpu draws them:
-    numpy's ``choice(idx, count)`` over the valid positions ``idx`` equals
-    ``idx[choice(len(idx), count)]`` for one seed, so only the valid count reaches the host
-    and the positions are mapped on `valid`'s device. Returns (positions, count)."""
-    n_valid = int(valid.sum())
-    if n_valid == 0:
-        raise ValueError("No valid points overlapping the raster.")
-    count = _count_from_subsample(subsample, n_valid)
-    idx = torch.nonzero(valid).reshape(-1)
-    if count < n_valid:
-        pos = np.random.default_rng(random_state).choice(n_valid, count, replace=False)
-        idx = idx[torch.from_numpy(np.asarray(pos, np.int64)).to(idx.device)]
-    return idx, count
 
 
 def _subsample_pair_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, transform: Affine,
@@ -192,6 +176,8 @@ def _subsample_pair_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, trans
     for rr, cc in ((r0, c0), (r0, c1), (r1, c0), (r1, c1)):
         valid &= flat_valid[rr * w + cc]
     idx, count = _draw_valid(valid, subsample, random_state)
+    if count == 0:
+        raise ValueError("No valid points overlapping the raster.")
     rows, cols = rows_f[idx], cols_f[idx]
     out = {"pts_z": z[idx].to(torch.float32), "rows": rows.to(torch.float32), "cols": cols.to(torch.float32),
            "raster": rst.to(torch.float32), "invert": not ref_is_pts, "count": count}
@@ -246,7 +232,9 @@ def _subsample_values_points(ref_elev: Any, tba_elev: Any, inlier_mask: Any, tra
     if inlier_mask is not None:
         nearest = torch.round(rows_f).clamp(0, h - 1).long() * w + torch.round(cols_f).clamp(0, w - 1).long()
         valid &= device_mask(inlier_mask, (h, w), dev).reshape(-1)[nearest]
-    idx, _ = _draw_valid(valid, subsample, random_state)
+    idx, count = _draw_valid(valid, subsample, random_state)
+    if count == 0:
+        raise ValueError("No valid points overlapping the raster.")
     sub_vals = vals[:, idx].to(torch.float64).cpu().numpy()
     aux = {k: sub_vals[1 + i] for i, k in enumerate(grid_keys)}
     rr, cc = (v[idx].to(torch.float64).cpu().numpy() for v in (r32, c32))
