@@ -58,7 +58,10 @@ Phases:
      with identical NaN masks. Tier 3's step kernel (csrc/regrid.cu) launches in the rigid pair's
      build and in the ICP and LZD applies; the build equals the ATen loop in the kernel's place
      on the card to the bit, with identical NaN masks and as many steps, and one step of each is
-     timed beside the kernel's byte bound. Fit, apply and host-draw times are printed.
+     timed beside the kernel's byte bound. ICP's scan kernel (csrc/nn_scan.cu) launches once a
+     step in ICP's two fits; on 5e4 x 5e4 standardised points of the rigid pair it equals the ATen scan to the bit
+     (indices and squared distances), and each is timed beside the kernel's operation bound, as
+     is one kernel scan of 5e5 x 5e5 points. Fit, apply and host-draw times are printed.
   7. volume change and the rest of the statistics at 10 000 x 10 000 on phase 4's DEM, a dDEM
      that is VOLUME_LAW of elevation plus 0.5 m of noise with 10 % voids, and 36 labelled
      glacier blocks: hypsometric_binning (fixed, count and quantile bins) must recover the law
@@ -96,8 +99,8 @@ Phases:
      ICESat-2 segments over 200 km x 200 km): a LAS round trip in the git-ignored outputs/ gives
      the points back to the millimetre; to_vcrs("Ellipsoid") runs on the card; Nuth & Kääb on (DEM,
      EPC) and (EPC, DEM) recovers the shift within 5 %; epc.coregister_3d(dem) moves the points by
-     the fit; ICP (5e4 picks, brute search on the card) and LZD on the DEM against the reference
-     terrain's points moved by RIGID_TRUTH meet phase 6's limits; dem.estimate_uncertainty(epc)
+     the fit; ICP (5e4 picks, brute search on the card, one launch of the scan kernel a step) and
+     LZD on the DEM against the reference terrain's points moved by RIGID_TRUTH meet phase 6's limits; dem.estimate_uncertainty(epc)
      launches K1 once and passes phase 5's checks on sigma and rho; BlockwiseNuthKaab (400 tiles of
      500 px, 20 000 picks each) finds the shift within 5 % and its apply cuts var(dh) below 5 %;
      apply_tiled on a 4096^2 crop equals apply; the generic BlockwiseCoreg(NuthKaab()) runs on a
@@ -140,8 +143,9 @@ Phases:
      and K3 once per shard, leaves every plane on its shards' cards, and once assembled equals the
      whole-array planes to the bit (NaN masks included), as does a 2047 x 2061 DEM with NaN holes
      over 2 x 2 and 1 x 4. VerticalShift, NuthKaab, DhMinimize and ICP with mesh= on phase 4's pair
-     equal their single-device fits to the bit, LZD and CPD within 1e-3, BlockwiseNuthKaab (phase 9's
-     400 tiles) within 2e-3; estimate_uncertainty(mesh=) on phase 5's pair gives the single-device
+     (ICP's scan kernel once a shard a step, on the shard's card) equal their single-device fits
+     to the bit, LZD and CPD within 1e-3, BlockwiseNuthKaab (phase 9's 400 tiles) within 2e-3;
+     estimate_uncertainty(mesh=) on phase 5's pair gives the single-device
      sigma and rho to the bit. A cluster: on four cards launch_local_cluster(4, 1) on its default
      route (NCCL, a card a process); on one card, which cannot hold two NCCL ranks,
      launch_local_cluster(2, 2) with XDEM_TPU_PLATFORM=cpu (gloo); its Dowd bins and K1 planes
@@ -233,6 +237,7 @@ KERNELS = {
 }
 CENTER_SOURCE = "xdem_tpu_torch/csrc/center.cu"  # replaces no TPU kernel: XLA takes that mean
 REGRID_SOURCE = "xdem_tpu_torch/csrc/regrid.cu"  # tier 3's step: replaces no TPU kernel, XLA runs that loop
+NN_SCAN_SOURCE = "xdem_tpu_torch/csrc/nn_scan.cu"  # ICP's scan: replaces no TPU kernel, XLA fuses that scan
 
 
 class SmokeFailure(RuntimeError):
@@ -784,6 +789,38 @@ class Stages:
         self._undo.clear()
 
 
+class CardScans:
+    """Counts ICP's scan kernel launches by card: wraps ``coreg.affine._nn_scan_on_card``, which
+    the single-device and the sharded solves look up at call time, so that each scan of a
+    reference cloud (one a shard on a mesh) counts under that cloud's card."""
+
+    def __init__(self):
+        self.by_card: dict[str, int] = {}
+
+    def __enter__(self):
+        from xdem_tpu_torch.coreg import affine
+
+        self._orig = orig = affine._nn_scan_on_card
+
+        def on_card(ref_pts):
+            nn, card = orig(ref_pts), str(ref_pts.device)
+
+            def counted(*args):
+                found = nn(*args)
+                self.by_card[card] = self.by_card.get(card, 0) + 1
+                return found
+
+            return counted
+
+        affine._nn_scan_on_card = on_card
+        return self
+
+    def __exit__(self, *exc):
+        from xdem_tpu_torch.coreg import affine
+
+        affine._nn_scan_on_card = self._orig
+
+
 def _replay(module, name: str):
     """Patch module.name so that its first result is returned again to every later call,
     moved to that call's device (the device of its first tensor argument)."""
@@ -1002,6 +1039,55 @@ def regrid_step_stats(dem, transform, matrix, centroid, got, launches: int) -> d
             "bound_by": "bytes"}
 
 
+def nn_scan_stats(ref, tba, transform, counts=(50_000, 500_000)) -> dict:
+    """ICP's scan kernel at the main path's size: clouds of counts[0] pixels drawn from the
+    finite pixels of `ref` and `tba` (their centres, heights and the same pixels' moved heights,
+    standardised as ICP does), the kernel against the ATen scan on the same card (indices and
+    squared distances to the bit), each timed by CUDA events (the kernel through its wrapper, a
+    launch an event pair, and alone, ten in a row), beside its bound by operations; then one
+    kernel scan of counts[1] x counts[1] points, ICP's default subsample."""
+    import numpy as np
+    import torch
+
+    from xdem_tpu_torch.coreg import affine, base
+
+    finite = np.flatnonzero((torch.isfinite(ref) & torch.isfinite(tba)).cpu().numpy().ravel())
+    out = {}
+    for count in counts:
+        pick = np.sort(np.random.default_rng(7).choice(finite, count, replace=False))
+        rows, cols = np.unravel_index(pick, tuple(ref.shape))
+        flat = torch.from_numpy(pick).to(ref.device)
+        x, y = transform.c + (cols + 0.5) * transform.a, transform.f + (rows + 0.5) * transform.e
+        z_ref, z_tba = (t.reshape(-1)[flat].double().cpu().numpy() for t in (ref, tba))
+        ref_c, tba_c, _, _ = affine._standardize_epc(np.vstack((x, y, z_ref)), np.vstack((x, y, z_tba)))
+        r, q = (torch.from_numpy(a.T.astype(np.float32)).to(ref.device) for a in (ref_c, tba_c))
+        nn = affine._nn_planes_scan(r)
+        launches = base.LAUNCHES["nn_scan"]
+        got_i, got_d = nn(q)
+        check(base.LAUNCHES["nn_scan"] == launches + 1, "the scan of a CUDA float32 cloud did not launch its kernel")
+        ms = device_ms(lambda: nn(q), reps=5)
+        alone_ms = device_ms(lambda: nn(q), reps=3, calls=10)
+        bound_ms = 9 * count * count / F32_OPS_PER_S * 1e3
+        row = {"ms": ms, "alone_ms": alone_ms, "bound_ms": bound_ms, "bound_by": "operations"}
+        if count == counts[0]:
+            aten = affine._nn_scan_aten(r)
+            want_i, want_d = aten(q)
+            same = torch.equal(got_i, want_i) and torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+            check(same, f"the scan kernel differs from the ATen scan at {count} x {count}: "
+                        f"{int((got_i != want_i).sum())} indices, {int((got_d != want_d).sum())} distances")
+            row["plain_ms"] = device_ms(lambda: aten(q), reps=3)
+            row["max_abs_err"] = 0.0
+            del want_i, want_d
+        print(f"  ICP's scan kernel at {count} x {count}: "
+              + ("bit-equal to the ATen scan (indices and squared distances); " if "plain_ms" in row else "")
+              + f"{ms:.3f} ms through its wrapper, {alone_ms:.3f} ms alone"
+              + (f" (ATen {row['plain_ms']:.3f} ms)" if "plain_ms" in row else "")
+              + f"; bound {bound_ms:.3f} ms by operations ({100 * bound_ms / alone_ms:.1f} %)")
+        out[count] = row
+        del r, q, got_i, got_d
+    return {**out[counts[0]], "at_default_subsample": out[counts[-1]]}
+
+
 def phase_coreg(dev, n: int) -> dict:
     """Coregistration at n x n on phase 4's DEM: rigid fits (ICP, LZD, CPD) of a pair moved by
     RIGID_TRUTH through tier 3, DhMinimize on phase 4's translated pair, a bias-correction
@@ -1024,7 +1110,7 @@ def phase_coreg(dev, n: int) -> dict:
     # Rigid pair: the truth applied about the lower-left corner at the mean height (tier 3).
     truth = coreg.matrix_from_translations_rotations(*RIGID_TRUTH)
     c1 = (transform.c, transform.f - n * RES, float(ref.double().mean()))
-    base.LAUNCHES["regrid_step"] = 0
+    base.LAUNCHES["regrid_step"] = base.LAUNCHES["nn_scan"] = 0
     (tba_rigid, _), t_build = _synced(lambda: coreg.apply_matrix(ref, truth, centroid=c1, transform=transform))
     build_launches = base.LAUNCHES["regrid_step"]
     frac = float(torch.isfinite(tba_rigid).float().mean())
@@ -1035,18 +1121,21 @@ def phase_coreg(dev, n: int) -> dict:
     del dh0
 
     def fit_twice(make, ref_, tba_):
-        """First and steady fit of a fresh method, each with the draw's time."""
+        """First and steady fit of a fresh method, each with the draw's time and the steps of
+        the brute ICP solve on the card (0 where it did not run)."""
         res = []
         for _ in range(2):
             with Stages({"draw": (affine, "_draw_pixels"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
                 c, secs = _synced(lambda: make().fit(ref_, tba_, random_state=42, **kw))
-            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, "brute" in st.ms))
+            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, st.last["brute"][1] if "brute" in st.last else 0))
         return res
 
     for name, make, atol_t, atol_r in (("ICP", lambda: coreg.ICP(subsample=50000), 2.0, 5e-3),
                                        ("LZD", lambda: coreg.LZD(), 1.0, 5e-3),
                                        ("CPD", lambda: coreg.CPD(), None, 0.1)):
-        (c, t_first, d_first, brute), (_, t_steady, d_steady, _) = fit_twice(make, ref, tba_rigid)
+        (c, t_first, d_first, steps), (_, t_steady, d_steady, steps_steady) = fit_twice(make, ref, tba_rigid)
+        if name == "ICP":  # the scan kernel's launches in the two fits alone
+            scan_launches = base.LAUNCHES["nn_scan"]
         aff = c.meta["outputs"]["affine"]
         # The fit is stored about its own centroid c2: re-express the truth about c2.
         d = np.asarray(c1) - np.asarray(aff["centroid"])
@@ -1062,8 +1151,11 @@ def phase_coreg(dev, n: int) -> dict:
               f"{d_steady:.3f} s); {row['count']} points; got {[round(v, 4) for v in got]}, "
               f"want {[round(v, 4) for v in want]}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg")
         if name == "ICP":
-            print(f"  ICP nn_method='auto' resolved to {'brute on the card' if brute else 'kdtree on the host'}")
-            check(brute, "ICP auto did not take the brute device search on the card")
+            print(f"  ICP nn_method='auto' resolved to {'brute on the card' if steps else 'kdtree on the host'}; "
+                  f"the two fits took {steps} + {steps_steady} steps and launched the scan kernel {scan_launches} times")
+            check(steps > 0, "ICP auto did not take the brute device search on the card")
+            check(scan_launches == steps + steps_steady,
+                  f"ICP's two fits took {steps} + {steps_steady} steps but launched the scan kernel {scan_launches} times")
         if atol_t is not None:
             check(err_t <= atol_t, f"{name} translation off by {err_t:.4f} m > {atol_t} m")
         check(err_r <= atol_r, f"{name} rotation off by {err_r:.5f} deg > {atol_r} deg")
@@ -1083,6 +1175,7 @@ def phase_coreg(dev, n: int) -> dict:
     check(build_launches >= 1 and out["regrid_launches"] >= build_launches + 2,
           f"tier 3's step kernel launched {build_launches} times in the build, {out['regrid_launches']} in all")
     out["regrid_step"] = regrid_step_stats(ref, transform, truth, c1, tba_rigid, build_launches)
+    out["nn_scan"] = {**nn_scan_stats(ref, tba_rigid, transform), "launches": scan_launches}
 
     # Translated pair: DhMinimize on phase 4's pair.
     dx, dy, dz = TBA_SHIFT
@@ -1807,7 +1900,7 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
 
     import xdem_tpu_torch.spatialstats as ss
     from xdem_tpu_torch import DEM, EPC, Affine, coreg, terrain, uncertainty
-    from xdem_tpu_torch.coreg import affine, blockwise
+    from xdem_tpu_torch.coreg import affine, base, blockwise
     from xdem_tpu_torch.epc import read_epc, write_epc
     from xdem_tpu_torch.io import read_raster
     from xdem_tpu_torch.ops.reductions import masked_median
@@ -1846,12 +1939,13 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
     out.update(make_s=t_make, las_write_s=t_write, las_read_s=t_read, las_max_dev_m=dev_las, to_vcrs_ms=t_vcrs * 1e3)
 
     def fit_twice(make, ref_, tba_):
-        """First and steady fit of a fresh method, each with the draw's time."""
+        """First and steady fit of a fresh method, each with the draw's time and the steps of
+        the brute ICP solve on the card (0 where it did not run)."""
         res = []
         for _ in range(2):
             with Stages({"draw": (affine, "_draw_valid"), "brute": (affine, "_icp_solve_device")}, sync=True) as st:
                 c, secs = _synced(lambda: make().fit(ref_, tba_, random_state=42))
-            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, "brute" in st.ms))
+            res.append((c, secs, st.ms.get("draw", 0.0) / 1e3, st.last["brute"][1] if "brute" in st.last else 0))
         return res
 
     # Nuth & Kaab both ways: the DEM against the points finds -TBA_SHIFT, the points against the
@@ -1884,13 +1978,21 @@ def phase_points(dev, n: int, n_points: int, folder: str) -> dict:
     rigid = coreg.apply_matrix(point_cloud(dev, ref_t, transform, n_points, seed=22), truth, centroid=c1)
     for name, make, atol_t, atol_r in (("ICP", lambda: coreg.ICP(subsample=50000), 2.0, 5e-3),
                                        ("LZD", lambda: coreg.LZD(), 1.0, 5e-3)):
-        (c, t_first, d_first, brute), (_, t_steady, d_steady, _) = fit_twice(make, ref, rigid)
+        base.LAUNCHES["nn_scan"] = 0
+        (c, t_first, d_first, steps), (_, t_steady, d_steady, steps_steady) = fit_twice(make, ref, rigid)
+        scan_launches = base.LAUNCHES["nn_scan"]
         err_t, err_r, got = _rigid_error(c, c1, truth)
         print(f"  {name} (DEM ref, rigid EPC tba): fit first {t_first:.3f} s, steady {t_steady:.3f} s (draw "
               f"{d_first:.3f} / {d_steady:.3f} s); got {got}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg"
-              + (f"; nn_method='auto' took {'the brute search on the card' if brute else 'the host KD-tree'}" if name == "ICP" else ""))
+              + (f"; nn_method='auto' took {'the brute search on the card' if steps else 'the host KD-tree'}, "
+                 f"{steps} + {steps_steady} steps, {scan_launches} launches of the scan kernel" if name == "ICP" else ""))
         if name == "ICP":
-            check(brute, "ICP auto did not take the brute device search on the card")
+            check(steps > 0, "ICP auto did not take the brute device search on the card")
+            check(scan_launches == steps + steps_steady,
+                  f"ICP's two fits took {steps} + {steps_steady} steps but launched the scan kernel {scan_launches} times")
+            out["scan_launches"] = scan_launches
+        else:
+            check(scan_launches == 0, f"{name} launched ICP's scan kernel {scan_launches} times")
         check(err_t <= atol_t and err_r <= atol_r, f"{name}: |dt| {err_t:.4f} m, |drot| {err_r:.5f} deg")
         out["fits"][name] = {"first_s": t_first, "steady_s": t_steady, "draw_first_s": d_first, "draw_steady_s": d_steady,
                              "err_t_m": err_t, "err_r_deg": err_r}
@@ -2518,6 +2620,8 @@ def phase_mesh(dev, n: int, card: str, cards) -> dict:
     import torch
 
     from xdem_tpu_torch import DEM, Affine, coreg, terrain, uncertainty
+    from xdem_tpu_torch.coreg import base
+    from xdem_tpu_torch.parallel import coreg as pcoreg
     from xdem_tpu_torch.parallel import halo, shard
     from xdem_tpu_torch.parallel._collectives import to
     from xdem_tpu_torch.parallel.distributed import launch_local_cluster
@@ -2649,7 +2753,19 @@ def phase_mesh(dev, n: int, card: str, cards) -> dict:
     for name, make, tol in fits:
         one, _ = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
         _, t_one = _synced(lambda: make().fit(ref, tba, **kw).to_matrix())
-        got, t_m1 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
+        base.LAUNCHES["nn_scan"] = 0
+        with CardScans() as scans, Stages({"sharded": (pcoreg, "icp_solve_sharded")}, sync=False) as st:
+            got, t_m1 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
+        if name == "ICP":  # one launch a shard a step, each on its shard's card
+            steps = st.last["sharded"][1]
+            want = {c: steps * sum(str(d) == c for d in mesh.devices.flat) for c in distinct}
+            print(f"  ICP with mesh=: {steps} steps, the scan kernel's launches by card {scans.by_card}")
+            check(steps > 0 and scans.by_card == want and base.LAUNCHES["nn_scan"] == steps * shards,
+                  f"ICP with mesh= took {steps} steps and launched the scan kernel {scans.by_card} by card "
+                  f"({base.LAUNCHES['nn_scan']} in all), not {want}")
+            out["scan_launches"] = scans.by_card
+        else:
+            check(base.LAUNCHES["nn_scan"] == 0, f"{name} with mesh= launched ICP's scan kernel")
         _, t_m2 = _synced(lambda: make().fit(ref, tba, mesh=mesh, **kw).to_matrix())
         dev_max = float(np.abs(got - one).max())
         if tol is None:
@@ -3011,7 +3127,10 @@ def main(argv=None) -> int:
                                         "topo": wfl["topo"]["center_launches"], "mesh": msh["center_launches"]}),
         {"name": "regrid_step", "route": "cuda", "source": REGRID_SOURCE, "replaces": None,
          "launches": cor["regrid_launches"], "launches_by_path": {"coreg": cor["regrid_launches"]},
-         **cor["regrid_step"], "library_ms": None}],
+         **cor["regrid_step"], "library_ms": None},
+        {"name": "nn_scan", "route": "cuda", "source": NN_SCAN_SOURCE, "replaces": None,
+         "launches_by_path": {"coreg": cor["nn_scan"]["launches"], "points": pts["scan_launches"],
+                              "mesh": msh["scan_launches"]}, **cor["nn_scan"], "library_ms": None}],
         "suite_ms": res["suite_ms"], "nuth_kaab_fit_ms": res["fit_ms"],
         "nuth_kaab_first_fit_ms": res["first_fit_ms"], "main_size": MAIN_SIZE, "surface_fit_ms": res["k1_ms"],
         "windowed_ms": res["k2_ms"], "fractal_ms": res["k3_ms"],
@@ -3045,7 +3164,9 @@ def main_cards(cards, card_lines: list[str], name: str) -> int:
          "bound_ms": msh["bounds"][k][0], "bound_by": msh["bounds"][k][1], "library_ms": None,
          "ms_by_card_at_big_size": {d: t[k] for d, t in big["per_card_ms"].items()}}
         for k, (src, rep) in KERNELS.items()
-    ] + [center_summary(big["center"], {"big": big["center_launches"], "mesh": msh["center_launches"]})],
+    ] + [center_summary(big["center"], {"big": big["center_launches"], "mesh": msh["center_launches"]}),
+        {"name": "nn_scan", "route": "cuda", "source": NN_SCAN_SOURCE, "replaces": None,
+         "launches": sum(msh["scan_launches"].values()), "launches_by_path": {"mesh": msh["scan_launches"]}}],
         "mesh": msh, "big": big}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": len(cards)}}))

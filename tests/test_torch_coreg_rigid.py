@@ -228,7 +228,7 @@ def test_brute_nearest_ties_and_matches_kdtree():
     ref[4000] = ref[17]  # a duplicated point
     q = (rng.integers(0, 800, (3000, 3)) / 8).astype(np.float32)
     q[0] = ref[17]
-    idx, dist = affine._brute_nearest(torch.from_numpy(ref), torch.from_numpy(q), chunk=1024)
+    idx, dist = affine._brute_nearest(torch.from_numpy(ref), torch.from_numpy(q))
     idx, dist = to_np(idx), to_np(dist)
     want_d, want_i = scipy.spatial.KDTree(ref.astype(np.float64)).query(q.astype(np.float64))
     assert idx[0] == 17 and dist[0] == 0.0
@@ -237,6 +237,27 @@ def test_brute_nearest_ties_and_matches_kdtree():
     assert np.all(idx[differ] < want_i[differ])
     jidx, _ = jaffine._brute_nearest(jnp.asarray(ref), jnp.asarray(q), chunk=1024)
     np.testing.assert_array_equal(idx, np.asarray(jidx))
+
+
+@pytest.mark.parametrize("rblk", [1, 7, 1024, 5000])
+def test_the_aten_scan_does_not_depend_on_the_block_size(rblk):
+    """The ATen scan gives the first of the least squared distances whatever its block size (one
+    point, a ragged 7, a block that divides nothing, one block larger than the cloud): numpy's
+    float32 distances in the same order and its argmin, index and bits. The card's kernel splits
+    the reference cloud otherwise and relies on this."""
+    rng = np.random.default_rng(21)  # integer points of a 21^3 lattice, half-integer queries: exact ties
+    ref = rng.integers(0, 21, (2000, 3)).astype(np.float32)
+    q = (rng.integers(0, 41, (600, 3)) / 2).astype(np.float32)
+    idx, d2 = affine._nn_scan_aten(torch.from_numpy(ref), rblk=rblk)(torch.from_numpy(q))
+    diff = q[:, None, :] - ref[None, :, :]
+    sq = diff * diff
+    want_all = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    want_i = want_all.argmin(axis=1)
+    want_d = want_all[np.arange(len(q)), want_i]
+    assert idx.dtype == torch.int64 and d2.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy(), want_i)
+    np.testing.assert_array_equal(d2.numpy().view(np.int32), want_d.view(np.int32))
+    assert (want_all == want_d[:, None]).sum(axis=1).max() > 1  # ties were there to break
 
 
 def test_picky_matches_pandas_idxmin():

@@ -13,7 +13,8 @@ import neither JAX nor xdem_tpu, so on a machine with a card but no JAX they run
 
 Tolerance: K1, K2 and K3 are held to the bit (identical NaN masks, max abs error 0): the
 kernels are built with -fmad=false and add in the plain versions' order. So is tier 3's
-fixed-point step kernel (csrc/regrid.cu), against the ATen loop on the same card.
+fixed-point step kernel (csrc/regrid.cu), against the ATen loop on the same card, and ICP's
+nearest-neighbour scan (csrc/nn_scan.cu), indices and squared distances, against the ATen scan.
 """
 
 import math
@@ -365,6 +366,102 @@ def test_brute_nearest_on_the_card_equals_kdtree(cuda_device):
     assert idx.is_cuda
     np.testing.assert_array_equal(idx.cpu().numpy(), want_i)
     np.testing.assert_allclose(dist.cpu().numpy(), want_d, rtol=1e-5)
+
+
+def _standardised(a):
+    return ((a - a.mean(axis=0)) / a.std()).astype(np.float32)
+
+
+def _cell_clouds(rng, n):
+    """The rigid cell's scan: n pixels of a 1e5 m tile, the reference's heights and the same
+    pixels moved by 3 m and raised 0.4 m, each standardised."""
+    xy = rng.uniform(0, 1e5, (n, 2))
+    z = 500 + 100 * np.sin(xy[:, :1] / 7e3)
+    return _standardised(np.hstack([xy, z + rng.normal(0, 1, (n, 1))])), _standardised(np.hstack([xy + 3.0, z + 0.4]))
+
+
+def _tie_clouds(rng):
+    """Integer reference points on a 21^3 lattice, one duplicated, and half-integer queries:
+    exact distances and many queries equidistant from several points."""
+    ref = rng.integers(0, 21, (5000, 3)).astype(np.float32)
+    ref[4000] = ref[17]
+    ref[1], ref[2] = (0, 0, 0), (1, 0, 0)
+    q = (rng.integers(0, 41, (3000, 3)) / 2).astype(np.float32)
+    q[0], q[1] = ref[17], (0.5, 0, 0)
+    return ref, q
+
+
+NN_CASES = {
+    # name: rng -> (reference cloud, queries)
+    "the cell's 5e4 x 5e4": lambda rng: _cell_clouds(rng, 50_000),
+    "20 001 points, 7 queries": lambda rng: (rng.normal(size=(20_001, 3)).astype(np.float32),
+                                             rng.normal(size=(7, 3)).astype(np.float32)),
+    "one reference point": lambda rng: (rng.normal(size=(1, 3)).astype(np.float32),
+                                        rng.normal(size=(300, 3)).astype(np.float32)),
+    "ties to the lower index": _tie_clouds,
+    "a shard padded with the pad coordinate": lambda rng: (
+        np.vstack([rng.normal(size=(1000, 3)), np.full((24, 3), 1e15)]).astype(np.float32),
+        rng.normal(size=(2500, 3)).astype(np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", list(NN_CASES))
+def test_nn_scan_kernel_equals_the_aten_scan_to_the_bit(cuda_device, case):
+    """ICP's scan kernel (csrc/nn_scan.cu) gives the ATen scan's indices and squared distances
+    on the same card to the bit, in one launch: at the rigid cell's size, on a cloud whose
+    length is no multiple of any tile, on one point, where ties go to the lower index (a
+    duplicated point, equidistant queries) and on a shard padded with ``_NN_PAD_COORD``."""
+    from xdem_tpu_torch.coreg import affine, base
+
+    ref, q = (torch.from_numpy(a).to(cuda_device) for a in NN_CASES[case](np.random.default_rng(5)))
+    launches = base.LAUNCHES["nn_scan"]
+    got_i, got_d = affine._nn_planes_scan(ref)(q)
+    assert base.LAUNCHES["nn_scan"] == launches + 1
+    want_i, want_d = affine._nn_scan_aten(ref)(q)
+    assert got_i.is_cuda and got_i.dtype == torch.int64 and got_d.dtype == torch.float32
+    assert torch.equal(got_i, want_i), int((got_i != want_i).sum())
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32)), int((got_d != want_d).sum())
+    if case == "ties to the lower index":
+        assert got_i[:2].tolist() == [17, 1] and got_d[:2].tolist() == [0.0, 0.25]
+
+
+def test_nn_scan_of_a_cloud_that_is_not_float32_raises_on_the_card(cuda_device):
+    from xdem_tpu_torch.coreg import affine
+
+    with pytest.raises(ValueError, match="float32"):
+        affine._nn_planes_scan(torch.zeros((10, 3), dtype=torch.float64, device=cuda_device))
+
+
+def test_icp_with_the_scan_kernel_equals_icp_with_the_aten_scan(cuda_device, monkeypatch):
+    """ICP on the card gives the same matrix bits, statistic and steps with the scan kernel as
+    with the ATen scan in its place; the kernel launches once a step, and each ``coreg.icp.nn``
+    span counts it as ``kernel``."""
+    from xdem_tpu_torch import profiler
+    from xdem_tpu_torch.coreg import affine, base
+
+    rng = np.random.default_rng(9)
+    ref, _ = _cell_clouds(rng, 20_000)
+    motion = coreg.matrix_from_translations_rotations(0.02, -0.01, 0.01, 0.5, 0.2, 0.1).astype(np.float32)
+    tba = ref @ motion[:3, :3].T + motion[:3, 3] + rng.normal(0, 1e-3, ref.shape).astype(np.float32)
+    norms = rng.normal(size=ref.shape)
+    norms = (norms / np.linalg.norm(norms, axis=1, keepdims=True)).astype(np.float32)
+    clouds = [torch.from_numpy(a).to(cuda_device) for a in (ref, tba, norms)]
+    launches = base.LAUNCHES["nn_scan"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with warnings.catch_warnings():  # torch 2.11 warns at a profiler's first start
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events", category=UserWarning)
+        with torch.profiler.profile(activities=acts):
+            by_kernel = affine._icp_solve_device(*clouds, np.float32(1e-5), max_iterations=20)
+            torch.cuda.synchronize(cuda_device)
+    steps = by_kernel[1]
+    assert steps >= 3 and base.LAUNCHES["nn_scan"] - launches == steps
+    scans = [r.counters for r in profiler.spans() if r.name == "xdem_tpu_torch.coreg.icp.nn"]
+    assert scans == [{"kernel": 1, "pairs": 20_000 * 20_000}] * steps
+    monkeypatch.setattr(affine, "_nn_planes_scan", affine._nn_scan_aten)
+    by_aten = affine._icp_solve_device(*clouds, np.float32(1e-5), max_iterations=20)
+    assert base.LAUNCHES["nn_scan"] - launches == steps
+    assert by_kernel[1:] == by_aten[1:]
+    assert torch.equal(by_kernel[0], by_aten[0]), (by_kernel[0] - by_aten[0]).abs().max()
 
 
 def test_tier3_apply_on_the_card_matches_the_cpu(cuda_device):

@@ -2,7 +2,8 @@
 preparation, steps and neighbour scans, LZD's preparation and steps, and the small-rotation
 regrid, with their counters, under a CPU torch.profiler; and nothing recorded without one. The
 regrid's ``kernel`` counter (a launch of ``csrc/regrid.cu`` a step on the card) is held to its
-``steps`` on the card in ``test_torch_cuda.py``."""
+``steps`` on the card in ``test_torch_cuda.py``, as is the scan's (a launch of ``csrc/nn_scan.cu``
+a step); a CPU cloud takes the ATen scan and counts no launch."""
 
 import contextlib
 import warnings
@@ -137,3 +138,28 @@ def test_off_a_trace_a_rigid_fit_records_nothing_and_gives_the_same_numbers(pair
     assert np.array_equal(pipe.to_matrix(), traced_pipe.to_matrix())
     assert torch.equal(torch.isnan(aligned), torch.isnan(traced_aligned))
     assert torch.equal(aligned.nan_to_num(), traced_aligned.nan_to_num())
+
+
+def test_a_cpu_cloud_takes_the_aten_scan_and_counts_no_launch(monkeypatch):
+    """ICP on CPU clouds builds its scan from the ATen loop, never the card's, and leaves the
+    launch count and the ``coreg.icp.nn`` spans' counters (``pairs`` alone) as they were."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU cloud reached the scan kernel")
+
+    built = []
+    aten = affine._nn_scan_aten
+    monkeypatch.setattr(affine, "_nn_scan_aten", lambda *a, **k: built.append(1) or aten(*a, **k))
+    monkeypatch.setattr(affine, "_nn_scan_on_card", refuse)
+    rng = np.random.default_rng(4)
+    ref = torch.from_numpy(rng.normal(size=(ICP_POINTS, 3)).astype(np.float32))
+    motion = torch.from_numpy(coreg.matrix_from_translations_rotations(0.02, -0.01, 0.01, 0.5, 0.2, 0.1)
+                              .astype(np.float32))
+    tba = ref @ motion[:3, :3].T + motion[:3, 3]
+    norms = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(ICP_POINTS, 3)).astype(np.float32)), dim=1)
+    launches = dict(base.LAUNCHES)
+    with traced():
+        _, iterations, _ = affine._icp_solve_device(ref, tba, norms, np.float32(1e-4), max_iterations=6)
+    assert built == [1]
+    assert base.LAUNCHES == launches
+    scans = [r.counters for r in profiler.spans() if r.name == P + "coreg.icp.nn"]
+    assert iterations >= 3 and scans == [{"pairs": ICP_POINTS * ICP_POINTS}] * iterations

@@ -67,6 +67,7 @@ SIGNATURES = {
     "launch_center": (_P, _L, _P, _P, _P),
     "center_blocks": (_L,),
     "launch_regrid_step": (_P, _P, _L, _L, _P, _P, _P),
+    "launch_nn_scan": (_P, _L, _P, _L, _P, _P, _P, _P),
 }
 
 

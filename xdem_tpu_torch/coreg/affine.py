@@ -35,8 +35,10 @@ from typing import Any, Callable, Literal
 import numpy as np
 import torch
 
+from xdem_tpu_torch import _build
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.coreg.base import (
+    LAUNCHES,
     Coreg,
     _check_matrix,
     _grid_side,
@@ -52,7 +54,7 @@ from xdem_tpu_torch.ops.reductions import masked_median
 from xdem_tpu_torch.ops.sampling import seed_from, topk_subsample
 from xdem_tpu_torch.ops.transfer import device_mask
 from xdem_tpu_torch.pointcloud import PointCloud
-from xdem_tpu_torch.profiler import span
+from xdem_tpu_torch.profiler import _NO_SPAN, span
 
 
 def _warn_if_not_converged(it: int, max_iterations: int, stat: float, tolerance: float,
@@ -1045,20 +1047,35 @@ class DhMinimize(AffineCoreg):
 _NN_PAD_COORD = 1e15
 
 
-def _nn_planes_scan(ref_pts: torch.Tensor, rblk: int = 2048):
-    """An ``nn(q) -> (index, d2)`` nearest-neighbour search over a fixed (N, 3) reference
-    cloud: direct-difference squared distances, block by block of `rblk` reference points,
-    with a running argmin. Never the |a|^2 + |b|^2 - 2ab expansion, which loses ~1e-4
-    relative to cancellation.
+def _nn_planes_scan(ref_pts: torch.Tensor):
+    """An ``nn(q, scan) -> (index, d2)`` nearest-neighbour search over a fixed (N, 3) reference
+    cloud: the int64 index of each query's nearest reference point and the float32 squared
+    distance to it, by direct differences (never the |a|^2 + |b|^2 - 2ab expansion, which loses
+    ~1e-4 relative to cancellation). Ties go to the lowest reference index.
 
-    Ties go to the lowest reference index: within a block ``torch.min`` returns the first
-    minimum, and a later block takes over only when strictly closer."""
+    A CUDA float32 cloud takes one launch of ``csrc/nn_scan.cu`` a scan
+    (:func:`_nn_scan_on_card`; another CUDA dtype raises); a CPU cloud takes the blocked ATen
+    loop of :func:`_nn_scan_aten`. The two give the same bits on the card. `scan` is the
+    ``coreg.icp.nn`` span, which counts each launch as ``kernel``."""
+    if ref_pts.is_cuda:
+        if ref_pts.dtype != torch.float32:
+            raise ValueError(f"The nearest-neighbour scan kernel takes a float32 reference cloud, got {ref_pts.dtype}.")
+        return _nn_scan_on_card(ref_pts)
+    return _nn_scan_aten(ref_pts)
+
+
+def _nn_scan_aten(ref_pts: torch.Tensor, rblk: int = 2048):
+    """The plain version of the scan, in ATen passes on the cloud's device: block by block of
+    `rblk` reference points, a plane of squared distances and a running argmin. Ties go to the
+    lowest reference index: within a block ``torch.min`` returns the first minimum, and a later
+    block takes over only when strictly closer, so the result does not depend on `rblk`. It
+    counts nothing on the span `scan`, which it takes for the card's signature."""
     n = ref_pts.shape[0]
     pad = torch.full(((-n) % rblk, 3), _NN_PAD_COORD, dtype=ref_pts.dtype, device=ref_pts.device)
     r = torch.cat([ref_pts, pad])
     rx, ry, rz = (r[:, k].reshape(-1, rblk) for k in range(3))
 
-    def nn(q: torch.Tensor):
+    def nn(q: torch.Tensor, scan: Any = _NO_SPAN):
         qx, qy, qz = q[:, 0:1], q[:, 1:2], q[:, 2:3]
         best_d2 = best_i = None
         for blk in range(rx.shape[0]):
@@ -1079,10 +1096,41 @@ def _nn_planes_scan(ref_pts: torch.Tensor, rblk: int = 2048):
     return nn
 
 
-def _brute_nearest(ref_pts: torch.Tensor, query_pts: torch.Tensor, chunk: int = 2048):
-    """Nearest reference index and distance of each query point by the blocked
-    direct-difference argmin (`chunk` reference points per block)."""
-    idx, d2 = _nn_planes_scan(ref_pts, rblk=chunk)(query_pts)
+def _nn_scan_on_card(ref_pts: torch.Tensor):
+    """The scan on a CUDA float32 cloud: each ``nn(q, scan)`` is one launch of
+    ``csrc/nn_scan.cu`` on the current stream of the cloud's card, which keeps each query's
+    running minimum in registers. Bit-equal to :func:`_nn_scan_aten`; each launch counts in
+    ``LAUNCHES`` and in the span's ``kernel``."""
+    dev, n = ref_pts.device, ref_pts.shape[0]
+    planes = ref_pts.t().contiguous()  # x, y and z as three planes of n
+    launch = _build.load().launch_nn_scan
+
+    def nn(q: torch.Tensor, scan: Any = _NO_SPAN):
+        if q.device != dev or q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 3:
+            raise ValueError(f"The scan of a float32 cloud on {dev} takes (M, 3) float32 queries there, got "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}.")
+        q = q.contiguous()
+        m = q.shape[0]
+        keys = torch.empty(m, dtype=torch.int64, device=dev)
+        index = torch.empty(m, dtype=torch.int64, device=dev)
+        d2 = torch.empty(m, dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = launch(planes.data_ptr(), n, q.data_ptr(), m, keys.data_ptr(), index.data_ptr(), d2.data_ptr(),
+                        stream)
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel nn_scan failed to launch: cudaError {rc}.")
+        LAUNCHES["nn_scan"] += 1
+        scan.count("kernel")
+        return index, d2
+
+    return nn
+
+
+def _brute_nearest(ref_pts: torch.Tensor, query_pts: torch.Tensor):
+    """Nearest reference index and distance of each query point by :func:`_nn_planes_scan`
+    (the scan kernel on a CUDA cloud, the ATen loop on the CPU)."""
+    idx, d2 = _nn_planes_scan(ref_pts)(query_pts)
     return idx, torch.sqrt(torch.clamp(d2, min=0.0))
 
 
@@ -1105,7 +1153,7 @@ def _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations: int, method:
         with span("xdem_tpu_torch.coreg.icp.step"):  # the host read of `stat` ends it with the step
             tq = tba @ matrix[:3, :3].T + matrix[:3, 3]
             with span("xdem_tpu_torch.coreg.icp.nn", devices=[dev]) as scan:
-                ind, d2 = nn(tq)
+                ind, d2 = nn(tq, scan)
                 scan.count("pairs", m * n_segments)
             if picky:
                 dmin = torch.full((n_segments,), math.inf, dtype=dt, device=dev).scatter_reduce(0, ind, d2, "amin")
@@ -1142,9 +1190,9 @@ def _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations: int, method:
 
 
 def _icp_solve_device(ref, tba, norms, tolerance, max_iterations: int, method: str = "point-to-plane",
-                      picky: bool = True, only_translation: bool = False, chunk: int = 2048):
+                      picky: bool = True, only_translation: bool = False):
     """ICP with the brute neighbour search, on the device of the (N, 3) float32 clouds."""
-    nn = _nn_planes_scan(ref, rblk=chunk)
+    nn = _nn_planes_scan(ref)
     return _icp_while_loop(ref, tba, norms, nn, tolerance, max_iterations, method, picky, only_translation,
                            n_segments=ref.shape[0])
 
@@ -1227,8 +1275,9 @@ def icp(
     """Iterative closest point registration of a raster pair; returns (matrix, centroid,
     point count).
 
-    ``nn_method="brute"`` runs the whole registration on the device of the inputs (blocked
-    direct-difference argmin, Picky by scatter-min, the solve on the device);
+    ``nn_method="brute"`` runs the whole registration on the device of the inputs (the
+    direct-difference argmin: one launch of the scan kernel a step on a card, blocked ATen
+    passes on the CPU; Picky by scatter-min, the solve on the device);
     ``"kdtree"`` queries a scipy KD-tree on the host each iteration and solves in float64
     there (a callable ``fit_minimizer`` needs it). ``"auto"`` picks brute on a CUDA tensor
     when the minimizer is built in and N x M <= 1e10 with a 2048-block of distances within

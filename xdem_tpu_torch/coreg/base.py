@@ -180,9 +180,10 @@ def _apply_matrix_pts(epc: PointCloud, matrix: np.ndarray, centroid: tuple[float
     return out
 
 
-# Launches of csrc/regrid.cu, one a tier-3 step on the card: counted where the wrapper launches
-# and nowhere else, so a run can show that its regrids went through the kernel.
-LAUNCHES = {"regrid_step": 0}
+# Launches of csrc/regrid.cu, one a tier-3 step on the card, and of csrc/nn_scan.cu, one an ICP
+# neighbour scan on the card (coreg/affine.py): counted where the wrappers launch and nowhere
+# else, so a run can show that its regrids and scans went through the kernels.
+LAUNCHES = {"regrid_step": 0, "nn_scan": 0}
 
 
 class _RegridConstants(NamedTuple):

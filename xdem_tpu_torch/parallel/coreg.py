@@ -138,9 +138,10 @@ def dh_minimize_nm_sharded(pts_z: torch.Tensor, rows: torch.Tensor, cols: torch.
 
 def icp_solve_sharded(ref: torch.Tensor, tba: torch.Tensor, norms: torch.Tensor, tolerance, mesh: Mesh,
                       max_iterations: int, method: str = "point-to-plane", picky: bool = True,
-                      only_translation: bool = False, chunk: int = 2048):
+                      only_translation: bool = False):
     """The brute-force ICP with the REFERENCE cloud split over the mesh: each shard runs the
-    blocked direct-difference argmin against its part only (the O(N*M) search), and the
+    direct-difference scan against its part only (the O(N*M) search; on a card, one launch of
+    ``csrc/nn_scan.cu`` on the shard's card, counted on the ``coreg.icp.nn`` span), and the
     winners merge on the root by the smallest distance, then the lowest global index among
     the points at that distance: the single-device argmin's tie-break, over the same
     per-pair distances, so the neighbours and the whole registration equal
@@ -154,11 +155,11 @@ def icp_solve_sharded(ref: torch.Tensor, tba: torch.Tensor, norms: torch.Tensor,
     n_pad = shard * n_dev
     ref_p = torch.cat([ref, torch.full((n_pad - ref.shape[0], 3), _NN_PAD_COORD, dtype=ref.dtype, device=ref.device)])
     norms_p = torch.cat([norms, torch.zeros((n_pad - norms.shape[0], 3), dtype=norms.dtype, device=norms.device)])
-    nns = [_nn_planes_scan(p, rblk=min(chunk, shard)) for p in ref_parts]
+    nns = [_nn_planes_scan(p) for p in ref_parts]
     root = mesh.root
 
-    def nn(q: torch.Tensor):
-        found = [f(qi) for f, qi in zip(nns, replicate(q, mesh))]
+    def nn(q: torch.Tensor, scan):
+        found = [f(qi, scan) for f, qi in zip(nns, replicate(q, mesh))]
         d2 = all_gather([d for _, d in found], mesh)
         idx = all_gather([i + s * shard for s, (i, _) in enumerate(found)], mesh)
         d2g = d2.min(dim=0).values
