@@ -153,6 +153,40 @@ def test_sumsin_fit_matches_jax():
     np.testing.assert_allclose(got[:2], [2.0, 800.0], rtol=0.02)
 
 
+def test_the_sum_of_sines_closed_form_jacobian_equals_jacfwd():
+    """The polish's residual is sumsin_1d's to the bit in float32, and its closed-form
+    Jacobian is torch.func.jacfwd's to float64 rounding."""
+    rng = np.random.default_rng(6)
+    x = np.sort(rng.uniform(0, 1.4e5, 100))
+    y = 1.5 * np.sin(2 * np.pi * x / 2e4) + rng.normal(0, 0.05, 100)
+    p = torch.tensor([1.4, 2.1e4, 0.1, 0.6, 6.4e3, 1.1, 0.1, 3e3, 0.2], dtype=torch.float64)
+    residual, jacobian = fit._sumsin_residual_and_jacobian(torch.from_numpy(x), torch.from_numpy(y))
+    want = torch.func.jacfwd(residual)(p)
+    assert torch.allclose(jacobian(p), want, rtol=1e-12, atol=1e-12 * float(want.abs().max()))
+    xt, yt, pt = torch.from_numpy(x).float(), torch.from_numpy(y).float(), p.float()
+    residual32, _ = fit._sumsin_residual_and_jacobian(xt, yt)
+    assert torch.equal(residual32(pt), fit.sumsin_1d(xt, *pt) - yt)
+
+
+@pytest.mark.parametrize("rows", ["spread", "one row"])
+def test_deramp_normal_equations_equal_the_least_squares(rows):
+    """Deramp's normal equations give np.linalg.lstsq's coefficients, the minimum-norm ones
+    where every pick lies in one row (the monomials in y then repeat those in 1)."""
+    rng = np.random.default_rng(8)
+    n = 20000
+    cc = rng.integers(0, 4000, n).astype(np.float64)
+    rr = rng.integers(0, 3000, n).astype(np.float64) if rows == "spread" else np.full(n, 1234.0)
+    u, v = cc / 2000 - 1, rr / 1500 - 1
+    dh = 2.5 * (u**2 - v**2) + 2.5 * u * v + rng.normal(0, 0.3, n)
+    step = coreg.Deramp(subsample=n)
+    step._bin_or_and_fit_biasvars(dh, {"xx": cc, "yy": rr})
+    got = step.meta["outputs"]["fitorbin"]["fit_params"]
+    sx, sy = cc.max(), rr.max()
+    A = np.stack([(cc / sx) ** i * (rr / sy) ** j for i in range(3) for j in range(3)], axis=1)
+    want = np.linalg.lstsq(A, dh, rcond=None)[0] / np.array([sx**i * sy**j for i in range(3) for j in range(3)])
+    _close(got, want, rel=1e-9)
+
+
 # ------------------------------------------------------------------ bias corrections
 
 

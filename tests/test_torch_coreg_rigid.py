@@ -92,6 +92,26 @@ SUBSAMPLE_CASES = {
 }
 
 
+@pytest.mark.parametrize("seed", ["int", "numpy int", "generator"])
+def test_a_repeated_draw_picks_numpys_pixels(seed):
+    """Drawing twice over as many valid entries with one integer seed reuses the first
+    choice (one numpy draw), and each draw is numpy's choice over the valid positions; a
+    Generator is drawn from anew each time."""
+    rng = np.random.default_rng(4)
+    valid = torch.from_numpy(rng.random(30000) < 0.7)
+    idx = np.flatnonzero(valid.numpy())
+    make = {"int": lambda: 11, "numpy int": lambda: np.int64(11), "generator": lambda: np.random.default_rng(11)}[seed]
+    affine._choice.cache_clear()
+    first, count = affine._draw_valid(valid, 5000, make())
+    again, _ = affine._draw_valid(valid, 5000, make())
+    want = idx[np.random.default_rng(11).choice(len(idx), 5000, replace=False)]
+    assert count == 5000
+    np.testing.assert_array_equal(first.numpy(), want)
+    np.testing.assert_array_equal(again.numpy(), want)
+    info = affine._choice.cache_info()
+    assert (info.misses, info.hits) == ((0, 0) if seed == "generator" else (1, 1))
+
+
 @pytest.mark.parametrize("case", list(SUBSAMPLE_CASES))
 def test_subsample_pair_values_identical_to_jax(pair, case):
     """The port's grid draw picks xdem_tpu's pixels, in its order, with its values: an aux

@@ -658,6 +658,31 @@ def test_bias_pipeline_on_the_card_launches_k1(cuda_device):
     assert float(torch.nanmean((dem - out) ** 2)) < 0.1 * float(torch.nanmean((dem - tba) ** 2))
 
 
+def test_median_binning_on_the_card_equals_nd_binning(cuda_device):
+    """The one-variable median binning of a bias correction, on the card, gives the host
+    nd_binning's table to the bit; Deramp's normal equations on the card give the host's
+    coefficients to 1e-12 of their largest magnitude."""
+    from xdem_tpu_torch import spatialstats
+
+    rng = np.random.default_rng(9)
+    n = 500_000
+    vals = np.round(rng.normal(0.0, 2.0, n), 3)
+    var = rng.uniform(-0.02, 0.05, n)
+    vals[rng.random(n) < 0.01] = np.nan
+    want = spatialstats.nd_binning(vals, [var], ["v"], 100, statistics=("count", np.nanmedian))
+    got = spatialstats._nd_binning_median_1d(vals, var, "v", 100, cuda_device)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    cc, rr = rng.integers(0, 10000, n), rng.integers(0, 10000, n)
+    fits = []
+    for device in (cuda_device, None):
+        step = coreg.Deramp(subsample=n)
+        step._bin_or_and_fit_biasvars(np.nan_to_num(vals), {"xx": cc, "yy": rr}, device=device)
+        fits.append(step.meta["outputs"]["fitorbin"]["fit_params"])
+    assert np.abs(fits[0] - fits[1]).max() <= 1e-12 * np.abs(fits[1]).max()
+
+
 # ---------------------------------------------------------------------- volume, texture, patches, Genton
 
 

@@ -137,6 +137,51 @@ def test_nd_binning_matches_xdem_tpu(nvars):
         assert np.isnan(ours[f"{n}_left"][~has]).all()
 
 
+def test_nd_binning_of_valid_values_equals_the_masked_binning():
+    """A sample with every value valid (no copies made) bins as the same sample with invalid
+    entries beside it, to the bit."""
+    vals, slope, curv = _binning_inputs()
+    ok = np.isfinite(vals) & np.isfinite(slope) & np.isfinite(curv)
+    whole = tss.nd_binning(vals, [slope, curv], ["slope", "curv"], list_var_bins=[7, 5],
+                           statistics=("count", np.nanmedian, np.nanmean))
+    valid = tss.nd_binning(vals[ok], [slope[ok], curv[ok]], ["slope", "curv"], list_var_bins=[7, 5],
+                           statistics=("count", np.nanmedian, np.nanmean))
+    assert whole.keys() == valid.keys()
+    for k in whole:
+        np.testing.assert_array_equal(whole[k], valid[k])
+
+
+def _median_binning_case(kind):
+    """(values, variable, bins) for the one-variable median binning."""
+    rng = np.random.default_rng(12)
+    n = 20001
+    vals = np.round(rng.normal(0.0, 2.0, n), 2)  # ties inside bins
+    var = rng.uniform(-5.0, 40.0, n)
+    if kind == "holes":
+        vals[rng.random(n) < 0.05] = np.nan
+        var[rng.random(n) < 0.05] = np.inf
+        return vals, var, 100
+    if kind == "constant variable":
+        return vals, np.full(n, 3.25), 10
+    if kind == "one bin":
+        return vals, var, 1
+    if kind == "sparse bins":  # empty bins and bins of one or two values
+        return vals[:150], var[:150] ** 3, 100
+    return vals, var, 100
+
+
+@pytest.mark.parametrize("kind", ["plain", "holes", "constant variable", "one bin", "sparse bins"])
+def test_median_binning_of_one_variable_equals_nd_binning(kind):
+    """The torch route of a one-variable median binning gives nd_binning's table to the bit."""
+    vals, var, bins = _median_binning_case(kind)
+    want = tss.nd_binning(vals, [var], ["v"], bins, statistics=("count", np.nanmedian))
+    got = tss._nd_binning_median_1d(vals, var, "v", bins, torch.device("cpu"))
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k])
+
+
 @pytest.mark.parametrize("method,min_count", [("linear", 100), ("nearest", 100), ("linear", None)])
 def test_interp_nd_binning_matches_xdem_tpu(method, min_count):
     """Same grid, in-fill and extrapolation: values equal to 1e-12 inside, outside and at NaN."""

@@ -113,9 +113,22 @@ def _draw_valid(valid: torch.Tensor, subsample: float | int, random_state: Any) 
         return idx, 0
     count = _count_from_subsample(subsample, n_valid)
     if count < n_valid:
-        pos = np.random.default_rng(random_state).choice(n_valid, count, replace=False)
-        idx = idx[torch.from_numpy(np.asarray(pos, np.int64)).to(idx.device)]
+        if isinstance(random_state, (int, np.integer)) and not isinstance(random_state, bool):
+            pos = _choice(int(random_state), n_valid, count, idx.device)
+        else:
+            pos = torch.from_numpy(np.asarray(np.random.default_rng(random_state).choice(n_valid, count, replace=False),
+                                              np.int64)).to(idx.device)
+        idx = idx[pos]
     return idx, count
+
+
+@functools.lru_cache(maxsize=1)
+def _choice(seed: int, n_valid: int, count: int, device: torch.device) -> torch.Tensor:
+    """numpy's ``default_rng(seed).choice(n_valid, count, replace=False)`` on `device`. A
+    function of its arguments alone, so a draw that repeats the one before it (the steps of a
+    pipeline drawing over the same pixels with one integer seed) reuses it."""
+    pos = np.random.default_rng(seed).choice(n_valid, count, replace=False)
+    return torch.from_numpy(np.asarray(pos, np.int64)).to(device)
 
 
 def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int, random_state: Any):
@@ -143,8 +156,9 @@ def _draw_pixels(grids: dict[str, Any], inlier_mask: Any, subsample: float | int
         rr, cc = np.unravel_index(idx.cpu().numpy(), tuple(first.shape))
         vals = dict(zip(dev, torch.stack([v.reshape(-1)[idx].float() for v in dev.values()]).cpu().numpy()))
         vals.update((k, v[rr, cc]) for k, v in host.items())
-        vals.update((k, np.asarray(v(rr, cc), dtype=np.float64)) for k, v in grids.items() if callable(v))
-        return rr, cc, count, vals
+    # The functions of the picks are the caller's variables, computed outside the draw.
+    vals.update((k, np.asarray(v(rr, cc), dtype=np.float64)) for k, v in grids.items() if callable(v))
+    return rr, cc, count, vals
 
 
 def _points_on_grid(pts: PointCloud, transform: Affine, device: torch.device):

@@ -11,6 +11,13 @@ multilinear interpolation. The variables are made on the device too: pixel coord
 (TerrainBias, through ``terrain.get_terrain_attribute``, so the CUDA kernels run on a CUDA
 tensor). For the fit, variables defined everywhere (pixel and rotated coordinates) are
 computed in float64 at the drawn pixels only.
+
+Spans (``xdem_tpu_torch.profiler.span``): ``coreg.biascorr.vars`` around each variable (a
+plane on the DEM's device, or a coordinate at the drawn pixels), ``coreg.biascorr.bin`` around
+the host binning (counters ``values`` and ``bins``), ``coreg.biascorr.fit`` around the host fit
+(counters ``evaluations``, the residual evaluations of its LM loops, and ``frequencies``, the
+sines a sum of sines keeps) and ``coreg.biascorr.apply`` around the correction plane and its
+addition; the draw keeps ``coreg.draw``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ from xdem_tpu_torch.fit import (
     sumsin_1d,
 )
 from xdem_tpu_torch.georef import Affine
+from xdem_tpu_torch.ops.transfer import host_array as _host
 from xdem_tpu_torch.pointcloud import PointCloud
+from xdem_tpu_torch.profiler import span
 
 # Workflow names mapped to (model function, robust optimizer).
 fit_workflows = {
@@ -41,6 +50,18 @@ fit_workflows = {
 }
 
 _DEVICE_MODELS = (polynomial_1d, polynomial_2d, sumsin_1d)
+
+_VARS, _BIN, _FIT, _APPLY = (f"xdem_tpu_torch.coreg.biascorr.{stage}" for stage in ("vars", "bin", "fit", "apply"))
+
+
+def _in_vars_span(fn: Callable, device: torch.device) -> Callable:
+    """`fn` of the drawn (rows, cols), evaluated inside the ``coreg.biascorr.vars`` span."""
+
+    def at_picks(rr, cc):
+        with span(_VARS, devices=[device]):
+            return fn(rr, cc)
+
+    return at_picks
 
 
 def _eval_fit_func_device(func: Callable, x_in: Any, params: torch.Tensor, n: int) -> torch.Tensor:
@@ -136,7 +157,10 @@ class BiasCorr(Coreg):
     # ------------------------------------------------- bin and/or fit the subsampled values
 
     def _bin_or_and_fit_biasvars(self, values: np.ndarray, bias_vars: dict[str, np.ndarray],
-                                 p0: np.ndarray | None = None, **kwargs: Any) -> None:
+                                 p0: np.ndarray | None = None, device: torch.device | None = None,
+                                 **kwargs: Any) -> None:
+        """Bin and/or fit the drawn `values` against `bias_vars`. With `device` (the grids'),
+        a binning by one variable into a number of bins with their median runs there."""
         from xdem_tpu_torch import spatialstats
 
         fb = self._meta["inputs"]["fitorbin"]
@@ -150,37 +174,49 @@ class BiasCorr(Coreg):
             bin_sizes = fb["bin_sizes"]
             if isinstance(bin_sizes, dict):
                 bin_sizes = [bin_sizes[k] for k in var_names]
-            df = spatialstats.nd_binning(values=values, list_var=list(bias_vars.values()), list_var_names=var_names,
-                                         list_var_bins=bin_sizes, statistics=("count", fb["bin_statistic"]))
+            with span(_BIN) as bin_span:
+                if (device is not None and len(var_names) == 1 and isinstance(bin_sizes, (int, np.integer))
+                        and fb["bin_statistic"] is np.nanmedian):
+                    df = spatialstats._nd_binning_median_1d(values, bias_vars[var_names[0]], var_names[0],
+                                                            int(bin_sizes), device)
+                else:
+                    df = spatialstats.nd_binning(values=values, list_var=list(bias_vars.values()),
+                                                 list_var_names=var_names, list_var_bins=bin_sizes,
+                                                 statistics=("count", fb["bin_statistic"]))
+                bin_span.count("values", int(np.size(values)))
+                bin_span.count("bins", len(df["count"]))
 
         if fit_or_bin in ("fit", "bin_and_fit"):
-            if fit_or_bin == "bin_and_fit":
-                rows = np.asarray(df["nd"]) == len(var_names)
-                xdata = [spatialstats._bin_mids(df, n)[rows] for n in var_names]
-                ydata = np.asarray(df[fb["bin_statistic"].__name__], dtype=np.float64)[rows]
-            else:
-                xdata = [np.asarray(v, dtype=np.float64).ravel() for v in bias_vars.values()]
-                ydata = np.asarray(values, dtype=np.float64).ravel()
-            valid = np.isfinite(ydata)
-            for xv in xdata:
-                valid &= np.isfinite(xv)
-            xfit = xdata[0][valid] if len(xdata) == 1 else tuple(xv[valid] for xv in xdata)
-            yfit = ydata[valid]
+            with span(_FIT) as fit_span:
+                if fit_or_bin == "bin_and_fit":
+                    rows = np.asarray(df["nd"]) == len(var_names)
+                    xdata = [spatialstats._bin_mids(df, n)[rows] for n in var_names]
+                    ydata = np.asarray(df[fb["bin_statistic"].__name__], dtype=np.float64)[rows]
+                else:
+                    xdata = [np.asarray(v, dtype=np.float64).ravel() for v in bias_vars.values()]
+                    ydata = np.asarray(values, dtype=np.float64).ravel()
+                valid = np.isfinite(ydata)
+                for xv in xdata:
+                    valid &= np.isfinite(xv)
+                xfit = xdata[0][valid] if len(xdata) == 1 else tuple(xv[valid] for xv in xdata)
+                yfit = ydata[valid]
 
-            optimizer = fb["fit_optimizer"]
-            if optimizer in (robust_norder_polynomial_fit, robust_nfreq_sumsin_fit):
-                params, _ = optimizer(xfit, yfit, random_state=self._meta["inputs"]["random"]["random_state"],
-                                      **{k: v for k, v in kwargs.items() if k in ("hop_length",)})
-            elif optimizer is not None:
-                params, *_ = optimizer(fb["fit_func"], xfit, yfit, p0=p0)
-            else:
-                fit_func = fb["fit_func"]
-                if p0 is None:
-                    # Size the initial guess from the model's signature f(x, p1, ..., pk).
-                    import inspect
+                optimizer = fb["fit_optimizer"]
+                if optimizer in (robust_norder_polynomial_fit, robust_nfreq_sumsin_fit):
+                    params, _ = optimizer(xfit, yfit, random_state=self._meta["inputs"]["random"]["random_state"],
+                                          **{k: v for k, v in kwargs.items() if k in ("hop_length",)})
+                elif optimizer is not None:
+                    params, *_ = optimizer(fb["fit_func"], xfit, yfit, p0=p0)
+                else:
+                    fit_func = fb["fit_func"]
+                    if p0 is None:
+                        # Size the initial guess from the model's signature f(x, p1, ..., pk).
+                        import inspect
 
-                    p0 = [1.0] * max(len(inspect.signature(fit_func).parameters) - 1, 1)
-                params = curve_fit_lm(fit_func, xfit, yfit, p0=list(p0))
+                        p0 = [1.0] * max(len(inspect.signature(fit_func).parameters) - 1, 1)
+                    params = curve_fit_lm(fit_func, xfit, yfit, p0=list(p0))
+                if fb["fit_func"] is sumsin_1d:
+                    fit_span.count("frequencies", len(params) // 3)
 
         self._meta["outputs"]["fitorbin"] = {"fit_params": params, "bin_dataframe": df}
 
@@ -207,11 +243,13 @@ class BiasCorr(Coreg):
                 "instantiation: {}.".format(fb["bias_var_names"])
             )
         p = self._meta["inputs"]["random"]
+        device = _grid_side(ref_elev, tba_elev).device
+        bias_vars = {k: _in_vars_span(v, device) if callable(v) else v for k, v in bias_vars.items()}
         sub_ref, sub_tba, _, _, sub_aux = _subsample_pair_values(
             ref_elev, tba_elev, inlier_mask, transform, p["subsample"], p["random_state"], aux_vars=bias_vars,
         )
         diff = sub_ref - sub_tba
-        self._bin_or_and_fit_biasvars(diff, {k: sub_aux[k] for k in bias_vars}, p0=p0, **kwargs)
+        self._bin_or_and_fit_biasvars(diff, {k: sub_aux[k] for k in bias_vars}, p0=p0, device=device, **kwargs)
         self._meta["outputs"]["random"] = {"subsample_final": len(diff)}
 
     # ------------------------------------------------- apply
@@ -219,7 +257,10 @@ class BiasCorr(Coreg):
     def _apply_func(self, elev, bias_vars=None, transform=None, crs=None, **kwargs):
         if isinstance(elev, PointCloud):
             raise NotImplementedCoregApply("BiasCorr apply is implemented for rasters.")
-        return elev + self._correction(elev, transform, bias_vars, **kwargs), transform
+        with span(_VARS, devices=[elev.device]):
+            vars_ = self._apply_vars(elev, transform, bias_vars)
+        with span(_APPLY, devices=[elev.device]):
+            return elev + self._correction(elev, vars_, **kwargs), transform
 
     def _apply_vars(self, elev: torch.Tensor, transform: Affine, bias_vars: dict[str, torch.Tensor] | None):
         """The bias variables over the whole raster, as tensors on its device."""
@@ -227,13 +268,13 @@ class BiasCorr(Coreg):
             raise ValueError("At least one `bias_var` should be passed to the `apply` function, got None.")
         return bias_vars
 
-    def _correction(self, elev: torch.Tensor, transform: Affine, bias_vars, **kwargs) -> torch.Tensor:
-        """The fitted (or binned) correction over the raster, float32 on its device."""
+    def _correction(self, elev: torch.Tensor, vars_: dict[str, torch.Tensor], **kwargs) -> torch.Tensor:
+        """The fitted (or binned) correction over the raster at the variables `vars_`, float32
+        on its device."""
         from xdem_tpu_torch import spatialstats
 
         fb = self._meta["inputs"]["fitorbin"]
         names = fb["bias_var_names"]
-        vars_ = self._apply_vars(elev, transform, bias_vars)
         if sorted(vars_.keys()) != sorted(names):
             raise ValueError(
                 "The keys of `bias_vars` do not match the `bias_var_names` defined during "
@@ -344,9 +385,10 @@ class TerrainBias(BiasCorr):
     def _fit_rst_rst(self, ref_elev, tba_elev, inlier_mask, transform, crs, z_name="z", bias_vars=None,
                      weights=None, **kwargs):
         name = self._meta["inputs"]["specific"]["terrain_attribute"]
-        self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform,
-                           bias_vars={name: self._terrain_var(_grid_side(ref_elev, tba_elev), transform, bias_vars)},
-                           **kwargs)
+        grid = _grid_side(ref_elev, tba_elev)
+        with span(_VARS, devices=[grid.device]):
+            plane = self._terrain_var(grid, transform, bias_vars)
+        self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform, bias_vars={name: plane}, **kwargs)
 
     def _apply_vars(self, elev, transform, bias_vars):
         name = self._meta["inputs"]["specific"]["terrain_attribute"]
@@ -379,24 +421,33 @@ class Deramp(BiasCorr):
         self._fit_biascorr(ref_elev, tba_elev, inlier_mask, transform,
                            bias_vars={"xx": lambda rr, cc: cc, "yy": lambda rr, cc: rr}, p0=p0, **kwargs)
 
-    def _bin_or_and_fit_biasvars(self, values, bias_vars, p0=None, **kwargs):
-        # The 2-D polynomial is linear in its coefficients: one least-squares solve in
-        # normalised coordinates, coefficients rescaled back.
+    def _bin_or_and_fit_biasvars(self, values, bias_vars, p0=None, device=None, **kwargs):
+        # The 2-D polynomial is linear in its coefficients: a float64 least-squares solve in
+        # normalised coordinates through the normal equations, formed on `device` (the
+        # monomials as rows; one refinement step on the residual; the minimum-norm solution
+        # where they are singular), coefficients rescaled back.
         fb = self._meta["inputs"]["fitorbin"]
         if fb["fit_or_bin"] != "fit":
-            super()._bin_or_and_fit_biasvars(values, bias_vars, p0=p0, **kwargs)
+            super()._bin_or_and_fit_biasvars(values, bias_vars, p0=p0, device=device, **kwargs)
             return
         order = self._meta["inputs"]["specific"]["poly_order"] + 1
-        x = np.asarray(bias_vars["xx"], dtype=np.float64).ravel()
-        y = np.asarray(bias_vars["yy"], dtype=np.float64).ravel()
-        v = np.asarray(values, dtype=np.float64).ravel()
-        ok = np.isfinite(v) & np.isfinite(x) & np.isfinite(y)
-        sx = max(np.max(np.abs(x[ok])), 1.0)
-        sy = max(np.max(np.abs(y[ok])), 1.0)
-        xn, yn = x[ok] / sx, y[ok] / sy
-        A = np.stack([(xn**i) * (yn**j) for i in range(order) for j in range(order)], axis=1)
-        params_n, *_ = np.linalg.lstsq(A, v[ok], rcond=None)
-        scale = np.array([sx**i * sy**j for i in range(order) for j in range(order)])
+        with span(_FIT):
+            x, y, v = (torch.from_numpy(np.asarray(a, dtype=np.float64).ravel()).to(device or "cpu")
+                       for a in (bias_vars["xx"], bias_vars["yy"], values))
+            ok = torch.isfinite(v) & torch.isfinite(x) & torch.isfinite(y)
+            x, y, v = x[ok], y[ok], v[ok]
+            sx, sy = (max(m, 1.0) for m in torch.stack([x.abs().max(), y.abs().max()]).tolist())
+            xn, yn = x / sx, y / sy
+            px, py = [torch.ones_like(xn)], [torch.ones_like(yn)]
+            for _ in range(order - 1):
+                px.append(px[-1] * xn)
+                py.append(py[-1] * yn)
+            At = torch.stack([px[i] * py[j] for i in range(order) for j in range(order)])
+            gram = _host(At @ At.T)
+            params_n = np.linalg.lstsq(gram, _host(At @ v), rcond=None)[0]
+            residual = v - torch.from_numpy(params_n).to(v.device) @ At
+            params_n += np.linalg.lstsq(gram, _host(At @ residual), rcond=None)[0]
+            scale = np.array([sx**i * sy**j for i in range(order) for j in range(order)])
         fb["bias_var_names"] = list(bias_vars.keys())
         self._meta["outputs"]["fitorbin"] = {"fit_params": params_n / scale, "bin_dataframe": None}
 

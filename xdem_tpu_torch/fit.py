@@ -3,10 +3,10 @@
 Port of xdem_tpu/fit.py. The models evaluate on numpy arrays or torch tensors. The
 Levenberg-Marquardt solver runs in float32 on the device of its data (numpy data, such as a
 table of bin medians, stay on the host CPU), a Python loop whose stop test reads the step's
-acceptance once per iteration, with ``torch.func.jacfwd`` for the Jacobian and ``J.T @ J`` at
-full float32 (TF32 stays off). The polynomial fits are robust
-IRLS in float64 on the host; the sum of sines is a periodogram over a wavelength grid, then a
-joint LM polish.
+acceptance once per iteration, with ``torch.func.jacfwd`` for the Jacobian (the sum of sines
+gives its own in closed form) and ``J.T @ J`` at full float32 (TF32 stays off). The polynomial
+fits are robust IRLS in float64 on the host; the sum of sines is a periodogram over a
+wavelength grid, then a joint LM polish.
 
 ``linear_pkg="sklearn"`` needs scikit-learn, which this package does not depend on: it is
 imported only when asked for, and its absence raises an ImportError that names it.
@@ -21,6 +21,7 @@ from typing import Any, Callable, Literal, Sequence
 import numpy as np
 import torch
 
+from xdem_tpu_torch import profiler
 from xdem_tpu_torch._device import as_tensor
 from xdem_tpu_torch.ops.transfer import unmask
 
@@ -112,16 +113,30 @@ def polynomial_2d(xx: tuple[Any, Any], *params: float) -> Any:
 
 
 def _lm_loop(residual_fn: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor, max_iter: int, tol: float,
-             lam0: float) -> tuple[torch.Tensor, torch.Tensor]:
+             lam0: float, jac_fn: Callable[[torch.Tensor], torch.Tensor] | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Levenberg-Marquardt in float32 on the device of `p0`: damped normal equations with a
     diagonal scaled by max(diag(J^T J), 1e-12), a step accepted only when it lowers the cost
     (the damping x0.3 on acceptance, x3 otherwise). Stops after `max_iter` steps, when an
     accepted step improves the cost by no more than `tol` of it, or when the damping reaches
-    1e12. Returns (parameters, cost)."""
-    jac = torch.func.jacfwd(residual_fn)
+    1e12. The Jacobian is `jac_fn`'s, else ``torch.func.jacfwd`` of `residual_fn`. Returns
+    (parameters, cost). Adds its calls of `residual_fn` and of the Jacobian (each counts as
+    one) to the ``evaluations`` counter of the span it runs in."""
+    evaluations = 0
+
+    def counting(fn):
+        def call(p):
+            nonlocal evaluations
+            evaluations += 1
+            return fn(p)
+
+        return call
+
+    counted = counting(residual_fn)
+    jac = counting(jac_fn) if jac_fn is not None else torch.func.jacfwd(counted)
 
     def cost(p):
-        r = residual_fn(p)
+        r = counted(p)
         return 0.5 * torch.sum(r * r)
 
     p = p0.to(torch.float32)
@@ -129,7 +144,7 @@ def _lm_loop(residual_fn: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tens
     c = cost(p)
     it, keep_going, lam_f = 0, True, float(lam)
     while it < max_iter and keep_going and lam_f < 1e12:
-        r = residual_fn(p)
+        r = counted(p)
         J = jac(p)
         JTJ = J.T @ J
         A = JTJ + lam * torch.diag(torch.clamp(torch.diagonal(JTJ), min=1e-12))
@@ -142,6 +157,7 @@ def _lm_loop(residual_fn: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tens
         c = torch.where(accept, c_new, c)
         keep_going, lam_f = torch.stack([(improved | ~accept).to(p.dtype), lam]).tolist()
         it += 1
+    profiler.count("evaluations", evaluations)
     return p, c
 
 
@@ -366,13 +382,37 @@ def robust_nfreq_sumsin_fit(
     return np.round(p.ravel(), 5), p.shape[0]
 
 
+def _sumsin_residual_and_jacobian(x: torch.Tensor, y: torch.Tensor):
+    """The residual ``sumsin_1d(x, *p) - y`` of flat sum-of-sines parameters p (its terms in
+    `sumsin_1d`'s order, so the same bits), and its Jacobian in closed form: for each sine
+    a sin(k x + phi), k = 2 pi / L, the columns sin, -a cos (k / L) x and a cos."""
+    xc = x.reshape(-1)[:, None]
+
+    def residual(p):
+        q = p.reshape(-1, 3)
+        return torch.sum(q[:, 0][None, :] * torch.sin(2 * torch.pi / q[:, 1][None, :] * xc + q[:, 2][None, :]),
+                         dim=1) - y
+
+    def jacobian(p):
+        q = p.reshape(-1, 3)
+        k = 2 * torch.pi / q[:, 1]
+        theta = k[None, :] * xc + q[:, 2][None, :]
+        a_cos = q[:, 0][None, :] * torch.cos(theta)
+        d_wavelength = -a_cos * (k / q[:, 1])[None, :] * xc
+        return torch.stack([torch.sin(theta), d_wavelength, a_cos], dim=2).reshape(xc.shape[0], -1)
+
+    return residual, jacobian
+
+
 def _polish_sumsin(x: np.ndarray, y: np.ndarray, p0: np.ndarray, n_iter: int = 30) -> np.ndarray:
     """Joint LM refinement of sum-of-sines parameters (on the host: a few hundred points at
-    most), canonicalised to positive amplitudes and wavelengths without changing the model."""
+    most; the Jacobian in closed form), canonicalised to positive amplitudes and wavelengths
+    without changing the model."""
     yt = as_tensor(y, device="cpu")
     xt = as_tensor(x, device="cpu")
-    p, _ = _lm_data(sumsin_1d, xt, yt, 1.0, torch.tensor(p0, dtype=torch.float32, device=yt.device),
-                    n_params=len(p0), max_iter=n_iter)
+    residual, jacobian = _sumsin_residual_and_jacobian(xt, yt)
+    p, _ = _lm_loop(residual, torch.tensor(p0, dtype=torch.float32, device=yt.device), n_iter, 1e-10, 1e-3,
+                    jac_fn=jacobian)
     out = p.double().cpu().numpy()
     #   a sin(2 pi x / L + phi), L < 0  ==  -a sin(2 pi x / |L| - phi)
     #   a sin(... + phi), a < 0         ==  |a| sin(... + phi + pi)

@@ -183,6 +183,17 @@ def span(name: str, devices: Iterable[Any] = ()) -> Any:
     return _Span(name, devices)
 
 
+def count(key: str, n: int = 1) -> None:
+    """Add `n` to the counter `key` of the innermost span open on this thread, for a stage that
+    counts work inside a span it does not open; outside any span, or while no profiler records,
+    nothing (one flag check)."""
+    if not _recording():
+        return
+    stack = _SPANS.stack()
+    if stack:
+        stack[-1].count(key, n)
+
+
 def spans() -> list[SpanRecord]:
     """The closed spans of the newest profiler session, in the order they closed, with each
     card's stream milliseconds (each exit event is waited for: call once the work is done)."""

@@ -197,6 +197,30 @@ def nd_binning(
     return table
 
 
+def _nd_binning_median_1d(values: Any, var: Any, name: str, n_bins: int, device: torch.device) -> Table:
+    """``nd_binning(values, [var], [name], n_bins, statistics=("count", np.nanmedian))``
+    computed on `device`, the same table to the bit: the edges numpy's ``linspace`` between
+    the jointly valid variable's extremes, each bin what ``np.digitize`` gives (a
+    ``searchsorted`` on the right), each median the middle value or the mean of the middle
+    two (``binned_median``), as numpy's. Only the extremes, the counts and the medians reach
+    the host."""
+    vals, x = ((a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a, dtype=np.float64)))
+               .reshape(-1).to(device=device, dtype=torch.float64) for a in (values, var))
+    valid = torch.isfinite(vals) & torch.isfinite(x)
+    n_valid, lo, hi = torch.stack([valid.sum().double(), torch.where(valid, x, torch.inf).amin(),
+                                   torch.where(valid, x, -torch.inf).amax()]).tolist()
+    if n_valid == 0:  # nd_binning raises its own error
+        return nd_binning(_host(vals), [_host(x)], [name], n_bins, statistics=("count", np.nanmedian))
+    edges = np.linspace(np.float64(lo), np.float64(hi), n_bins + 1)
+    e = torch.from_numpy(edges).to(device)
+    # Every valid value lies within the edges (they start and end at its extremes).
+    ids = torch.where(valid, torch.clamp(torch.searchsorted(e, x, right=True) - 1, 0, n_bins - 1), n_bins)
+    counts = torch.bincount(ids, minlength=n_bins + 1)[:n_bins]
+    medians = binned_median(vals, ids, ids < n_bins, n_bins)
+    return {"count": _host(counts).astype(np.int64), np.nanmedian.__name__: _host(medians).astype(np.float64),
+            f"{name}_left": edges[:-1].copy(), f"{name}_right": edges[1:].copy(), "nd": np.ones(n_bins, dtype=np.int64)}
+
+
 def _bin_mids(df: Any, name: str) -> np.ndarray:
     """Bin midpoints of variable `name`: 0.5 * (left + right) of its edge columns, or its
     numeric column of mid values."""
